@@ -19,6 +19,12 @@ failed check. Phases:
    count, plus a small stream checked against float64 numpy references;
 4. macro leg: ``MulticlassAccuracy(average="macro", num_classes=1000)`` over
    8 chunks of 2^22 rows, checked against the plain histogram;
+   top-k leg: ``TopKMultilabelAccuracy(k=5, criteria="contain")`` over 4
+   batches of (8192, 10000) scores, every criterion's counts checked
+   against the plain top-k and the first 64 rows against a float64 numpy
+   reference;
+   retrieval leg: ``NDCG(k=10)`` and ``NDCG(k=100)`` over 4 batches of
+   (64, 1,000,000) scores, checked against the dense (sorting) route;
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4), time per launch, the plain version's and a library call's time, and
    the least time the card could take (its bound).
@@ -44,6 +50,12 @@ THRESHOLD = 6 * HEADLINE_CHUNK
 MACRO_CLASSES = 1000
 MACRO_CHUNK = 1 << 22
 MACRO_CHUNKS = 8
+# BASELINE config 4 (bench.py:735-827) and config 6 (bench.py:1779-1818)
+TOPK_ROWS, TOPK_LABELS, TOPK_K, TOPK_BATCHES = 8192, 10_000, 5, 4
+RETRIEVAL_ROWS, RETRIEVAL_LABELS, RETRIEVAL_BATCHES = 64, 1_000_000, 4
+RETRIEVAL_KS = (10, 100)
+TARGET_DENSITY = 1e-3
+CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-5, 1e-8
@@ -155,6 +167,54 @@ def check_compact_counts(dev, gen, scores, targets):
                  f"{name}: NaN padding")
         print(f"  compact_counts_fast == compact_counts ({name}, n={s.shape[0]}, "
               f"n_unique={nl}, nan_dropped={int(a[4])}): live rows bit-equal, padding NaN")
+
+
+def _topk_cases(dev, gen):
+    """(name, x, k): random rows at both legs' shapes, then ties, equal
+    rows, float specials, ragged widths and the k edges."""
+    def rand(n, l):
+        return torch.rand((n, l), generator=gen, device=dev)
+
+    def ties(n, l):
+        return torch.randint(-3, 4, (n, l), generator=gen, device=dev).float()
+
+    special = ties(64, 12345)
+    special[0::4, ::3] = float("nan")
+    special[0::4, 1::3] = -float("nan")
+    special[1::4, ::2] = -0.0
+    special[1::4, 1::2] = 0.0
+    special[2::4, ::5] = float("inf")
+    special[2::4, 1::5] = float("-inf")
+    special[3::4] = float("-inf")
+    special[3::4, 777] = float("nan")
+    return [
+        ("random 8192x10000", rand(TOPK_ROWS, TOPK_LABELS), TOPK_K),
+        ("random 64x1000000 k=100", rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS), 100),
+        ("ideal ranking 64x1000000 k=100", (rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS) < TARGET_DENSITY).float(), 100),
+        ("all equal", torch.full((256, 10_000), 0.5, device=dev), 128),
+        ("heavy ties", ties(1024, 10_000), 128),
+        ("+-inf, +-0.0, +-NaN", special, 64),
+        ("ragged L=12345 k=1", rand(300, 12345), 1),
+        ("L=1025 k=128", ties(500, 1025), 128),
+        ("k=L=128", ties(500, 128), 128),
+        ("k=L=100", rand(500, 100), 100),
+    ]
+
+
+def check_topk(dev, gen):
+    from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
+
+    worst = 0.0
+    for name, x, k in _topk_cases(dev, gen):
+        v, i = topk_kernel(x, k)
+        pv, pi = topk_kernel_plain(x, k)
+        torch.cuda.synchronize()
+        _require(torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi),
+                 f"topk {name}")
+        both = torch.isfinite(v) & torch.isfinite(pv)
+        worst = max(worst, float((v[both] - pv[both]).abs().max()) if bool(both.any()) else 0.0)
+        print(f"  topk {name} {tuple(x.shape)} k={k}: bit-equal values and indices")
+    return worst
 
 
 # ------------------------------------------------------------------ phase 3
@@ -279,6 +339,103 @@ def macro_leg(dev, gen):
     return value, update_ms
 
 
+def topk_leg_data(dev, gen):
+    return [
+        (torch.rand((TOPK_ROWS, TOPK_LABELS), generator=gen, device=dev),
+         (torch.rand((TOPK_ROWS, TOPK_LABELS), generator=gen, device=dev) < TARGET_DENSITY).to(torch.int32))
+        for _ in range(TOPK_BATCHES)
+    ]
+
+
+def topk_leg(dev, batches):
+    from torcheval_tpu_torch.metrics import TopKMultilabelAccuracy
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc = TopKMultilabelAccuracy(k=TOPK_K, criteria="contain", device=dev)
+    for scores, target in batches:
+        acc.update(scores, target)
+    value = float(acc.compute())
+    end.record()
+    end.synchronize()
+    return acc, value, start.elapsed_time(end) / 1e3, torch.cuda.max_memory_allocated(dev)
+
+
+def _numpy_topk_accuracy(scores, target, criteria):
+    """float64 accuracy of a few rows: a stable descending sort on the
+    total-order key of each float32 score."""
+    b = scores.view(np.int32).astype(np.int64)
+    key = b ^ ((b >> 31) & 0x7FFFFFFF)
+    idx = np.argsort(-key, axis=1, kind="stable")[:, :TOPK_K]
+    tgt = target != 0
+    inter = np.take_along_axis(tgt, idx, axis=1).sum(1).astype(np.float64)
+    t_count = tgt.sum(1).astype(np.float64)
+    if criteria == "hamming":
+        return float(np.mean(tgt.shape[1] - (TOPK_K + t_count - 2 * inter)) / tgt.shape[1])
+    correct = {
+        "exact_match": (inter == TOPK_K) & (t_count == TOPK_K),
+        "overlap": inter > 0,
+        "contain": inter == t_count,
+        "belong": inter == TOPK_K,
+    }[criteria]
+    return float(np.mean(correct))
+
+
+def check_topk_leg(dev, batches):
+    from torcheval_tpu_torch.metrics import TopKMultilabelAccuracy
+    from torcheval_tpu_torch.metrics.functional import topk_multilabel_accuracy
+    from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
+        _topk_multilabel_stats,
+    )
+
+    head_s = batches[0][0][:64]
+    head_t = batches[0][1][:64]
+    np_s, np_t = head_s.cpu().numpy(), head_t.cpu().numpy()
+    for criteria in CRITERIA:
+        m = TopKMultilabelAccuracy(k=TOPK_K, criteria=criteria, device=dev)
+        correct = total = 0
+        for scores, target in batches:
+            m.update(scores, target)
+            # the plain route: the dense top-k, a stable sort on the card
+            c, t = _topk_multilabel_stats(scores, target, criteria, TOPK_K, "dense")
+            correct, total = correct + int(c), total + int(t)
+        _require(int(m.num_correct) == correct and int(m.num_total) == total,
+                 f"top-k {criteria} counts {int(m.num_correct)}/{int(m.num_total)} vs plain {correct}/{total}")
+        got = float(topk_multilabel_accuracy(head_s, head_t, criteria=criteria, k=TOPK_K))
+        want = _numpy_topk_accuracy(np_s, np_t, criteria)
+        _require(_close(got, want), f"top-k {criteria} first 64 rows {got} vs numpy {want}")
+        print(f"  {criteria}: {int(m.num_correct)}/{int(m.num_total)} equal to the plain top-k; "
+              f"first 64 rows {got:.8f} vs float64 numpy {want:.8f}")
+
+
+def retrieval_leg_data(dev, gen):
+    shape = (RETRIEVAL_ROWS, RETRIEVAL_LABELS)
+    return [
+        (torch.rand(shape, generator=gen, device=dev),
+         (torch.rand(shape, generator=gen, device=dev) < TARGET_DENSITY).to(torch.float32))
+        for _ in range(RETRIEVAL_BATCHES)
+    ]
+
+
+def retrieval_leg(dev, batches, k, topk_method="auto"):
+    from torcheval_tpu_torch.metrics import NDCG
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ndcg = NDCG(k=k, topk_method=topk_method, device=dev)
+    for scores, target in batches:
+        ndcg.update(scores, target)
+    value = float(ndcg.compute())
+    end.record()
+    end.synchronize()
+    return ndcg, value, start.elapsed_time(end) / 1e3
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -322,7 +479,36 @@ def kernel_rows(dev, gen, timer, launches, errs, fold):
         "library_ms": timer.ms(lambda: stacked[:, keep]),
         "shape": f"first AUROC fold: {n} rows, {int(keep.sum())} kept",
     })
+    rows.append(topk_row(dev, gen, timer, launches["topk"], errs["topk"]))
     return rows
+
+
+def topk_row(dev, gen, timer, launches, err):
+    from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
+
+    def times(n, l, k):
+        x = torch.rand((n, l), generator=gen, device=dev)
+        # each score read once, each value (4 B) and int64 index (8 B) written once
+        return {
+            "ms": timer.ms(lambda: topk_kernel(x, k)),
+            "plain_ms": timer.ms(lambda: topk_kernel_plain(x, k)),
+            "bound_ms": (n * l * 4 + n * k * 12) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": timer.ms(lambda: torch.topk(x, k)),
+        }
+
+    row = {
+        "name": "topk",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/topk.cu",
+        "replaces": "torcheval_tpu/ops/topk.py:206",
+        "launches": launches,
+        "max_abs_err": err,
+        **times(TOPK_ROWS, TOPK_LABELS, TOPK_K),
+        "bound_by": "bytes",
+        "shape": f"({TOPK_ROWS}, {TOPK_LABELS}) float32, k={TOPK_K}",
+    }
+    row["at_64x1000000_k100"] = times(RETRIEVAL_ROWS, RETRIEVAL_LABELS, 100)
+    return row
 
 
 def first_fold_inputs(chunks):
@@ -344,6 +530,7 @@ def main() -> int:
     from torcheval_tpu_torch import _build
     from torcheval_tpu_torch.ops.hist import hist
     from torcheval_tpu_torch.ops.stream_compact import stream_compact
+    from torcheval_tpu_torch.ops.topk import topk_kernel
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -365,7 +552,8 @@ def main() -> int:
     fold_scores, fold_t, fold = first_fold_inputs(chunks)
 
     print("phase 2 kernels against their plain versions")
-    errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen)}
+    errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen),
+            "topk": check_topk(dev, gen)}
     check_compact_counts(dev, gen, fold_scores, fold_t)
     del fold_scores, fold_t
     torch.cuda.synchronize()
@@ -402,13 +590,53 @@ def main() -> int:
           f"histogram); update time {update_ms:.3f} ms: {macro_total / update_ms * 1e3:.1f} "
           f"preds/s; launches {macro_launches}")
 
+    print("phase 4 top-k leg (BASELINE config 4)")
+    batches = topk_leg_data(dev, gen)
+    topk_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
+    topk_kernel.launches = 0
+    _, topk_v, topk_s, topk_peak = topk_leg(dev, batches)
+    topk_launches = topk_kernel.launches
+    _require(topk_launches > 0, "topk launched on the top-k leg")
+    n_rows = TOPK_BATCHES * TOPK_ROWS
+    print(f"  contain accuracy {topk_v:.8f} over {n_rows} rows of {TOPK_LABELS} labels in "
+          f"{topk_s:.4f} s (CUDA events): {n_rows / topk_s:.1f} rows/s; topk launches "
+          f"{topk_launches}; peak memory {topk_peak / 2**30:.2f} GiB (incl. {TOPK_BATCHES} "
+          f"resident batches)")
+    check_topk_leg(dev, batches)
+    del batches
+    torch.cuda.empty_cache()
+
+    print("phase 4 retrieval leg (BASELINE config 6)")
+    batches = retrieval_leg_data(dev, gen)
+    retrieval_launches = 0
+    for k in RETRIEVAL_KS:
+        retrieval_leg(dev, batches, k)  # warm-up
+        topk_kernel.launches = 0
+        ndcg, value, seconds = retrieval_leg(dev, batches, k)
+        launched = topk_kernel.launches
+        retrieval_launches += launched
+        _require(launched > 0 and np.isfinite(value), f"NDCG@{k} launched the kernel, finite")
+        plain, plain_value, _ = retrieval_leg(dev, batches, k, topk_method="dense")
+        _require(int(ndcg.num_valid) == int(plain.num_valid) and _close(value, plain_value),
+                 f"NDCG@{k} {value} vs dense route {plain_value}")
+        n_rows = RETRIEVAL_BATCHES * RETRIEVAL_ROWS
+        print(f"  NDCG@{k} {value:.8f} (dense route {plain_value:.8f}) over {n_rows} rows of "
+              f"{RETRIEVAL_LABELS} labels in {seconds:.4f} s (CUDA events): {n_rows / seconds:.1f} "
+              f"rows/s; topk launches {launched}")
+    del batches
+    torch.cuda.empty_cache()
+
     print("phase 5 kernel timings at the main path's shapes")
     launches = {k: headline_launches[k] + macro_launches[k] for k in headline_launches}
+    launches["topk"] = topk_launches + retrieval_launches
     rows = kernel_rows(dev, gen, Timer(dev), launches, errs, fold)
     torch.cuda.synchronize()
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}) at {r['shape']}")
+    big = rows[-1]["at_64x1000000_k100"]
+    print(f"  topk: {big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, library "
+          f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f}) at (64, 1000000) float32, k=100")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

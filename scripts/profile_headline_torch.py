@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time of the port's headline leg goes, on one CUDA device.
+"""Where the time of one of the port's legs goes, on one CUDA device.
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py
+    python3 scripts/profile_headline_torch.py [--leg headline|topk|ndcg10|ndcg100]
 
-It builds the headline leg of ``chip_smoke.py`` (MulticlassAccuracy over 5
-classes plus BinaryAUROC with compaction_threshold = 6 * 2^24, 16 chunks of
-2^24 predictions, data made on the card from a seed), runs it once to warm
-up, then once under ``torch.profiler``. It prints the wall time of both
-runs, the device's busy time (the union of the intervals in which a kernel,
-copy or memset ran) and idle share over the profiled run, and the device
-time by kernel name (top 25). Exits non-zero without a CUDA device or when
-the profiler records no device activity.
+It builds one leg of ``chip_smoke.py`` with its data made on the card from
+a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
+BinaryAUROC with compaction_threshold = 6 * 2^24, 16 chunks of 2^24
+predictions), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
+(8192, 10000) scores) or ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
+over 4 batches of (64, 1,000,000) scores). It runs the leg once to warm up,
+then once under ``torch.profiler``, and prints the wall time of both runs,
+the device's busy time (the union of the intervals in which a kernel, copy
+or memset ran) and idle share over the profiled run, and the device time by
+kernel name (top 25). Exits non-zero without a CUDA device or when the
+profiler records no device activity.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
-import time
 from collections import defaultdict
 
 import torch
@@ -40,7 +43,40 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _leg(cs, name, dev, gen):
+    """``(run, count, unit)``: ``run()`` drives the leg once and returns
+    ``(seconds, values)``; ``count`` units make one run."""
+    if name == "headline":
+        chunks = cs.headline_data(dev, gen)
+
+        def run():
+            _, acc_v, auroc_v, seconds, _, _ = cs.headline_leg(dev, chunks)
+            return seconds, (acc_v, auroc_v)
+
+        return run, cs.HEADLINE_CHUNKS * cs.HEADLINE_CHUNK, "preds"
+    if name == "topk":
+        batches = cs.topk_leg_data(dev, gen)
+
+        def run():
+            _, value, seconds, _ = cs.topk_leg(dev, batches)
+            return seconds, (value,)
+
+        return run, cs.TOPK_BATCHES * cs.TOPK_ROWS, "rows"
+    k = int(name[len("ndcg"):])
+    batches = cs.retrieval_leg_data(dev, gen)
+
+    def run():
+        _, value, seconds = cs.retrieval_leg(dev, batches, k)
+        return seconds, (value,)
+
+    return run, cs.RETRIEVAL_BATCHES * cs.RETRIEVAL_ROWS, "rows"
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--leg", choices=("headline", "topk", "ndcg10", "ndcg100"),
+                        default="headline")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_headline_torch: no CUDA device.", file=sys.stderr)
         return 1
@@ -49,14 +85,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    chunks = cs.headline_data(dev, gen)
-    total = cs.HEADLINE_CHUNKS * cs.HEADLINE_CHUNK
-    _, acc_v, auroc_v, warm_s, _, _ = cs.headline_leg(dev, chunks)
-    print(f"warm-up run: {warm_s:.4f} s, {total / warm_s:.1f} preds/s "
-          f"(accuracy {acc_v:.8f}, AUROC {auroc_v:.8f})")
+    run, total, unit = _leg(cs, args.leg, dev, gen)
+    warm_s, values = run()
+    print(f"{args.leg} warm-up run: {warm_s:.4f} s, {total / warm_s:.1f} {unit}/s "
+          f"(values {values})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, acc_v, auroc_v, run_s, _, _ = cs.headline_leg(dev, chunks)
-    print(f"profiled run: {run_s:.4f} s, {total / run_s:.1f} preds/s")
+        run_s, _ = run()
+    print(f"profiled run: {run_s:.4f} s, {total / run_s:.1f} {unit}/s")
     # device-side events only (kernels, copies, memsets): the aten:: rows of
     # key_averages() repeat their kernels' time
     device = [

@@ -12,8 +12,23 @@ import torch
 import torcheval_tpu.metrics as J
 from torcheval_tpu.metrics.functional import binary_accuracy as jax_binary_accuracy
 from torcheval_tpu.metrics.functional import multiclass_accuracy as jax_multiclass_accuracy
-from torcheval_tpu_torch.metrics import BinaryAccuracy, MulticlassAccuracy
-from torcheval_tpu_torch.metrics.functional import binary_accuracy, multiclass_accuracy
+from torcheval_tpu.metrics.functional import multilabel_accuracy as jax_multilabel_accuracy
+from torcheval_tpu.metrics.functional import (
+    topk_multilabel_accuracy as jax_topk_multilabel_accuracy,
+)
+from torcheval_tpu_torch.metrics import (
+    BinaryAccuracy,
+    MulticlassAccuracy,
+    MultilabelAccuracy,
+    TopKMultilabelAccuracy,
+)
+from torcheval_tpu_torch.metrics.functional import (
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
+    topk_multilabel_accuracy,
+)
+from torcheval_tpu_torch.ops.topk import topk_kernel
 
 RTOL, ATOL = 1e-5, 1e-8
 
@@ -128,3 +143,105 @@ def test_param_and_input_checks():
         m.update(torch.rand(4, 3), torch.zeros(5, dtype=torch.int64))
     with pytest.raises(ValueError, match="shape"):
         BinaryAccuracy(device="cpu").update(torch.rand(4), torch.rand(5))
+
+
+# --------------------------------------------------------------- multilabel
+CRITERIA = ["exact_match", "hamming", "overlap", "contain", "belong"]
+
+
+def _multilabel_data(n=400, c=1300, seed=0, ties=False):
+    """Scores past the top-k engine's dense threshold (1024 labels) and
+    sparse int32 targets; with ``ties`` the scores are quantised to 4 levels,
+    so the top-k set rests on the lowest-index tie order."""
+    rng = np.random.default_rng(seed)
+    scores = rng.random((n, c), dtype=np.float32)
+    if ties:
+        scores = np.floor(scores * 4) / 4
+    target = (rng.random((n, c)) < 0.002).astype(np.int32)
+    target[:10, :3] = 1  # rows whose positives are the top of a tie
+    return scores, target
+
+
+@pytest.mark.parametrize("criteria", CRITERIA)
+@pytest.mark.parametrize("threshold", [0.5, 0.999])
+def test_functional_multilabel_matches_jax(criteria, threshold):
+    scores, target = _multilabel_data(n=300, c=12, seed=7)
+    target = (np.random.default_rng(8).random((300, 12)) < 0.4).astype(np.int32)
+    target[:5] = (scores[:5] >= threshold)  # exact matches exist
+    _close(
+        multilabel_accuracy(scores, target, threshold=threshold, criteria=criteria),
+        jax_multilabel_accuracy(scores, target, threshold=threshold, criteria=criteria),
+    )
+
+
+@pytest.mark.parametrize("criteria", CRITERIA)
+@pytest.mark.parametrize("k", [2, 5])
+@pytest.mark.parametrize("ties", [False, True])
+def test_functional_topk_multilabel_matches_jax(criteria, k, ties):
+    scores, target = _multilabel_data(seed=9 + k, ties=ties)
+    want = jax_topk_multilabel_accuracy(scores, target, criteria=criteria, k=k)
+    for method in ("auto", "dense", "prune", "kernel"):
+        got = topk_multilabel_accuracy(
+            scores, target, criteria=criteria, k=k, topk_method=method
+        )
+        _close(got, want)
+
+
+@pytest.mark.parametrize("criteria", CRITERIA)
+def test_streaming_multilabel_matches_jax(criteria):
+    rng = np.random.default_rng(11)
+    scores = rng.random((500, 9)).astype(np.float32)
+    target = (rng.random((500, 9)) < 0.5).astype(np.float32)
+    ours = MultilabelAccuracy(threshold=0.6, criteria=criteria, device="cpu")
+    theirs = J.MultilabelAccuracy(threshold=0.6, criteria=criteria)
+    for i in range(0, 500, 200):
+        ours.update(scores[i:i + 200], target[i:i + 200])
+        theirs.update(scores[i:i + 200], target[i:i + 200])
+    folded = theirs.state_dict()
+    assert int(ours.num_correct) == int(folded["num_correct"])
+    assert int(ours.num_total) == int(folded["num_total"])
+    _close(ours.compute(), theirs.compute())
+
+
+@pytest.mark.parametrize("criteria", CRITERIA)
+@pytest.mark.parametrize("k", [2, 5])
+def test_streaming_topk_multilabel_matches_jax(criteria, k):
+    scores, target = _multilabel_data(seed=12 + k, ties=True)
+    before = topk_kernel.launches
+    ours = TopKMultilabelAccuracy(criteria=criteria, k=k, device="cpu")
+    theirs = J.TopKMultilabelAccuracy(criteria=criteria, k=k)
+    for i in range(0, 400, 150):
+        ours.update(scores[i:i + 150], target[i:i + 150])
+        theirs.update(scores[i:i + 150], target[i:i + 150])
+    folded = theirs.state_dict()
+    assert ours.num_correct.dtype == torch.int32
+    assert int(ours.num_correct) == int(folded["num_correct"])
+    assert int(ours.num_total) == int(folded["num_total"])
+    _close(ours.compute(), theirs.compute())
+    assert topk_kernel.launches == before  # CPU tensors: the plain versions
+
+
+def test_topk_multilabel_all_equal_scores():
+    # every score ties: the top-k set is the first k labels
+    scores = np.ones((8, 2048), np.float32)
+    target = np.zeros((8, 2048), np.int32)
+    target[:, :5] = 1
+    for method in ("dense", "prune", "kernel"):
+        got = topk_multilabel_accuracy(scores, target, criteria="contain", k=5, topk_method=method)
+        assert float(got) == 1.0
+
+
+def test_multilabel_param_and_input_checks():
+    with pytest.raises(ValueError, match="criteria"):
+        MultilabelAccuracy(criteria="all", device="cpu")
+    with pytest.raises(ValueError, match="greater than 1"):
+        TopKMultilabelAccuracy(k=1, device="cpu")
+    with pytest.raises(TypeError, match="integer"):
+        TopKMultilabelAccuracy(k=2.0, device="cpu")
+    # updates fold at once, but a typo in the method is refused before any
+    with pytest.raises(ValueError, match="topk_method"):
+        TopKMultilabelAccuracy(k=2, topk_method="pallas", device="cpu")
+    with pytest.raises(ValueError, match="dimensions"):
+        MultilabelAccuracy(device="cpu").update(torch.rand(4, 3), torch.zeros(4, 2))
+    with pytest.raises(ValueError, match="k > 1"):
+        TopKMultilabelAccuracy(device="cpu").update(torch.rand(4), torch.zeros(4))

@@ -12,9 +12,20 @@ import torch
 
 import torcheval_tpu_torch
 from torcheval_tpu_torch import _build
-from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy
+from torcheval_tpu_torch.metrics import (
+    MAP,
+    NDCG,
+    BinaryAUROC,
+    HitRate,
+    MulticlassAccuracy,
+    MultilabelAccuracy,
+    RecallAtK,
+    ReciprocalRank,
+    TopKMultilabelAccuracy,
+)
 from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.ops.stream_compact import compact_summary_rows, stream_compact
+from torcheval_tpu_torch.ops.topk import topk, topk_kernel
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "torcheval_tpu_torch"
@@ -76,6 +87,20 @@ def test_metric_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert MulticlassAccuracy(device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize(
+    "make",
+    [MultilabelAccuracy, TopKMultilabelAccuracy, HitRate, ReciprocalRank, NDCG, MAP, RecallAtK],
+    ids=lambda c: c.__name__,
+)
+def test_ranking_and_multilabel_metrics_default_to_cuda(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(device="cuda")
+    assert make(device="cpu").device == torch.device("cpu")
+
+
 @pytest.fixture
 def no_library(monkeypatch, tmp_path):
     """A machine where the kernels' library is neither built nor buildable,
@@ -108,6 +133,24 @@ def test_wrappers_raise_instead_of_falling_back(no_library):
     assert (hist.launches, stream_compact.launches) == before
 
 
+def test_topk_wrapper_raises_instead_of_falling_back(no_library):
+    before = topk_kernel.launches
+    x = torch.rand(4, 2000)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        topk_kernel(x, 5)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        topk(x, 5, method="kernel")
+    # auto decides by the tensor's device; a CPU tensor stays dense
+    assert topk(x, 5)[1].shape == (4, 5)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        TopKMultilabelAccuracy(k=5, topk_method="kernel", device="cpu").update(
+            x, torch.zeros(4, 2000, dtype=torch.int32)
+        )
+    with pytest.raises(RuntimeError, match="nvcc"):
+        NDCG(k=5, topk_method="kernel", device="cpu").update(x, torch.rand(4, 2000))
+    assert topk_kernel.launches == before
+
+
 def test_wrapper_refuses_non_cuda_device_after_loading(monkeypatch):
     # with a library in hand, a tensor that is neither CPU nor CUDA is refused
     monkeypatch.setattr(_build, "library", lambda: object())
@@ -115,3 +158,5 @@ def test_wrapper_refuses_non_cuda_device_after_loading(monkeypatch):
         hist(torch.zeros(4, dtype=torch.int64, device="meta"), 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         stream_compact(torch.ones(4, dtype=torch.bool, device="meta"), [torch.zeros(4, device="meta")])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        topk_kernel(torch.zeros(4, 2000, device="meta"), 5)

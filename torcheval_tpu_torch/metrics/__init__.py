@@ -5,15 +5,31 @@ from torcheval_tpu_torch.metrics.classification import (
     BinaryAUPRC,
     BinaryAUROC,
     MulticlassAccuracy,
+    MultilabelAccuracy,
+    TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.metrics.ranking import (
+    MAP,
+    NDCG,
+    HitRate,
+    RecallAtK,
+    ReciprocalRank,
+)
 from torcheval_tpu_torch.metrics.state import Reduction
 
 __all__ = [
     "BinaryAccuracy",
     "BinaryAUPRC",
     "BinaryAUROC",
+    "HitRate",
+    "MAP",
     "Metric",
     "MulticlassAccuracy",
+    "MultilabelAccuracy",
+    "NDCG",
+    "RecallAtK",
+    "ReciprocalRank",
     "Reduction",
+    "TopKMultilabelAccuracy",
 ]

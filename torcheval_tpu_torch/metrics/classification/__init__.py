@@ -4,7 +4,16 @@
 from torcheval_tpu_torch.metrics.classification.accuracy import (
     BinaryAccuracy,
     MulticlassAccuracy,
+    MultilabelAccuracy,
+    TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.metrics.classification.auroc import BinaryAUPRC, BinaryAUROC
 
-__all__ = ["BinaryAccuracy", "BinaryAUPRC", "BinaryAUROC", "MulticlassAccuracy"]
+__all__ = [
+    "BinaryAccuracy",
+    "BinaryAUPRC",
+    "BinaryAUROC",
+    "MulticlassAccuracy",
+    "MultilabelAccuracy",
+    "TopKMultilabelAccuracy",
+]

@@ -1,7 +1,8 @@
 """Accuracy metric classes.
 
 JAX counterpart: ``torcheval_tpu/metrics/classification/accuracy.py``
-(``MulticlassAccuracy`` and ``BinaryAccuracy``). The JAX classes defer their
+(``MulticlassAccuracy``, ``BinaryAccuracy``, ``MultilabelAccuracy`` and
+``TopKMultilabelAccuracy``). The JAX classes defer their
 folds (``metrics/deferred.py``) to batch XLA dispatches. PyTorch runs
 eagerly, so here ``update()`` folds each batch into the counters at once,
 with the same results; the deferred folds come with ``MetricCollection``.
@@ -22,6 +23,11 @@ from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
     _binary_accuracy_update,
     _binary_shape_check,
     _multiclass_accuracy_update,
+    _multilabel_accuracy_param_check,
+    _multilabel_accuracy_update,
+    _topk_method_check,
+    _topk_multilabel_accuracy_param_check,
+    _topk_multilabel_accuracy_update,
 )
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
@@ -88,4 +94,58 @@ class BinaryAccuracy(MulticlassAccuracy):
         input, target = self._input(input), self._input(target)
         _binary_shape_check(input, target)
         self._fold(*_binary_accuracy_update(input, target, self.threshold))
+        return self
+
+
+class MultilabelAccuracy(MulticlassAccuracy):
+    """Streaming multilabel accuracy under a configurable criterion
+    (exact_match, hamming, overlap, contain, belong)."""
+
+    def __init__(
+        self,
+        *,
+        threshold: float = 0.5,
+        criteria: str = "exact_match",
+        device: DeviceLike = None,
+    ) -> None:
+        _multilabel_accuracy_param_check(criteria)
+        super().__init__(device=device)
+        self.threshold = threshold
+        self.criteria = criteria
+
+    def update(self, input, target) -> "MultilabelAccuracy":
+        input, target = self._input(input), self._input(target)
+        self._fold(*_multilabel_accuracy_update(input, target, self.threshold, self.criteria))
+        return self
+
+
+class TopKMultilabelAccuracy(MulticlassAccuracy):
+    """Streaming multilabel accuracy where the prediction set is the top-k
+    scores of each row. The top-k indices come from ``ops/topk.py``: on a
+    CUDA tensor with more than 1024 labels and ``k <= 128``, the top-k
+    kernel. ``topk_method`` forces one lowering and is checked here, at
+    construction."""
+
+    def __init__(
+        self,
+        *,
+        criteria: str = "exact_match",
+        k: int = 2,
+        topk_method: str = "auto",
+        device: DeviceLike = None,
+    ) -> None:
+        _topk_multilabel_accuracy_param_check(criteria, k)
+        _topk_method_check(topk_method)
+        super().__init__(device=device)
+        self.criteria = criteria
+        self.k = k
+        self.topk_method = topk_method
+
+    def update(self, input, target) -> "TopKMultilabelAccuracy":
+        input, target = self._input(input), self._input(target)
+        self._fold(
+            *_topk_multilabel_accuracy_update(
+                input, target, self.criteria, self.k, self.topk_method
+            )
+        )
         return self

@@ -4,10 +4,19 @@
 from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
     binary_accuracy,
     multiclass_accuracy,
+    multilabel_accuracy,
+    topk_multilabel_accuracy,
 )
 from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     binary_auprc,
     binary_auroc,
 )
 
-__all__ = ["binary_accuracy", "binary_auprc", "binary_auroc", "multiclass_accuracy"]
+__all__ = [
+    "binary_accuracy",
+    "binary_auprc",
+    "binary_auroc",
+    "multiclass_accuracy",
+    "multilabel_accuracy",
+    "topk_multilabel_accuracy",
+]

@@ -25,6 +25,14 @@ class SampleCacheMetric(Metric[TComputeReturn]):
         """Register a CAT cache."""
         self._add_state(name, [], reduction=Reduction.CAT)
 
+    def _concat_cache(self, name: str, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Cache ``name`` concatenated on axis 0; an empty cache gives an
+        empty ``dtype`` tensor on the metric's device."""
+        cache = getattr(self, name)
+        if not cache:
+            return torch.empty(0, dtype=dtype, device=self._device)
+        return torch.cat(cache, dim=0)
+
     def _cache_names(self) -> List[str]:
         return [
             name

@@ -1,2 +1,2 @@
-"""Counting, compaction and curve functions, with the CUDA kernels behind
-them. JAX counterpart: ``torcheval_tpu/ops/``."""
+"""Counting, compaction, curve and top-k functions, with the CUDA kernels
+behind them. JAX counterpart: ``torcheval_tpu/ops/``."""

@@ -1,0 +1,251 @@
+"""Top-k selection engine: the CUDA kernel ``csrc/topk.cu``, its plain
+version, and the dense and threshold-prune lowerings.
+
+JAX counterpart: ``torcheval_tpu/ops/topk.py`` (``topk``, ``topk_values``,
+``topk_indices``, ``_pick_method``, ``prune_topk`` and the Pallas kernel
+``_topk_kernel`` behind ``pallas_topk``). The contract is the one that
+module documents for ``jax.lax.top_k``: per row, the k largest values in
+descending order, ties broken by the lowest index, over the TOTAL order of
+float32 (``+NaN > +inf > ... > +0.0 > -0.0 > ... > -inf > -NaN``), with the
+values returned bit for bit from the input. ``torch.topk`` promises no tie
+order and ``torch.sort`` puts both NaNs first and ties the zeros, so every
+lowering here orders an integer key of the float's bits instead
+(:func:`order_key`).
+
+Methods (``method=``):
+
+* ``"dense"``: the counterpart of ``jax.lax.top_k``. A stable descending
+  sort of the int32 order keys, cut to k, with the values gathered from the
+  input. Indices come back int64, as ``torch.topk`` gives them and
+  ``torch.gather`` takes them (the JAX side returns int32).
+* ``"prune"``: :func:`prune_topk`, the exact threshold-prune lowering with
+  its overflow valve, in plain PyTorch.
+* ``"kernel"``: the hand-written CUDA kernel, where the JAX package says
+  ``"pallas"``. A CUDA tensor launches it (:func:`topk_kernel`); a CPU
+  tensor runs its plain version, :func:`topk_kernel_plain`.
+* ``"auto"``: :func:`_pick_method`.
+
+The label-sharded engine (``sharded_label_topk``) and the row-sharded
+``sharded_pallas_topk`` come with the distributed slice.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.utils.convert import as_tensor
+
+_METHODS = ("auto", "dense", "prune", "kernel")
+
+# Below this label width the dense sort is cheaper than streaming selection
+# (the JAX package's threshold, kept so both packages pick alike).
+_DENSE_L_MAX = 1024
+# The kernel keeps k candidates per tile and per round of selection; the
+# JAX kernel's bound of one 128-lane carry is kept as the contract.
+_KERNEL_MAX_K = 128
+# Prune grouping: group width along the label axis and the per-group
+# survivor budget.
+_PRUNE_GROUP_W = 128
+_PRUNE_SURVIVOR_BUDGET = 8
+
+
+# the signed integer of each float's width, whose order the key maps onto
+_BITS = {
+    torch.float16: torch.int16,
+    torch.bfloat16: torch.int16,
+    torch.float32: torch.int32,
+    torch.float64: torch.int64,
+}
+
+
+def _flip(b: torch.Tensor) -> torch.Tensor:
+    """Keep the bits of a non-negative word and flip all but the sign of a
+    negative one. On a float's bits this gives a signed integer whose order
+    is the float's total order; the map is its own inverse."""
+    width = torch.iinfo(b.dtype).bits
+    return b ^ ((b >> (width - 1)) & torch.iinfo(b.dtype).max)
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The integer key of ``x`` whose order is the total order of its float
+    type (an integer tensor is its own key)."""
+    return _flip(x.view(_BITS[x.dtype])) if x.is_floating_point() else x
+
+
+def _check(x: torch.Tensor, k: int) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (rows, labels), got shape {tuple(x.shape)}.")
+    if type(k) is not int:
+        raise TypeError(f"Expected `k` to be an integer, but {type(k)} was provided.")
+    if not 1 <= k <= x.shape[1]:
+        raise ValueError(f"requires 1 <= k <= L, got k={k} at L={x.shape[1]}.")
+
+
+def _pick_method(l: int, k: int, dtype: torch.dtype, method: str, device: torch.device) -> str:
+    """The lowering for an (N, L) top-k (JAX: ``topk.py:179-202``).
+
+    ``auto`` is dense for ``L <= 1024``, ``k >= L``, a non-float32 operand
+    or ``k > 128``; otherwise the CUDA kernel on a CUDA tensor, and dense on
+    a CPU tensor, as the JAX package is dense on the CPU."""
+    if method not in _METHODS:
+        raise ValueError(f"method must be one of {_METHODS}, got {method!r}.")
+    if method != "auto":
+        return method
+    if l <= _DENSE_L_MAX or k >= l or dtype != torch.float32 or k > _KERNEL_MAX_K:
+        return "dense"
+    return "dense" if device.type == "cpu" else "kernel"
+
+
+def _dense(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` in plain PyTorch: a stable descending sort of the
+    order keys (lowest index first among equal keys), values gathered."""
+    idx = torch.sort(order_key(x), dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.gather(x, 1, idx), idx
+
+
+# ------------------------------------------------------------------ kernel
+def _kernel_check(x: torch.Tensor, k: int) -> None:
+    _check(x, k)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the top-k kernel takes float32 scores, got {x.dtype}.")
+    if k > _KERNEL_MAX_K:
+        raise ValueError(
+            f"the top-k kernel requires 1 <= k <= min(L, {_KERNEL_MAX_K}), "
+            f"got k={k} at L={x.shape[1]}."
+        )
+    if x.shape[1] >= 2**31 - 1:
+        raise ValueError(f"the top-k kernel takes L < 2**31 - 1, got L={x.shape[1]}.")
+
+
+def topk_kernel_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's arithmetic in plain PyTorch. Each element's 64-bit key
+    holds its order key in the high half and ``2**32 - 1 - index`` in the
+    low half, so keys are unique and the largest key is the largest value
+    at the lowest index. The k largest keys (any selection of unique keys
+    gives one answer) decode into values and indices."""
+    _kernel_check(x, k)
+    n, l = x.shape
+    low = (2**32 - 1) - torch.arange(l, dtype=torch.int64, device=x.device)
+    key = (order_key(x).to(torch.int64) << 32) | low
+    top = torch.topk(key, k, dim=1, sorted=True).values
+    idx = (2**32 - 1) - (top & 0xFFFFFFFF)
+    values = _flip((top >> 32).to(torch.int32)).view(torch.float32)
+    return values, idx
+
+
+def topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values (N, k) float32, indices (N, k) int64)`` of float32 scores
+    ``x (N, L)``, ``1 <= k <= min(L, 128)``.
+
+    A CPU tensor runs :func:`topk_kernel_plain`. A CUDA tensor launches the
+    kernel on PyTorch's current stream, without synchronising, and adds one
+    to ``topk_kernel.launches``."""
+    _kernel_check(x, k)
+    if _build.runs_plain(x):
+        return topk_kernel_plain(x, k)
+    lib = _build.library()
+    x = x.contiguous()
+    _build.require_cuda("topk", x)
+    n, l = x.shape
+    values = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    indices = torch.empty((n, k), dtype=torch.int64, device=x.device)
+    if n == 0:
+        return values, indices
+    words = lib.tc_topk_workspace(n, l, k)
+    workspace = torch.empty(max(words, 1), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.tc_topk(
+            x.data_ptr(),
+            n,
+            l,
+            k,
+            workspace.data_ptr(),
+            values.data_ptr(),
+            indices.data_ptr(),
+            _build.stream_of(x),
+        )
+    _build.check(err, "topk")
+    topk_kernel.launches += 1
+    return values, indices
+
+
+topk_kernel.launches = 0
+
+
+# ------------------------------------------------------------------- prune
+def _prune_plan(l: int, k: int):
+    """(group_w, n_groups, survivor_budget, ok): ``ok`` needs enough groups
+    for the kth-group-max threshold (g >= k) and enough candidate room."""
+    w = _PRUNE_GROUP_W
+    g = -(-l // w)
+    s = min(k, _PRUNE_SURVIVOR_BUDGET)
+    ok = l > _DENSE_L_MAX and g >= k and g * s >= k
+    return w, g, s, ok
+
+
+def prune_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k by threshold-prune (JAX: ``topk.py:645-702``). The
+    kth-largest 128-wide group maximum bounds the kth value from below; each
+    group keeps its top ``s = min(k, 8)`` elements at or above it, and one
+    dense top-k over the candidates finishes. When any group holds more
+    than ``s`` survivors (a candidate of the true top-k may then have been
+    cut) the valve re-runs the dense top-k over the whole batch; the check
+    reads one flag on the host. Exact against ``jax.lax.top_k`` for
+    NaN-free inputs, as in the JAX package."""
+    _check(x, k)
+    n, l = x.shape
+    x = x.to(torch.float32)
+    w, g, s, ok = _prune_plan(l, k)
+    if not ok:
+        return _dense(x, k)
+    l_pad = g * w
+    xp = torch.nn.functional.pad(x, (0, l_pad - l), value=float("-inf")) if l_pad != l else x
+    gmax = xp.reshape(n, g, w).amax(dim=2)
+    theta = _dense(gmax, k)[0][:, k - 1 : k]
+    mask = xp >= theta
+    counts = mask.reshape(n, g, w).sum(dim=2)
+    if bool((counts > s).any()):
+        return _dense(x, k)
+    xm = torch.where(mask, xp, float("-inf")).reshape(n * g, w)
+    cand_v, cand_j = _dense(xm, s)
+    cand_i = cand_j.reshape(n, g, s) + (
+        torch.arange(g, dtype=torch.int64, device=x.device) * w
+    )[None, :, None]
+    vals, pos = _dense(cand_v.reshape(n, g * s), k)
+    return vals, torch.gather(cand_i.reshape(n, g * s), 1, pos)
+
+
+# ------------------------------------------------------------------ engine
+def topk(x: torch.Tensor, k: int, *, method: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the k largest entries per row of ``x``
+    ``(rows, labels)``, in ``jax.lax.top_k``'s order; indices are int64.
+
+    Args:
+        x: scores ``(rows, labels)``: a tensor (used where it lies) or
+            anything ``torch.tensor`` takes (on the CPU).
+        k: ``1 <= k <= labels``.
+        method: ``"auto"`` (:func:`_pick_method`), or a forced ``"dense"``,
+            ``"prune"`` or ``"kernel"``. A forced kernel casts to float32,
+            as the JAX package's forced ``"pallas"`` does.
+    """
+    x = as_tensor(x)
+    _check(x, k)
+    resolved = _pick_method(x.shape[1], k, x.dtype, method, x.device)
+    if resolved == "dense":
+        return _dense(x, k)
+    if resolved == "prune":
+        return prune_topk(x, k)
+    return topk_kernel(x.to(torch.float32), k)
+
+
+def topk_values(x: torch.Tensor, k: int, *, method: str = "auto") -> torch.Tensor:
+    """The values half of :func:`topk`."""
+    return topk(x, k, method=method)[0]
+
+
+def topk_indices(x: torch.Tensor, k: int, *, method: str = "auto") -> torch.Tensor:
+    """The indices half of :func:`topk`."""
+    return topk(x, k, method=method)[1]
