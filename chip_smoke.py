@@ -25,6 +25,11 @@ failed check. Phases:
    reference;
    retrieval leg: ``NDCG(k=10)`` and ``NDCG(k=100)`` over 4 batches of
    (64, 1,000,000) scores, checked against the dense (sorting) route;
+   sliced leg: ``SlicedMetricCollection`` over 1,000,000 cohorts with
+   power-law traffic, one registration batch and 16 batches of 1,048,576
+   rows, ``{"acc": BinaryAccuracy()}`` and ``{"mean": Mean(), "max": Max()}``,
+   checked per cohort against numpy (counts and maxima exactly, means within
+   rtol 1e-5);
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4), time per launch, the plain version's and a library call's time, and
    the least time the card could take (its bound).
@@ -54,6 +59,10 @@ MACRO_CHUNKS = 8
 TOPK_ROWS, TOPK_LABELS, TOPK_K, TOPK_BATCHES = 8192, 10_000, 5, 4
 RETRIEVAL_ROWS, RETRIEVAL_LABELS, RETRIEVAL_BATCHES = 64, 1_000_000, 4
 RETRIEVAL_KS = (10, 100)
+# bench.py::config11_sliced (bench.py:2008-2117): a million cohorts, power-law
+# traffic; its BinaryAUROC(approx=1024) member needs the unported sketch mode
+SLICED_COHORTS, SLICED_ROWS, SLICED_BATCHES = 1_000_000, 1 << 20, 16
+SLICED_ZIPF = 1.3
 TARGET_DENSITY = 1e-3
 CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
@@ -214,6 +223,96 @@ def check_topk(dev, gen):
         both = torch.isfinite(v) & torch.isfinite(pv)
         worst = max(worst, float((v[both] - pv[both]).abs().max()) if bool(both.any()) else 0.0)
         print(f"  topk {name} {tuple(x.shape)} k={k}: bit-equal values and indices")
+    return worst
+
+
+def _zipf_rows(rng, n, s):
+    return (rng.zipf(SLICED_ZIPF, n) - 1) % s
+
+
+def _segment_sum_cases(dev):
+    """(name, vals, rows, S, exact): every value type, D in {1, 2, 7, 130},
+    S in {1, 12288, 2^20 + 3}, rows uniform, power-law and out of range
+    (negative and >= S), NaN and +-inf in the float columns, empty streams,
+    and non-negative floats (``exact`` where every partial sum is exact)."""
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
+        for d in (1, 2, 7, 130):
+            n = {1: 1 << 20, 2: 1 << 20, 7: 1 << 17, 130: 1 << 14}[d]
+            if dtype.is_floating_point:
+                vals = torch.from_numpy(rng.standard_normal((n, d))).to(dev, dtype)
+                vals[::997, 0] = float("nan")
+                vals[1::991, -1] = float("inf")
+                vals[2::983, -1] = float("-inf")
+            else:
+                big = 2**31 - 1 if dtype == torch.int32 else 2**62
+                vals = torch.from_numpy(rng.integers(-big, big, (n, d))).to(dev, dtype)
+            for s, kind in ((1, "uniform"), (12_288, "zipf"), (2**20 + 3, "uniform"),
+                            (2**20 + 3, "out of range")):
+                if kind == "uniform":
+                    rows = rng.integers(0, s, n)
+                elif kind == "zipf":
+                    rows = _zipf_rows(rng, n, s)
+                else:
+                    rows = np.where(rng.random(n) < 0.5, _zipf_rows(rng, n, s), rng.integers(-5, s + 5, n))
+                rows = torch.from_numpy(rows).to(dev)
+                if kind == "zipf":
+                    rows = rows.to(torch.int32)
+                cases.append((f"{str(dtype)[6:]} D={d} S={s} {kind} rows", vals, rows, s, False))
+        empty = torch.zeros((0, 3), dtype=dtype, device=dev)
+        cases.append((f"{str(dtype)[6:]} N=0", empty, torch.zeros(0, dtype=torch.int64, device=dev), 5, False))
+        if dtype.is_floating_point:
+            n = 1 << 20
+            # non-negative values: |sum| = sum|v|, so the bound is relative to
+            # the sum; and multiples of 1/4 below 2, whose every partial sum
+            # (under 2^24 quarters) is exact in any order, so a segment sum
+            # that lost or doubled one sample cannot pass
+            uniform = torch.from_numpy(rng.random((n, 2))).to(dev, dtype)
+            quarters = torch.from_numpy(rng.integers(0, 8, (n, 2)) / 4).to(dev, dtype)
+            for s in (1, 12_288):
+                rows = torch.from_numpy(_zipf_rows(rng, n, s)).to(dev)
+                cases.append((f"{str(dtype)[6:]} D=2 S={s} zipf rows, uniform [0, 1)", uniform, rows, s, False))
+                cases.append((f"{str(dtype)[6:]} D=2 S={s} zipf rows, quarters in [0, 2)", quarters, rows, s, True))
+    return cases
+
+
+def check_segment_sum(dev):
+    """The kernel against its plain version: integers, and floats whose
+    partial sums are all exact, exactly; other floats within the module's
+    bound of a float64 reference, (count - 1) * u * sum|v| per segment and
+    lane (plus the reference's own), with NaN and +-inf where the reference
+    has them. Returns the largest |kernel - plain| over finite entries."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    worst = 0.0
+    for name, vals, rows, s, exact in _segment_sum_cases(dev):
+        got, want = segment_sum(vals, rows, s), segment_sum_plain(vals, rows, s)
+        torch.cuda.synchronize()
+        _require(got.dtype == vals.dtype and got.shape == want.shape, f"segment_sum {name}: shape")
+        if exact or not vals.dtype.is_floating_point:
+            _require(torch.equal(got, want), f"segment_sum {name}")
+            print(f"  segment_sum {name}: exact")
+            continue
+        ref = segment_sum_plain(vals.double(), rows, s)
+        mag = segment_sum_plain(vals.double().abs(), rows, s)
+        count = segment_sum_plain(torch.ones_like(rows, dtype=torch.float64), rows, s)[:, None]
+        u = 2.0**-24 if vals.dtype == torch.float32 else 2.0**-53
+        bound = (count - 1).clamp(min=0) * (u + 2.0**-53) * mag
+        finite = torch.isfinite(ref)
+        g = got.double()
+        _require(torch.equal(torch.isnan(g), torch.isnan(ref))
+                 and torch.equal(g[torch.isinf(ref)], ref[torch.isinf(ref)]),
+                 f"segment_sum {name}: NaN and inf")
+        err = (g - ref).abs()[finite]
+        _require(bool((err <= bound[finite] + 1e-300).all()), f"segment_sum {name}: bound")
+        both = torch.isfinite(got) & torch.isfinite(want)
+        diff = float((got[both].double() - want[both].double()).abs().max()) if bool(both.any()) else 0.0
+        worst = max(worst, diff)
+        ratio = float((err / bound[finite].clamp(min=1e-300)).max()) if err.numel() else 0.0
+        print(f"  segment_sum {name}: within the bound (largest error {ratio:.4f} of it); "
+              f"|kernel - plain| <= {diff:.3e}")
+        del ref, mag, count, bound
     return worst
 
 
@@ -436,6 +535,123 @@ def retrieval_leg(dev, batches, k, topk_method="auto"):
     return ndcg, value, start.elapsed_time(end) / 1e3
 
 
+def sliced_leg_data(dev, gen):
+    """``bench.py:2039-2047``, seeded: every cohort once (registration), then
+    power-law traffic, ids made sparse by ``id * 7919 + 13``; scores and
+    targets on the card, ids on the host (interning needs host bytes)."""
+    rng = np.random.default_rng(SEED)
+    total = SLICED_ROWS * (SLICED_BATCHES + 1)
+    zipf = _zipf_rows(rng, total, SLICED_COHORTS)
+    base = np.concatenate([np.arange(SLICED_COHORTS), zipf])[:total]
+    ids = base.astype(np.int64) * 7919 + 13
+    scores = torch.rand(total, generator=gen, device=dev)
+    targets = (torch.rand(total, generator=gen, device=dev) < 0.4).to(torch.float32)
+    return ids, scores, targets
+
+
+def _sliced_batch(data, i):
+    ids, scores, targets = data
+    sl = slice(i * SLICED_ROWS, (i + 1) * SLICED_ROWS)
+    return ids[sl], scores[sl], targets[sl]
+
+
+def sliced_setup(dev, data):
+    """Both collections, with every cohort registered by batch 0."""
+    from torcheval_tpu_torch.metrics import BinaryAccuracy, Max, Mean, SlicedMetricCollection
+
+    acc = SlicedMetricCollection({"acc": BinaryAccuracy(device=dev)}, capacity=SLICED_COHORTS)
+    agg = SlicedMetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)},
+                                 capacity=SLICED_COHORTS)
+    ids, s, t = _sliced_batch(data, 0)
+    acc.update(ids, s, t)
+    agg.update(ids, s)
+    torch.cuda.synchronize()
+    return acc, agg
+
+
+def sliced_epoch(dev, data, acc, agg):
+    """The timed epoch: 16 batches into both collections, from the first
+    ``update()`` to both ``compute()`` results."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(1, SLICED_BATCHES + 1):
+        ids, s, t = _sliced_batch(data, i)
+        acc.update(ids, s, t)
+        agg.update(ids, s)
+    results = {**acc.compute(), **agg.compute()}
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    return results, start.elapsed_time(end) / 1e3, wall, torch.cuda.max_memory_allocated(dev)
+
+
+def interning_seconds(table, data):
+    """Host seconds per batch of one collection's steady-state interning
+    (every cohort registered), measured apart from the device."""
+    t0 = time.perf_counter()
+    for i in range(1, SLICED_BATCHES + 1):
+        table.intern(_sliced_batch(data, i)[0])
+    return (time.perf_counter() - t0) / SLICED_BATCHES
+
+
+def unsliced_leg(dev, data):
+    """The same 16 batches through plain ``MetricCollection``s (no cohort
+    axis), for the ratio only."""
+    from torcheval_tpu_torch.metrics import BinaryAccuracy, Max, Mean, MetricCollection
+
+    acc = MetricCollection({"acc": BinaryAccuracy(device=dev)})
+    agg = MetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)})
+    _, s, t = _sliced_batch(data, 0)
+    acc.update(s, t)
+    agg.update(s)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(1, SLICED_BATCHES + 1):
+        _, s, t = _sliced_batch(data, i)
+        acc.update(s, t)
+        agg.update(s)
+    acc.compute(), agg.compute()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def check_sliced_leg(data, acc, agg, results):
+    """Per cohort, against numpy over all 17 batches: the slice ids in
+    first-seen order, num_correct and num_total exactly, the maxima exactly,
+    the means within rtol 1e-5 of float64."""
+    ids, scores, targets = data
+    s, t = scores.cpu().numpy(), targets.cpu().numpy()
+    uniq, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    row_of = np.empty(uniq.shape[0], np.int64)
+    row_of[order] = np.arange(uniq.shape[0])
+    rows = row_of[inv.reshape(-1)]
+    n = uniq.shape[0]
+    _require(np.array_equal(results["acc"].slice_ids, uniq[order]), "slice ids in first-seen order")
+    correct = ((s >= 0.5).astype(np.float32) == t)
+    want_correct = np.bincount(rows, weights=correct, minlength=n).astype(np.int64)
+    want_total = np.bincount(rows, minlength=n).astype(np.int64)
+    member = acc.metrics["acc"]
+    _require(np.array_equal(member.num_correct[:n].cpu().numpy(), want_correct), "per-cohort num_correct")
+    _require(np.array_equal(member.num_total[:n].cpu().numpy(), want_total), "per-cohort num_total")
+    want_max = np.full(n, -np.inf, np.float32)
+    np.maximum.at(want_max, rows, s)
+    _require(np.array_equal(results["max"]["values"].cpu().numpy(), want_max), "per-cohort max")
+    want_mean = np.bincount(rows, weights=s.astype(np.float64), minlength=n) / want_total
+    got_mean = results["mean"]["values"].cpu().numpy().astype(np.float64)
+    rel = np.abs(got_mean - want_mean) / np.abs(want_mean)
+    _require(bool(np.all(rel <= RTOL)), f"per-cohort mean (largest relative error {rel.max():.3e})")
+    acc_v = results["acc"]["values"].cpu().numpy()
+    _require(bool(np.all(np.isfinite(acc_v))) and acc_v.shape == (n,), "accuracy values finite")
+    return float(rel.max())
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -481,6 +697,46 @@ def kernel_rows(dev, gen, timer, launches, errs, fold):
     })
     rows.append(topk_row(dev, gen, timer, launches["topk"], errs["topk"]))
     return rows
+
+
+def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets):
+    """The kernel at the sliced leg's shape, on one of its batches: the
+    accuracy member's (N, 2) int32 deltas into 1,000,000 cohorts by the
+    batch's interned rows; and the scores as a float32 D = 1 column."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    s = SLICED_COHORTS
+
+    def times(vals):
+        n, d = vals.shape
+        size = vals.element_size()
+
+        def library():
+            return torch.zeros((s, d), dtype=vals.dtype, device=dev).index_add_(0, leg_rows, vals)
+
+        return {
+            "ms": timer.ms(lambda: segment_sum(vals, leg_rows, s)),
+            "plain_ms": timer.ms(lambda: segment_sum_plain(vals, leg_rows, s)),
+            "bound_ms": (n * d * size + n * leg_rows.element_size() + s * d * size)
+            / HBM_BYTES_PER_S * 1e3,
+            "library_ms": timer.ms(library),
+        }
+
+    correct = ((leg_scores >= 0.5).to(torch.float32) == leg_targets).to(torch.int32)
+    deltas = torch.stack([correct, torch.ones_like(correct)], dim=-1)
+    row = {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/scatter.cu",
+        "replaces": "torcheval_tpu/ops/scatter.py:95",
+        "launches": launches,
+        "max_abs_err": err,
+        **times(deltas),
+        "bound_by": "bytes",
+        "shape": f"({SLICED_ROWS}, 2) int32 deltas into {s} cohorts, power-law rows of the sliced leg",
+    }
+    row["at_f32_d1"] = times(leg_scores[:, None].contiguous())
+    return row
 
 
 def topk_row(dev, gen, timer, launches, err):
@@ -529,6 +785,7 @@ def main() -> int:
         return 1
     from torcheval_tpu_torch import _build
     from torcheval_tpu_torch.ops.hist import hist
+    from torcheval_tpu_torch.ops.scatter import segment_sum
     from torcheval_tpu_torch.ops.stream_compact import stream_compact
     from torcheval_tpu_torch.ops.topk import topk_kernel
 
@@ -553,7 +810,7 @@ def main() -> int:
 
     print("phase 2 kernels against their plain versions")
     errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen),
-            "topk": check_topk(dev, gen)}
+            "topk": check_topk(dev, gen), "segment_sum": check_segment_sum(dev)}
     check_compact_counts(dev, gen, fold_scores, fold_t)
     del fold_scores, fold_t
     torch.cuda.synchronize()
@@ -626,17 +883,49 @@ def main() -> int:
     del batches
     torch.cuda.empty_cache()
 
+    print("phase 4 sliced leg (bench.py config11_sliced, without its AUROC sketch member)")
+    data = sliced_leg_data(dev, gen)
+    n_rows = SLICED_BATCHES * SLICED_ROWS
+    sliced_epoch(dev, data, *sliced_setup(dev, data))  # warm-up: first use of each kernel
+    acc, agg = sliced_setup(dev, data)
+    segment_sum.launches = 0
+    results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
+    sliced_launches = segment_sum.launches
+    _require(sliced_launches > 0, "segment_sum launched on the sliced leg")
+    worst_mean = check_sliced_leg(data, acc, agg, results)
+    intern_s = interning_seconds(acc.slice_table, data)
+    plain_s = unsliced_leg(dev, data)
+    print(f"  {n_rows} rows into {SLICED_COHORTS} cohorts in {sliced_s:.4f} s (CUDA events; "
+          f"{sliced_wall:.4f} s on the host clock): {n_rows / sliced_s:.1f} rows/s")
+    print(f"  host interning {intern_s:.4f} s per batch per collection (two collections intern "
+          f"each batch); peak memory {sliced_peak / 2**30:.2f} GiB (incl. all "
+          f"{SLICED_BATCHES + 1} resident batches); segment_sum launches {sliced_launches}")
+    print(f"  per-cohort num_correct/num_total and max equal numpy exactly; means within "
+          f"{worst_mean:.3e} of float64; slice ids in first-seen order")
+    print(f"  unsliced MetricCollections on identical rows: {plain_s:.4f} s "
+          f"({n_rows / plain_s:.1f} rows/s); config11_sliced_ratio {plain_s / sliced_s:.4f}")
+    leg_rows = torch.from_numpy(acc.slice_table.lookup_rows(_sliced_batch(data, 1)[0])).to(dev)
+    _, leg_scores, leg_targets = _sliced_batch(data, 1)
+    del acc, agg, results
+
     print("phase 5 kernel timings at the main path's shapes")
     launches = {k: headline_launches[k] + macro_launches[k] for k in headline_launches}
     launches["topk"] = topk_launches + retrieval_launches
-    rows = kernel_rows(dev, gen, Timer(dev), launches, errs, fold)
+    timer = Timer(dev)
+    rows = kernel_rows(dev, gen, timer, launches, errs, fold)
+    rows.append(segment_sum_row(dev, timer, sliced_launches, errs["segment_sum"],
+                                leg_rows, leg_scores, leg_targets))
     torch.cuda.synchronize()
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}) at {r['shape']}")
-    big = rows[-1]["at_64x1000000_k100"]
+    big = rows[2]["at_64x1000000_k100"]
     print(f"  topk: {big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, library "
           f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f}) at (64, 1000000) float32, k=100")
+    f32 = rows[3]["at_f32_d1"]
+    print(f"  segment_sum: {f32['ms']:.4f} ms (plain {f32['plain_ms']:.4f}, library "
+          f"{f32['library_ms']:.4f}, bound {f32['bound_ms']:.4f}) at ({SLICED_ROWS}, 1) float32 "
+          f"into {SLICED_COHORTS} cohorts")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

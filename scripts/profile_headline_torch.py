@@ -3,14 +3,16 @@
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py [--leg headline|topk|ndcg10|ndcg100]
+    python3 scripts/profile_headline_torch.py [--leg headline|topk|ndcg10|ndcg100|sliced]
 
 It builds one leg of ``chip_smoke.py`` with its data made on the card from
 a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
 BinaryAUROC with compaction_threshold = 6 * 2^24, 16 chunks of 2^24
 predictions), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
-(8192, 10000) scores) or ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
-over 4 batches of (64, 1,000,000) scores). It runs the leg once to warm up,
+(8192, 10000) scores), ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
+over 4 batches of (64, 1,000,000) scores) or ``sliced`` (the two sliced
+collections over 1,000,000 cohorts, 16 batches of 1,048,576 rows after a
+registration batch that is not profiled). It runs the leg once to warm up,
 then once under ``torch.profiler``, and prints the wall time of both runs,
 the device's busy time (the union of the intervals in which a kernel, copy
 or memset ran) and idle share over the profiled run, and the device time by
@@ -44,8 +46,26 @@ def _union_us(intervals) -> float:
 
 
 def _leg(cs, name, dev, gen):
-    """``(run, count, unit)``: ``run()`` drives the leg once and returns
+    """``(prepare, run, count, unit)``: ``prepare()`` sets up one run
+    outside the profiled region, ``run()`` drives the leg once and returns
     ``(seconds, values)``; ``count`` units make one run."""
+    if name == "sliced":
+        data = cs.sliced_leg_data(dev, gen)
+        cols = []
+
+        def prepare():
+            cols[:] = cs.sliced_setup(dev, data)
+
+        def run():
+            results, seconds, _, _ = cs.sliced_epoch(dev, data, *cols)
+            return seconds, (float(results["acc"]["values"].mean()),)
+
+        return prepare, run, cs.SLICED_BATCHES * cs.SLICED_ROWS, "rows"
+    run, count, unit = _plain_leg(cs, name, dev, gen)
+    return (lambda: None), run, count, unit
+
+
+def _plain_leg(cs, name, dev, gen):
     if name == "headline":
         chunks = cs.headline_data(dev, gen)
 
@@ -74,7 +94,7 @@ def _leg(cs, name, dev, gen):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--leg", choices=("headline", "topk", "ndcg10", "ndcg100"),
+    parser.add_argument("--leg", choices=("headline", "topk", "ndcg10", "ndcg100", "sliced"),
                         default="headline")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -85,10 +105,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    run, total, unit = _leg(cs, args.leg, dev, gen)
+    prepare, run, total, unit = _leg(cs, args.leg, dev, gen)
+    prepare()
     warm_s, values = run()
     print(f"{args.leg} warm-up run: {warm_s:.4f} s, {total / warm_s:.1f} {unit}/s "
           f"(values {values})")
+    prepare()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_s, _ = run()
     print(f"profiled run: {run_s:.4f} s, {total / run_s:.1f} {unit}/s")

@@ -15,15 +15,23 @@ from torcheval_tpu_torch import _build
 from torcheval_tpu_torch.metrics import (
     MAP,
     NDCG,
+    BinaryAccuracy,
     BinaryAUROC,
     HitRate,
+    Max,
+    Mean,
+    MeanSquaredError,
+    Min,
     MulticlassAccuracy,
     MultilabelAccuracy,
     RecallAtK,
     ReciprocalRank,
+    SlicedMetricCollection,
+    Sum,
     TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.ops.hist import hist
+from torcheval_tpu_torch.ops.scatter import segment_scatter, segment_sum
 from torcheval_tpu_torch.ops.stream_compact import compact_summary_rows, stream_compact
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel
 
@@ -101,6 +109,28 @@ def test_ranking_and_multilabel_metrics_default_to_cuda(monkeypatch, make):
     assert make(device="cpu").device == torch.device("cpu")
 
 
+@pytest.mark.parametrize(
+    "make",
+    [BinaryAccuracy, Sum, Mean, Max, Min, MeanSquaredError],
+    ids=lambda c: c.__name__,
+)
+def test_aggregation_and_regression_metrics_default_to_cuda(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(device="cuda")
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_sliced_members_live_on_their_templates_device(monkeypatch):
+    col = SlicedMetricCollection({"acc": BinaryAccuracy(device="cpu"), "mean": Mean(device="cpu")})
+    assert all(m.device == torch.device("cpu") for m in col.metrics.values())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlicedMetricCollection({"acc": BinaryAccuracy()})
+
+
 @pytest.fixture
 def no_library(monkeypatch, tmp_path):
     """A machine where the kernels' library is neither built nor buildable,
@@ -151,6 +181,41 @@ def test_topk_wrapper_raises_instead_of_falling_back(no_library):
     assert topk_kernel.launches == before
 
 
+def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library):
+    before = (segment_sum.launches, hist.launches)
+    vals = torch.ones(4, 2, dtype=torch.int32)
+    rows = torch.tensor([0, 1, 1, 5])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        segment_sum(vals, rows, 3)
+    for method in ("auto", "kernel"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            segment_scatter(vals, rows, 3, method=method)
+    # "torch" is the caller's explicit choice of the plain version
+    assert segment_scatter(vals, rows, 3, method="torch")[1].tolist() == [2, 2]
+    ids = torch.tensor([7, 8, 7, 9])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        SlicedMetricCollection({"acc": BinaryAccuracy(device="cpu")}).update(
+            ids, torch.rand(4), torch.ones(4)
+        )
+    # a per-class fold under vmap reaches the segment-sum wrapper unbatched
+    with pytest.raises(RuntimeError, match="nvcc"):
+        SlicedMetricCollection(
+            {"acc": MulticlassAccuracy(average="macro", num_classes=3, device="cpu")}
+        ).update(ids, torch.rand(4, 3), torch.tensor([0, 1, 2, 1]))
+    assert (segment_sum.launches, hist.launches) == before
+
+
+def test_batched_tensors_never_reach_a_kernel_wrapper():
+    labels = torch.tensor([[0, 1, 1], [2, 2, 0]])
+    with pytest.raises(RuntimeError):
+        torch.func.vmap(lambda x: hist(x, 3))(labels)
+    # the class counts' vmap rule unbatches them
+    from torcheval_tpu_torch.ops.confusion import class_counts
+
+    got = torch.func.vmap(lambda x: class_counts(x, 3))(labels)
+    assert got.tolist() == [[1, 2, 0], [1, 0, 2]]
+
+
 def test_wrapper_refuses_non_cuda_device_after_loading(monkeypatch):
     # with a library in hand, a tensor that is neither CPU nor CUDA is refused
     monkeypatch.setattr(_build, "library", lambda: object())
@@ -160,3 +225,5 @@ def test_wrapper_refuses_non_cuda_device_after_loading(monkeypatch):
         stream_compact(torch.ones(4, dtype=torch.bool, device="meta"), [torch.zeros(4, device="meta")])
     with pytest.raises(ValueError, match="CUDA tensors"):
         topk_kernel(torch.zeros(4, 2000, device="meta"), 5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        segment_sum(torch.zeros(4, 2, device="meta"), torch.zeros(4, dtype=torch.int64, device="meta"), 3)

@@ -7,8 +7,10 @@ JAX package's hand-written TPU kernels replaced by hand-written CUDA kernels
 ``device="cpu"``. Ported so far (``torcheval_tpu_torch.metrics`` and
 ``.metrics.functional``): ``MulticlassAccuracy``, ``BinaryAccuracy``,
 ``MultilabelAccuracy``, ``TopKMultilabelAccuracy``, ``BinaryAUROC``,
-``BinaryAUPRC``, ``HitRate``, ``ReciprocalRank``, ``NDCG``, ``MAP`` and
-``RecallAtK``, on the histogram, stream-compaction and top-k kernels.
+``BinaryAUPRC``, ``HitRate``, ``ReciprocalRank``, ``NDCG``, ``MAP``,
+``RecallAtK``, ``Sum``, ``Mean``, ``Max``, ``Min``, ``MeanSquaredError``,
+``MetricCollection`` and ``SlicedMetricCollection``, on the histogram,
+stream-compaction, top-k and segment-sum kernels.
 """
 
 from torcheval_tpu_torch.version import __version__

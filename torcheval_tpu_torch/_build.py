@@ -8,8 +8,8 @@ when a module is imported, so the package imports on a machine with no
 ``nvcc`` and no GPU, where every wrapper runs its plain PyTorch version on
 CPU tensors.
 
-The wrappers (``ops/hist.py``, ``ops/stream_compact.py``, ``ops/topk.py``)
-take the plain version only for a tensor on the CPU (:func:`runs_plain`).
+The wrappers (``ops/hist.py``, ``ops/stream_compact.py``, ``ops/topk.py``,
+``ops/scatter.py``) take the plain version only for a tensor on the CPU (:func:`runs_plain`).
 For any other tensor they call :func:`library`, which builds the kernels or
 raises: there is no fallback.
 """
@@ -50,6 +50,10 @@ _SIGNATURES = {
     "tc_topk_workspace": ([_I64, _I64, ctypes.c_int], _I64),
     "tc_topk": (
         [_P, _I64, _I64, ctypes.c_int, _P, _P, _P, _P],
+        ctypes.c_int,
+    ),
+    "tc_segment_sum": (
+        [ctypes.c_int, ctypes.c_int, _P, _P, _I64, _I64, _I64, _P, _P],
         ctypes.c_int,
     ),
     "tc_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -1,5 +1,6 @@
 """Streaming metrics. JAX counterpart: ``torcheval_tpu/metrics/__init__.py``."""
 
+from torcheval_tpu_torch.metrics.aggregation import Max, Mean, Min, Sum
 from torcheval_tpu_torch.metrics.classification import (
     BinaryAccuracy,
     BinaryAUPRC,
@@ -8,6 +9,7 @@ from torcheval_tpu_torch.metrics.classification import (
     MultilabelAccuracy,
     TopKMultilabelAccuracy,
 )
+from torcheval_tpu_torch.metrics.collection import MetricCollection
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.ranking import (
     MAP,
@@ -16,6 +18,8 @@ from torcheval_tpu_torch.metrics.ranking import (
     RecallAtK,
     ReciprocalRank,
 )
+from torcheval_tpu_torch.metrics.regression import MeanSquaredError
+from torcheval_tpu_torch.metrics.sliced import SlicedMetricCollection
 from torcheval_tpu_torch.metrics.state import Reduction
 
 __all__ = [
@@ -24,12 +28,19 @@ __all__ = [
     "BinaryAUROC",
     "HitRate",
     "MAP",
+    "Max",
+    "Mean",
+    "MeanSquaredError",
     "Metric",
+    "MetricCollection",
+    "Min",
     "MulticlassAccuracy",
     "MultilabelAccuracy",
     "NDCG",
     "RecallAtK",
     "ReciprocalRank",
     "Reduction",
+    "SlicedMetricCollection",
+    "Sum",
     "TopKMultilabelAccuracy",
 ]

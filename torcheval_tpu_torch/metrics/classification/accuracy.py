@@ -2,12 +2,11 @@
 
 JAX counterpart: ``torcheval_tpu/metrics/classification/accuracy.py``
 (``MulticlassAccuracy``, ``BinaryAccuracy``, ``MultilabelAccuracy`` and
-``TopKMultilabelAccuracy``). The JAX classes defer their
-folds (``metrics/deferred.py``) to batch XLA dispatches. PyTorch runs
-eagerly, so here ``update()`` folds each batch into the counters at once,
-with the same results; the deferred folds come with ``MetricCollection``.
-Counters are updated in place: the metric owns them, and ``state_dict()``
-returns copies.
+``TopKMultilabelAccuracy``). Each class declares its fold and its compute as
+module-level pure functions with their statics, the contract of
+``metrics/deferred.py``; ``update()`` validates the batch and folds it into
+the counters at once (the JAX classes defer it), with the same results. The
+sliced collection (``metrics/sliced.py``) runs the same folds per sample.
 """
 
 from __future__ import annotations
@@ -25,18 +24,45 @@ from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
     _multiclass_accuracy_update,
     _multilabel_accuracy_param_check,
     _multilabel_accuracy_update,
+    _multilabel_shape_check,
     _topk_method_check,
     _topk_multilabel_accuracy_param_check,
     _topk_multilabel_accuracy_update,
 )
+from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 
-class MulticlassAccuracy(Metric[torch.Tensor]):
+def _acc_fold(input, target, average, num_classes, k):
+    num_correct, num_total = _multiclass_accuracy_update(input, target, average, num_classes, k)
+    return {"num_correct": num_correct, "num_total": num_total}
+
+
+def _binacc_fold(input, target, threshold):
+    num_correct, num_total = _binary_accuracy_update(input, target, threshold)
+    return {"num_correct": num_correct, "num_total": num_total}
+
+
+def _mlacc_fold(input, target, threshold, criteria):
+    num_correct, num_total = _multilabel_accuracy_update(input, target, threshold, criteria)
+    return {"num_correct": num_correct, "num_total": num_total}
+
+
+def _topk_fold(input, target, criteria, k, topk_method):
+    num_correct, num_total = _topk_multilabel_accuracy_update(
+        input, target, criteria, k, topk_method
+    )
+    return {"num_correct": num_correct, "num_total": num_total}
+
+
+class MulticlassAccuracy(DeferredFoldMixin, Metric[torch.Tensor]):
     """Streaming multiclass accuracy. State is an int32 scalar pair (micro)
     or per-class ``(num_classes,)`` int32 counters (macro, none)."""
+
+    _fold_fn = staticmethod(_acc_fold)
+    _compute_fn = staticmethod(_accuracy_compute)
 
     def __init__(
         self,
@@ -58,23 +84,18 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
         self._add_state(
             "num_total", zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM
         )
+        self._fold_params = (average, num_classes, k)
+        self._compute_params = (average,)
 
-    def _fold(self, num_correct: torch.Tensor, num_total: torch.Tensor) -> None:
-        self.num_correct += num_correct
-        self.num_total += num_total
+    def _update_check(self, input, target) -> None:
+        _accuracy_update_input_check(input, target, self.num_classes, self.k)
 
     def update(self, input, target) -> "MulticlassAccuracy":
-        input, target = self._input(input), self._input(target)
-        _accuracy_update_input_check(input, target, self.num_classes, self.k)
-        self._fold(
-            *_multiclass_accuracy_update(
-                input, target, self.average, self.num_classes, self.k
-            )
-        )
+        self._defer(self._input(input), self._input(target))
         return self
 
     def compute(self) -> torch.Tensor:
-        return _accuracy_compute(self.num_correct, self.num_total, self.average)
+        return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["MulticlassAccuracy"]) -> "MulticlassAccuracy":
         for metric in metrics:
@@ -86,20 +107,22 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
 class BinaryAccuracy(MulticlassAccuracy):
     """Streaming binary accuracy with thresholding."""
 
+    _fold_fn = staticmethod(_binacc_fold)
+
     def __init__(self, *, threshold: float = 0.5, device: DeviceLike = None) -> None:
         super().__init__(device=device)
         self.threshold = threshold
+        self._fold_params = (threshold,)
 
-    def update(self, input, target) -> "BinaryAccuracy":
-        input, target = self._input(input), self._input(target)
+    def _update_check(self, input, target) -> None:
         _binary_shape_check(input, target)
-        self._fold(*_binary_accuracy_update(input, target, self.threshold))
-        return self
 
 
 class MultilabelAccuracy(MulticlassAccuracy):
     """Streaming multilabel accuracy under a configurable criterion
     (exact_match, hamming, overlap, contain, belong)."""
+
+    _fold_fn = staticmethod(_mlacc_fold)
 
     def __init__(
         self,
@@ -112,11 +135,10 @@ class MultilabelAccuracy(MulticlassAccuracy):
         super().__init__(device=device)
         self.threshold = threshold
         self.criteria = criteria
+        self._fold_params = (threshold, criteria)
 
-    def update(self, input, target) -> "MultilabelAccuracy":
-        input, target = self._input(input), self._input(target)
-        self._fold(*_multilabel_accuracy_update(input, target, self.threshold, self.criteria))
-        return self
+    def _update_check(self, input, target) -> None:
+        _multilabel_shape_check(input, target)
 
 
 class TopKMultilabelAccuracy(MulticlassAccuracy):
@@ -124,7 +146,12 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
     scores of each row. The top-k indices come from ``ops/topk.py``: on a
     CUDA tensor with more than 1024 labels and ``k <= 128``, the top-k
     kernel. ``topk_method`` forces one lowering and is checked here, at
-    construction."""
+    construction. Not sliceable: the top-k kernel's wrapper has no
+    ``torch.func.vmap`` rule (``_fold_vmap = False``, as in the JAX
+    package)."""
+
+    _fold_fn = staticmethod(_topk_fold)
+    _fold_vmap = False
 
     def __init__(
         self,
@@ -140,12 +167,12 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
         self.criteria = criteria
         self.k = k
         self.topk_method = topk_method
+        self._fold_params = (criteria, k, topk_method)
 
-    def update(self, input, target) -> "TopKMultilabelAccuracy":
-        input, target = self._input(input), self._input(target)
-        self._fold(
-            *_topk_multilabel_accuracy_update(
-                input, target, self.criteria, self.k, self.topk_method
+    def _update_check(self, input, target) -> None:
+        _multilabel_shape_check(input, target)
+        if input.ndim != 2:
+            raise ValueError(
+                "input should have shape (num_sample, num_classes) for k > 1, "
+                f"got shape {tuple(input.shape)}."
             )
-        )
-        return self

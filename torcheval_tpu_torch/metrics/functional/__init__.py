@@ -1,6 +1,7 @@
 """Functional metrics. JAX counterpart:
 ``torcheval_tpu/metrics/functional/__init__.py``."""
 
+from torcheval_tpu_torch.metrics.functional.aggregation import mean, sum  # noqa: A004
 from torcheval_tpu_torch.metrics.functional.classification import (
     binary_accuracy,
     binary_auprc,
@@ -19,6 +20,7 @@ from torcheval_tpu_torch.metrics.functional.ranking import (
     reciprocal_rank,
     retrieval_hit_rate,
 )
+from torcheval_tpu_torch.metrics.functional.regression import mean_squared_error
 
 __all__ = [
     "binary_accuracy",
@@ -27,6 +29,8 @@ __all__ = [
     "frequency_at_k",
     "hit_rate",
     "map_at_k",
+    "mean",
+    "mean_squared_error",
     "multiclass_accuracy",
     "multilabel_accuracy",
     "ndcg_at_k",
@@ -34,5 +38,6 @@ __all__ = [
     "recall_at_k",
     "reciprocal_rank",
     "retrieval_hit_rate",
+    "sum",
     "topk_multilabel_accuracy",
 ]
