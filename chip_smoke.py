@@ -12,7 +12,8 @@ failed check. Phases:
 
 1. device: the card's name and power limit, CUDA version, kernel build time;
 2. kernels against their plain PyTorch versions, on the card, at the main
-   path's shapes and at edge cases;
+   path's shapes and at edge cases (the top-k kernel also against the dense
+   route, a stable sort);
 3. headline leg: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
@@ -68,7 +69,10 @@ CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-5, 1e-8
-L2_FLUSH_BYTES = 256 << 20
+# 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
+# covers the host's time to enqueue the timed call, so that a time is the
+# card's and not the wrapper's
+L2_FLUSH_BYTES = 1 << 30
 
 
 def _require(ok: bool, what: str) -> None:
@@ -81,7 +85,8 @@ def _close(a: float, b: float) -> bool:
 
 
 class Timer:
-    """Median CUDA-event time of ``fn`` per call, with L2 flushed before each."""
+    """Median CUDA-event time of ``fn`` per call, with L2 flushed before each
+    (the flush also keeps the card busy while the host enqueues ``fn``)."""
 
     def __init__(self, dev: torch.device) -> None:
         self.flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
@@ -199,7 +204,9 @@ def _topk_cases(dev, gen):
     return [
         ("random 8192x10000", rand(TOPK_ROWS, TOPK_LABELS), TOPK_K),
         ("random 64x1000000 k=100", rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS), 100),
+        ("random 64x1000000 k=10", rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS), 10),
         ("ideal ranking 64x1000000 k=100", (rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS) < TARGET_DENSITY).float(), 100),
+        ("all equal 64x1000000 k=100", torch.full((RETRIEVAL_ROWS, RETRIEVAL_LABELS), 0.5, device=dev), 100),
         ("all equal", torch.full((256, 10_000), 0.5, device=dev), 128),
         ("heavy ties", ties(1024, 10_000), 128),
         ("+-inf, +-0.0, +-NaN", special, 64),
@@ -211,18 +218,22 @@ def _topk_cases(dev, gen):
 
 
 def check_topk(dev, gen):
-    from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
+    """The kernel against its plain version (the same radix select in torch
+    ops) and against the dense route (a stable sort), bit for bit."""
+    from torcheval_tpu_torch.ops.topk import topk, topk_kernel, topk_kernel_plain
 
     worst = 0.0
     for name, x, k in _topk_cases(dev, gen):
         v, i = topk_kernel(x, k)
         pv, pi = topk_kernel_plain(x, k)
+        dv, di = topk(x, k, method="dense")
         torch.cuda.synchronize()
-        _require(torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi),
-                 f"topk {name}")
+        for what, (wv, wi) in (("plain", (pv, pi)), ("dense", (dv, di))):
+            _require(torch.equal(v.view(torch.int32), wv.view(torch.int32)) and torch.equal(i, wi),
+                     f"topk {name} against {what}")
         both = torch.isfinite(v) & torch.isfinite(pv)
         worst = max(worst, float((v[both] - pv[both]).abs().max()) if bool(both.any()) else 0.0)
-        print(f"  topk {name} {tuple(x.shape)} k={k}: bit-equal values and indices")
+        print(f"  topk {name} {tuple(x.shape)} k={k}: bit-equal to the plain and dense routes")
     return worst
 
 
@@ -764,6 +775,14 @@ def topk_row(dev, gen, timer, launches, err):
         "shape": f"({TOPK_ROWS}, {TOPK_LABELS}) float32, k={TOPK_K}",
     }
     row["at_64x1000000_k100"] = times(RETRIEVAL_ROWS, RETRIEVAL_LABELS, 100)
+    row["at_64x1000000_k10"] = times(RETRIEVAL_ROWS, RETRIEVAL_LABELS, 10)
+    # information: every value tied, so the selection runs through the index
+    # digits (the kernel's worst case in reads of the row)
+    equal = torch.full((RETRIEVAL_ROWS, RETRIEVAL_LABELS), 0.5, device=dev)
+    row["at_64x1000000_k100_all_equal"] = {
+        "ms": timer.ms(lambda: topk_kernel(equal, 100)),
+        "library_ms": timer.ms(lambda: torch.topk(equal, 100)),
+    }
     return row
 
 
@@ -919,9 +938,13 @@ def main() -> int:
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}) at {r['shape']}")
-    big = rows[2]["at_64x1000000_k100"]
-    print(f"  topk: {big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, library "
-          f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f}) at (64, 1000000) float32, k=100")
+    for k in (100, 10):
+        big = rows[2][f"at_64x1000000_k{k}"]
+        print(f"  topk: {big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, library "
+              f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f}) at (64, 1000000) float32, k={k}")
+    equal = rows[2]["at_64x1000000_k100_all_equal"]
+    print(f"  topk: {equal['ms']:.4f} ms (library {equal['library_ms']:.4f}) at (64, 1000000) "
+          f"float32 all equal, k=100 (information)")
     f32 = rows[3]["at_f32_d1"]
     print(f"  segment_sum: {f32['ms']:.4f} ms (plain {f32['plain_ms']:.4f}, library "
           f"{f32['library_ms']:.4f}, bound {f32['bound_ms']:.4f}) at ({SLICED_ROWS}, 1) float32 "

@@ -55,7 +55,9 @@ def test_hist_kernel_matches_plain(dev, n, c, dtype):
     assert torch.equal(got, hist_plain(labels, c))
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 300_001])
+# below one tile of 4096 rows, one tile, ragged, and past 2^22 rows (over a
+# thousand tiles looking back)
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 4096, 4097, 300_001, (1 << 22) + 12_345])
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
 def test_compaction_kernel_matches_plain(dev, n, density):
     g = torch.Generator(device=dev).manual_seed(n)
@@ -64,15 +66,31 @@ def test_compaction_kernel_matches_plain(dev, n, density):
     s[::11] = -0.0
     tp = torch.randint(0, 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32)
     keep = torch.rand(n, generator=g, device=dev) < density
+    before = stream_compact.launches
     got = compact_summary_rows(s, tp, tp.flip(0).contiguous(), keep)
+    torch.cuda.synchronize()
+    assert stream_compact.launches == before + 1
     want = compact_summary_rows_plain(s, tp, tp.flip(0).contiguous(), keep)
     assert int(got[3]) == int(want[3]) == int(keep.sum())
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    # pad=None: rows past n_live are left as allocated
     (a,), na = stream_compact(keep, [tp])
     (b,), nb = stream_compact_plain(keep, [tp])
     k = int(nb)
     assert int(na) == k and torch.equal(a[:k], b[:k])
+    assert stream_compact.launches == before + 2
+
+
+def test_compaction_kernel_takes_unaligned_columns_and_mask(dev):
+    # views one element in: no 16-byte loads, the same answer
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 3 * 4096 + 77
+    s = torch.rand(n + 1, generator=g, device=dev)[1:]
+    keep = (torch.rand(n + 1, generator=g, device=dev) < 0.5)[1:]
+    (a,), na = stream_compact(keep, [s], [float("nan")])
+    (b,), nb = stream_compact_plain(keep, [s], [float("nan")])
+    assert int(na) == int(nb) and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_compact_counts_fast_matches_two_sorts(dev):
@@ -102,14 +120,26 @@ def _special_rows(n, l, g):
     return x
 
 
+def _ideal_ranking_rows(n, l, g):
+    """{0, 1} relevance at density 0.001, as the retrieval leg's ideal
+    ranking sees it: almost all ties."""
+    return (torch.rand((n, l), generator=g, device=g.device) < 0.001).to(torch.float32)
+
+
+# one block a row up to 16384 columns, several blocks a row past it; the
+# retrieval leg's (64, 10^6) at its k and the kernel's bound
 @pytest.mark.parametrize(
     "n,l,k",
     [(5, 1, 1), (6, 1025, 1), (6, 1025, 128), (7, 4096, 5), (7, 4097, 128),
-     (9, 10000, 5), (4, 12345, 128), (4, 128, 128), (4, 300_001, 100)],
+     (9, 10000, 5), (4, 12345, 128), (4, 128, 128), (4, 300_001, 100),
+     (5, 16384, 5), (5, 16384, 128), (5, 16385, 5), (5, 16385, 128),
+     (64, 1_000_000, 1), (64, 1_000_000, 10), (64, 1_000_000, 100), (64, 1_000_000, 128),
+     (4, (1 << 21) + 5, 100)],
 )
 def test_topk_kernel_matches_plain_bit_for_bit(dev, n, l, k):
     g = torch.Generator(device=dev).manual_seed(l + k)
-    for x in (torch.rand((n, l), generator=g, device=dev), _special_rows(n, l, g)):
+    for x in (torch.rand((n, l), generator=g, device=dev), _special_rows(n, l, g),
+              _ideal_ranking_rows(n, l, g)):
         before = topk_kernel.launches
         v, i = topk_kernel(x, k)
         torch.cuda.synchronize()
@@ -120,6 +150,19 @@ def test_topk_kernel_matches_plain_bit_for_bit(dev, n, l, k):
         # the dense lowering (a stable sort) gives the same answer
         dv, di = topk(x, k, method="dense")
         assert torch.equal(v.view(torch.int32), dv.view(torch.int32)) and torch.equal(i, di)
+
+
+@pytest.mark.parametrize("k", [1, 100, 128])
+def test_topk_kernel_on_all_equal_long_rows(dev, k):
+    # every value digit ties: the selection goes on through the index digits
+    x = torch.full((8, 1_000_000), 0.25, device=dev)
+    x[3, 999_999] = 0.5
+    x[5, :7] = -0.0
+    v, i = topk_kernel(x, k)
+    pv, pi = topk_kernel_plain(x, k)
+    dv, di = topk(x, k, method="dense")
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    assert torch.equal(v.view(torch.int32), dv.view(torch.int32)) and torch.equal(i, di)
 
 
 def test_topk_auto_launches_the_kernel(dev):

@@ -125,6 +125,61 @@ def test_kernel_plain_matches_pallas_interpret(case, k):
     _assert_same(topk_kernel_plain(torch.from_numpy(x), k), np.asarray(v), np.asarray(i))
 
 
+def _radix_case(name, rng):
+    """(x, k, pallas): rows that stress the kernel's radix select; ``pallas``
+    marks the NaN-free, signed-zero-free inputs the Pallas kernel defines."""
+    if name == "tie_group_past_a_bin":
+        # the kth value 0.5 has about 4990 ties: more than a digit bin of
+        # the candidate buffer (2048) holds
+        x = np.full((8, 5000), 0.5, np.float32)
+        for r in range(8):
+            x[r, rng.choice(5000, r + 1, replace=False)] = rng.random(r + 1) + 1.0
+        return x, 20, True
+    if name == "all_equal":
+        return np.full((4, 3000), 0.75, np.float32), 128, True
+    if name == "zero_one_fewer_ones_than_k":
+        x = np.zeros((6, 4000), np.float32)
+        for r in range(6):
+            x[r, rng.choice(4000, r, replace=False)] = 1.0
+        return x, 10, True
+    if name.startswith("specials_at_"):
+        # +NaN x2, +inf x3, +0.0 x5, -0.0 x5, -inf x5, -NaN x5, then -NaN
+        row = np.array([np.nan] * 2 + [np.inf] * 3 + [0.0] * 5 + [-0.0] * 5
+                       + [-np.inf] * 5, np.float32)
+        x = np.full((6, 1100), -np.nan, np.float32)
+        for r in range(6):
+            x[r, rng.permutation(1100)[: row.size]] = row
+        k = {"specials_at_nan": 1, "specials_at_inf": 4, "specials_at_pos_zero": 7,
+             "specials_at_neg_zero": 12, "specials_at_neg_inf": 18,
+             "specials_at_neg_nan": 25}[name]
+        return x, k, False
+    if name == "k128_l1025":
+        return rng.integers(-3, 4, (8, 1025)).astype(np.float32), 128, True
+    if name == "l1":
+        return rng.random((5, 1), dtype=np.float32), 1, False
+    return rng.integers(-2, 3, (4, 37)).astype(np.float32), 37, False  # k == L
+
+
+RADIX_CASES = [
+    "tie_group_past_a_bin", "all_equal", "zero_one_fewer_ones_than_k",
+    "specials_at_nan", "specials_at_inf", "specials_at_pos_zero", "specials_at_neg_zero",
+    "specials_at_neg_inf", "specials_at_neg_nan", "k128_l1025", "l1", "k_equals_l",
+]
+
+
+@pytest.mark.parametrize("name", RADIX_CASES)
+def test_kernel_plain_radix_select_matches_lax_top_k(name):
+    x, k, _ = _radix_case(name, np.random.default_rng(12))
+    _assert_same(topk_kernel_plain(torch.from_numpy(x), k), *_lax(x, k))
+
+
+@pytest.mark.parametrize("name", [n for n in RADIX_CASES if _radix_case(n, np.random.default_rng(0))[2]])
+def test_kernel_plain_radix_select_matches_pallas_interpret(name):
+    x, k, _ = _radix_case(name, np.random.default_rng(12))
+    v, i = jax_pallas_topk(jnp.asarray(x), k, interpret=True)
+    _assert_same(topk_kernel_plain(torch.from_numpy(x), k), np.asarray(v), np.asarray(i))
+
+
 def _prune_inputs(name, rng):
     if name == "random":
         return rng.random((37, 3000), dtype=np.float32), 5

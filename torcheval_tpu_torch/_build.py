@@ -42,9 +42,9 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "tc_hist_i32": ([_P, _I64, _I64, _P, _P], ctypes.c_int),
     "tc_hist_i64": ([_P, _I64, _I64, _P, _P], ctypes.c_int),
-    "tc_stream_compact_tiles": ([_I64], _I64),
+    "tc_stream_compact_scratch": ([_I64], _I64),
     "tc_stream_compact": (
-        [_P, _I64, _P, _P, _P, ctypes.c_int, _P, _P, _P, _P],
+        [_P, _I64, _P, _P, _P, ctypes.c_int, _P, _P, _P],
         ctypes.c_int,
     ),
     "tc_topk_workspace": ([_I64, _I64, ctypes.c_int], _I64),

@@ -21,12 +21,14 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch import _build
 from torcheval_tpu_torch.ops.summary import PAD_SCORE
 
 MAX_COLS = 7
+_NUMPY = {torch.float32: np.float32, torch.int32: np.int32, torch.uint32: np.uint32}
 
 
 Pad = Optional[Sequence[float]]
@@ -68,10 +70,10 @@ def stream_compact_plain(
 
 
 def _pad_words(cols: Sequence[torch.Tensor], pad: Sequence[float]):
-    """Each pad value as the raw 32-bit word of its column's dtype."""
+    """Each pad value as the raw 32-bit word of its column's dtype (numpy on
+    the host: a CPU tensor per value costs more than the launch)."""
     words = [
-        torch.tensor(p, dtype=c.dtype).view(torch.int32).item() & 0xFFFFFFFF
-        for c, p in zip(cols, pad)
+        int(np.array(p, dtype=_NUMPY[c.dtype]).view(np.uint32)) for c, p in zip(cols, pad)
     ]
     return (ctypes.c_uint32 * MAX_COLS)(*words)
 
@@ -96,14 +98,18 @@ def stream_compact(
         mask = mask != 0
     mask = mask.contiguous()
     cols = [c.contiguous() for c in cols]
-    outs = [torch.empty_like(c) for c in cols]
     _build.require_cuda("stream_compact", mask, *cols)
     n = mask.numel()
-    tiles = lib.tc_stream_compact_tiles(n)
     dev = mask.device
-    tile_counts = torch.empty(max(tiles, 1), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty(max(tiles, 1), dtype=torch.int64, device=dev)
-    n_live = torch.empty((), dtype=torch.int32, device=dev)
+    # one allocation for the outputs (a row each) and one for the scratch
+    # (per-tile status words and the tile ticket, zeroed by the kernel's
+    # call) with n_live in its last word: each allocation costs host time
+    # that a launch on a busy card would otherwise hide
+    block = torch.empty((len(cols), n), dtype=torch.int32, device=dev)
+    outs = [block[i].view(c.dtype) for i, c in enumerate(cols)]
+    words = lib.tc_stream_compact_scratch(n)
+    scratch = torch.empty(words + 1, dtype=torch.int64, device=dev)
+    n_live = scratch[words:].view(torch.int32)[0]
     src = (ctypes.c_void_p * MAX_COLS)(*(c.data_ptr() for c in cols))
     dst = (ctypes.c_void_p * MAX_COLS)(*(o.data_ptr() for o in outs))
     words = None if pad is None else _pad_words(cols, pad)
@@ -115,8 +121,7 @@ def stream_compact(
             dst,
             words,
             len(cols),
-            tile_counts.data_ptr(),
-            tile_offsets.data_ptr(),
+            scratch.data_ptr(),
             n_live.data_ptr(),
             _build.stream_of(mask),
         )

@@ -43,8 +43,8 @@ _METHODS = ("auto", "dense", "prune", "kernel")
 # Below this label width the dense sort is cheaper than streaming selection
 # (the JAX package's threshold, kept so both packages pick alike).
 _DENSE_L_MAX = 1024
-# The kernel keeps k candidates per tile and per round of selection; the
-# JAX kernel's bound of one 128-lane carry is kept as the contract.
+# The kernel ranks its last k keys in one block; the JAX kernel's bound of
+# one 128-lane carry is kept as the contract.
 _KERNEL_MAX_K = 128
 # Prune grouping: group width along the label axis and the per-group
 # survivor budget.
@@ -121,19 +121,39 @@ def _kernel_check(x: torch.Tensor, k: int) -> None:
 
 
 def topk_kernel_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's arithmetic in plain PyTorch. Each element's 64-bit key
-    holds its order key in the high half and ``2**32 - 1 - index`` in the
-    low half, so keys are unique and the largest key is the largest value
-    at the lowest index. The k largest keys (any selection of unique keys
-    gives one answer) decode into values and indices."""
+    """The kernel's radix select in plain PyTorch, over whole rows.
+
+    Each value's 32-bit order key (unsigned, so that its order is the total
+    order) is resolved most significant digit first, in the kernel's digits
+    of 11, 11 and 10 bits. A step histograms the digit over the keys that
+    match the prefix so far, picks the bin where the count from the top
+    reaches the number still needed, and marks the keys of the bins above
+    it as taken. Once the kth value is known, the ties at it are taken by
+    lowest index, as the kernel's inverted-index digits take them. The k
+    taken keys are then sorted as the kernel's 64-bit keys (order key high,
+    ``2**32 - 1 - index`` low) and decoded."""
     _kernel_check(x, k)
     n, l = x.shape
-    low = (2**32 - 1) - torch.arange(l, dtype=torch.int64, device=x.device)
-    key = (order_key(x).to(torch.int64) << 32) | low
-    top = torch.topk(key, k, dim=1, sorted=True).values
+    dev = x.device
+    u = order_key(x).to(torch.int64) + 2**31
+    alive = torch.ones((n, l), dtype=torch.bool, device=dev)  # keys matching the prefix
+    taken = torch.zeros((n, l), dtype=torch.bool, device=dev)
+    need = torch.full((n, 1), k, dtype=torch.int64, device=dev)
+    for shift, width in ((21, 11), (10, 11), (0, 10)):
+        digit = (u >> shift) & ((1 << width) - 1)
+        hist = torch.zeros((n, 1 << width), dtype=torch.int64, device=dev)
+        hist.scatter_add_(1, digit, alive.to(torch.int64))
+        from_top = hist.flip(1).cumsum(1).flip(1)  # keys in bins >= b
+        pick = (from_top >= need).sum(1, keepdim=True) - 1
+        need = need - (from_top.gather(1, pick) - hist.gather(1, pick))
+        taken |= alive & (digit > pick)
+        alive &= digit == pick
+    taken |= alive & (alive.cumsum(1) <= need)
+    idx = taken.nonzero()[:, 1].reshape(n, k)
+    key = (order_key(x).gather(1, idx).to(torch.int64) << 32) | ((2**32 - 1) - idx)
+    top = torch.sort(key, dim=1, descending=True).values
     idx = (2**32 - 1) - (top & 0xFFFFFFFF)
-    values = _flip((top >> 32).to(torch.int32)).view(torch.float32)
-    return values, idx
+    return torch.gather(x, 1, idx), idx
 
 
 def topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
