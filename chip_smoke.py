@@ -109,19 +109,35 @@ class Timer:
 
 # ------------------------------------------------------------------ phase 2
 def check_hist(dev, gen):
+    """The kernel against its plain version, exactly: random labels (out of
+    range on both sides) at the legs' class counts, and at the macro leg's
+    size every label equal, a ragged length and views off a 16-byte
+    boundary."""
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
 
+    def cases():
+        for n, c in ((HEADLINE_CHUNK, HEADLINE_CLASSES), (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000)):
+            for dtype in (torch.int32, torch.int64):
+                yield (f"n={n} C={c} {str(dtype)[6:]}",
+                       torch.randint(-3, c + 3, (n,), generator=gen, device=dev, dtype=dtype), c)
+        for c in (1, HEADLINE_CLASSES, MACRO_CLASSES):
+            yield f"n={MACRO_CHUNK} C={c} every label equal", torch.full((MACRO_CHUNK,), c - 1, device=dev), c
+        ragged = torch.randint(-3, MACRO_CLASSES + 3, (MACRO_CHUNK + 3,), generator=gen, device=dev)
+        for offset in (0, 1, 3):
+            yield (f"n={MACRO_CHUNK + 3 - offset} C={MACRO_CLASSES} view at +{offset} labels",
+                   ragged[offset:], MACRO_CLASSES)
+            yield (f"n={MACRO_CHUNK + 3 - offset} C={MACRO_CLASSES} int32 view at +{offset} labels",
+                   ragged.to(torch.int32)[offset:], MACRO_CLASSES)
+
     worst = 0
-    for n, c in ((HEADLINE_CHUNK, HEADLINE_CLASSES), (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000)):
-        for dtype in (torch.int32, torch.int64):
-            labels = torch.randint(-3, c + 3, (n,), generator=gen, device=dev, dtype=dtype)
-            got, want = hist(labels, c), hist_plain(labels, c)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int64) - want).abs().max())
-            worst = max(worst, err)
-            _require(err == 0 and int(got.sum()) == int(((labels >= 0) & (labels < c)).sum()),
-                     f"hist n={n} C={c} {dtype}")
-            print(f"  hist n={n} C={c} {str(dtype)[6:]}: exact")
+    for name, labels, c in cases():
+        got, want = hist(labels, c), hist_plain(labels, c)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want).abs().max())
+        worst = max(worst, err)
+        _require(err == 0 and int(got.sum()) == int(((labels >= 0) & (labels < c)).sum()),
+                 f"hist {name}")
+        print(f"  hist {name}: exact")
     return float(worst)
 
 
@@ -242,15 +258,18 @@ def _zipf_rows(rng, n, s):
 
 
 def _segment_sum_cases(dev):
-    """(name, vals, rows, S, exact): every value type, D in {1, 2, 7, 130},
-    S in {1, 12288, 2^20 + 3}, rows uniform, power-law and out of range
-    (negative and >= S), NaN and +-inf in the float columns, empty streams,
-    and non-negative floats (``exact`` where every partial sum is exact)."""
+    """(name, vals, rows, S, exact): every value type, D in {1, 2, 3, 4, 7,
+    130}, S in {1, 12288, 2^20 + 3}, rows uniform, power-law and out of
+    range (negative and >= S), NaN and +-inf in the float columns, empty
+    streams, and non-negative floats (``exact`` where every partial sum is
+    exact); at the sliced leg's shape, (2^20, 2) into 10^6 cohorts, every
+    row 0, uniform rows, and values and rows as views off a 16-byte
+    boundary."""
     rng = np.random.default_rng(SEED)
     cases = []
     for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
-        for d in (1, 2, 7, 130):
-            n = {1: 1 << 20, 2: 1 << 20, 7: 1 << 17, 130: 1 << 14}[d]
+        for d in (1, 2, 3, 4, 7, 130):
+            n = {1: 1 << 20, 2: 1 << 20, 3: 1 << 18, 4: 1 << 18, 7: 1 << 17, 130: 1 << 14}[d]
             if dtype.is_floating_point:
                 vals = torch.from_numpy(rng.standard_normal((n, d))).to(dev, dtype)
                 vals[::997, 0] = float("nan")
@@ -285,6 +304,20 @@ def _segment_sum_cases(dev):
                 rows = torch.from_numpy(_zipf_rows(rng, n, s)).to(dev)
                 cases.append((f"{str(dtype)[6:]} D=2 S={s} zipf rows, uniform [0, 1)", uniform, rows, s, False))
                 cases.append((f"{str(dtype)[6:]} D=2 S={s} zipf rows, quarters in [0, 2)", quarters, rows, s, True))
+    n, s = SLICED_ROWS, SLICED_COHORTS
+    leg_rows = torch.from_numpy(_zipf_rows(rng, n + 3, s)).to(dev, torch.int32)
+    for dtype in (torch.int32, torch.float32):
+        vals = (torch.from_numpy(rng.integers(0, 2, (n + 3, 2))) if dtype == torch.int32
+                else torch.from_numpy(rng.random((n + 3, 2)))).to(dev, dtype)
+        name = f"{str(dtype)[6:]} D=2 S={s}"
+        exact = dtype == torch.int32
+        cases.append((f"{name} every row 0", vals[:n], torch.zeros(n, dtype=torch.int32, device=dev), s, exact))
+        cases.append((f"{name} uniform rows", vals[:n], torch.from_numpy(rng.integers(0, s, n)).to(dev), s, exact))
+        # the first two views admit no common 16-byte boundary (all scalar
+        # loads); the third reaches one after one sample (a scalar head)
+        for vo, ro in ((1, 0), (0, 1), (1, 3)):
+            cases.append((f"{name} power-law rows, values view at +{vo}, rows view at +{ro}",
+                          vals[vo:vo + n], leg_rows[ro:ro + n], s, exact))
     return cases
 
 
@@ -656,7 +689,10 @@ def check_sliced_leg(data, acc, agg, results):
     _require(np.array_equal(results["max"]["values"].cpu().numpy(), want_max), "per-cohort max")
     want_mean = np.bincount(rows, weights=s.astype(np.float64), minlength=n) / want_total
     got_mean = results["mean"]["values"].cpu().numpy().astype(np.float64)
-    rel = np.abs(got_mean - want_mean) / np.abs(want_mean)
+    # a cohort whose scores are all exactly 0.0 (torch.rand can draw it)
+    # has mean 0 and must get exactly 0
+    err = np.abs(got_mean - want_mean)
+    rel = np.divide(err, np.abs(want_mean), out=np.where(err == 0, 0.0, np.inf), where=want_mean != 0)
     _require(bool(np.all(rel <= RTOL)), f"per-cohort mean (largest relative error {rel.max():.3e})")
     acc_v = results["acc"]["values"].cpu().numpy()
     _require(bool(np.all(np.isfinite(acc_v))) and acc_v.shape == (n,), "accuracy values finite")
@@ -687,6 +723,23 @@ def kernel_rows(dev, gen, timer, launches, errs, fold):
         "library_ms": timer.ms(lambda: torch.bincount(labels, minlength=MACRO_CLASSES)),
         "shape": f"labels ({MACRO_CHUNK},) int64, C={MACRO_CLASSES}",
     }]
+    # information: every label equal, every lane of every warp on one bin;
+    # and one PyTorch reduction over the same labels, the time of a single
+    # read of them under this timer
+    equal = torch.full_like(labels, 7)
+    rows[0]["at_every_label_equal"] = {
+        "ms": timer.ms(lambda: hist(equal, MACRO_CLASSES)),
+        "library_ms": timer.ms(lambda: torch.bincount(equal, minlength=MACRO_CLASSES)),
+    }
+    rows[0]["labels_sum_ms"] = timer.ms(lambda: labels.sum())
+    # information: a short stream at a small and a large class count (the
+    # headline's 5 classes, one tile of 20000 bins)
+    for c in (HEADLINE_CLASSES, 20000):
+        short = torch.randint(0, c, (1 << 20,), generator=gen, device=dev)
+        rows[0][f"at_1048576_c{c}"] = {
+            "ms": timer.ms(lambda: hist(short, c)),
+            "library_ms": timer.ms(lambda: torch.bincount(short, minlength=c)),
+        }
     s, tp, fp, keep = fold
     n = s.numel()
     stacked = torch.stack([s.view(torch.int32), tp, fp])
@@ -711,24 +764,27 @@ def kernel_rows(dev, gen, timer, launches, errs, fold):
 
 
 def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets):
-    """The kernel at the sliced leg's shape, on one of its batches: the
-    accuracy member's (N, 2) int32 deltas into 1,000,000 cohorts by the
-    batch's interned rows; and the scores as a float32 D = 1 column."""
+    """The kernel at the sliced leg's two launches, on one of its batches,
+    into 1,000,000 cohorts by the batch's interned rows: the accuracy
+    member's (N, 2) int32 deltas (num_correct, num_total), and the Mean
+    member's (N, 2) float32 deltas (weighted_sum, weights: the scores and
+    ones, stacked as the fold stacks them). Information: the int32 deltas
+    with every row 0 (one cohort takes the batch) and with uniform rows."""
     from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
 
     s = SLICED_COHORTS
 
-    def times(vals):
+    def times(vals, rows=leg_rows):
         n, d = vals.shape
         size = vals.element_size()
 
         def library():
-            return torch.zeros((s, d), dtype=vals.dtype, device=dev).index_add_(0, leg_rows, vals)
+            return torch.zeros((s, d), dtype=vals.dtype, device=dev).index_add_(0, rows, vals)
 
         return {
-            "ms": timer.ms(lambda: segment_sum(vals, leg_rows, s)),
-            "plain_ms": timer.ms(lambda: segment_sum_plain(vals, leg_rows, s)),
-            "bound_ms": (n * d * size + n * leg_rows.element_size() + s * d * size)
+            "ms": timer.ms(lambda: segment_sum(vals, rows, s)),
+            "plain_ms": timer.ms(lambda: segment_sum_plain(vals, rows, s)),
+            "bound_ms": (n * d * size + n * rows.element_size() + s * d * size)
             / HBM_BYTES_PER_S * 1e3,
             "library_ms": timer.ms(library),
         }
@@ -746,7 +802,13 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
         "bound_by": "bytes",
         "shape": f"({SLICED_ROWS}, 2) int32 deltas into {s} cohorts, power-law rows of the sliced leg",
     }
-    row["at_f32_d1"] = times(leg_scores[:, None].contiguous())
+    row["at_f32_d2"] = times(torch.stack([leg_scores, torch.ones_like(leg_scores)], dim=-1))
+    row["at_i32_d2_every_row_0"] = times(deltas, torch.zeros_like(leg_rows))
+    uniform = torch.randint(0, s, leg_rows.shape, device=dev, dtype=leg_rows.dtype,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))
+    row["at_i32_d2_uniform_rows"] = times(deltas, uniform)
+    # information: the wrapper's zeroing of the (S, 2) output alone
+    row["zeroing_ms"] = timer.ms(lambda: torch.zeros((s, 2), dtype=torch.int32, device=dev))
     return row
 
 
@@ -945,10 +1007,23 @@ def main() -> int:
     equal = rows[2]["at_64x1000000_k100_all_equal"]
     print(f"  topk: {equal['ms']:.4f} ms (library {equal['library_ms']:.4f}) at (64, 1000000) "
           f"float32 all equal, k=100 (information)")
-    f32 = rows[3]["at_f32_d1"]
-    print(f"  segment_sum: {f32['ms']:.4f} ms (plain {f32['plain_ms']:.4f}, library "
-          f"{f32['library_ms']:.4f}, bound {f32['bound_ms']:.4f}) at ({SLICED_ROWS}, 1) float32 "
-          f"into {SLICED_COHORTS} cohorts")
+    equal = rows[0]["at_every_label_equal"]
+    print(f"  hist: {equal['ms']:.4f} ms (library {equal['library_ms']:.4f}) at labels "
+          f"({MACRO_CHUNK},) int64 all equal, C={MACRO_CLASSES} (information); one "
+          f"labels.sum() over the leg's labels {rows[0]['labels_sum_ms']:.4f} ms")
+    for c in (HEADLINE_CLASSES, 20000):
+        t = rows[0][f"at_1048576_c{c}"]
+        print(f"  hist: {t['ms']:.4f} ms (library {t['library_ms']:.4f}) at labels (1048576,) "
+              f"int64, C={c} (information)")
+    print(f"  segment_sum: the wrapper's zeroing of the ({SLICED_COHORTS}, 2) output alone "
+          f"{rows[3]['zeroing_ms']:.4f} ms (information)")
+    for key, what in (("at_f32_d2", "float32 deltas, power-law rows of the sliced leg"),
+                      ("at_i32_d2_every_row_0", "int32 deltas, every row 0 (information)"),
+                      ("at_i32_d2_uniform_rows", "int32 deltas, uniform rows (information)")):
+        t = rows[3][key]
+        print(f"  segment_sum: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({SLICED_ROWS}, 2) {what} "
+              f"into {SLICED_COHORTS} cohorts")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,46 @@ def test_hist_kernel_matches_plain(dev, n, c, dtype):
     assert torch.equal(got, hist_plain(labels, c))
 
 
+# csrc/hist.cu: the interleaved copies halve from 32 past C = 128, 256, 512,
+# 1024 and 2048 (16 KB of copies);
+# one class tile holds the opt-in shared memory's bins (58,112 on an H100),
+# and more classes take a second tile
+_HIST_EDGES = [1, 2, 5, 8, 9, 128, 129, 1024, 1025, 2048, 2049, 20_000, 58_112, 58_113, 120_000]
+
+
+def _hist_case(labels, c):
+    before = hist.launches
+    got = hist(labels, c)
+    torch.cuda.synchronize()
+    assert hist.launches == before + 1
+    assert torch.equal(got, hist_plain(labels, c))
+
+
+@pytest.mark.parametrize("c", _HIST_EDGES)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_hist_kernel_at_copy_and_tile_edges(dev, c, dtype):
+    g = torch.Generator(device=dev).manual_seed(c)
+    _hist_case(torch.randint(-2, c + 2, (300_007,), generator=g, device=dev, dtype=dtype), c)
+
+
+@pytest.mark.parametrize("c", [1, 5, 9, 1000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_hist_kernel_every_label_equal(dev, c, dtype):
+    # every lane of every warp on one bin
+    _hist_case(torch.full((1 << 20,), c - 1, device=dev, dtype=dtype), c)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 7, 1001, 65_539])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_hist_kernel_ragged_and_unaligned(dev, n, offset, dtype):
+    # N not a multiple of the 16-byte vector, and views that start off a
+    # 16-byte boundary (a scalar head before the vector body)
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    labels = torch.randint(-1, 1001, (n + offset,), generator=g, device=dev, dtype=dtype)[offset:]
+    _hist_case(labels, 1000)
+
+
 # below one tile of 4096 rows, one tile, ragged, and past 2^22 rows (over a
 # thousand tiles looking back)
 @pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 4096, 4097, 300_001, (1 << 22) + 12_345])
@@ -275,6 +315,77 @@ def test_segment_sum_kernel_exact_where_partial_sums_are(dev, dtype, s):
     vals = torch.from_numpy(rng.integers(0, 8, (n, 2)) / 4).to(dev, dtype)
     rows = _rows("zipf", n, s, 2).to(dev)
     assert torch.equal(segment_sum(vals, rows, s), segment_sum_plain(vals, rows, s))
+
+
+def _head_edges(d, size):
+    """The rows csrc/scatter.cu privatises for D lanes of `size`-byte
+    values at a large S: the first 64 rows in up to 32 copies within 16 KB
+    (fewer rows where one copy does not fit), then single rows up to 32 KB.
+    Returns (hot rows, head rows)."""
+    row = d * size
+    copies = 32
+    while copies > 1 and 64 * row * copies > 16384:
+        copies //= 2
+    hot = 64 if 64 * row <= 16384 else 16384 // row
+    return hot, hot + (32768 - hot * row * copies) // row
+
+
+def _sum_vals(dtype, n, d, rng):
+    if dtype.is_floating_point:
+        vals = torch.from_numpy(rng.standard_normal((n, d)))
+        vals[::97, 0] = float("nan")
+        vals[1::89, -1] = float("inf")
+        return vals.to(dtype)
+    big = 2**31 - 1 if dtype == torch.int32 else 2**62
+    return torch.from_numpy(rng.integers(-big, big, (n, d))).to(dtype)
+
+
+def _sum_case(vals, rows, s):
+    before = segment_sum.launches
+    got = segment_sum(vals, rows, s)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    _assert_sum_matches(got, vals, rows, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 130])
+@pytest.mark.parametrize("row_dtype", [torch.int32, torch.int64])
+def test_segment_sum_kernel_every_row_zero(dev, dtype, d, row_dtype):
+    # one cohort takes the whole batch
+    n = 1 << 17 if d < 100 else 1 << 12
+    vals = _sum_vals(dtype, n, d, np.random.default_rng(d)).to(dev)
+    _sum_case(vals, torch.zeros(n, dtype=row_dtype, device=dev), 1000)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 130])
+@pytest.mark.parametrize("part", [0, 1])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_segment_sum_kernel_around_the_head(dev, dtype, d, part, edge):
+    # S one row short of the copied (part 0) or the whole (part 1)
+    # privatised head, the head exactly, one row past it
+    s = _head_edges(d, torch.tensor([], dtype=dtype).element_size())[part] + edge
+    n = 50_000 if d < 100 else 3_000
+    rng = np.random.default_rng(s)
+    vals = _sum_vals(dtype, n, d, rng).to(dev)
+    rows = torch.from_numpy(rng.integers(-2, s + 2, n)).to(dev)
+    for r in (rows, rows.to(torch.int32)):
+        _sum_case(vals, r, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("shift", [(1, 0), (0, 1), (1, 1), (3, 2)])
+def test_segment_sum_kernel_unaligned_views(dev, dtype, d, shift):
+    # vals and rows views that start off a 16-byte boundary, alone or both
+    vs, rs = shift
+    n = 10_003
+    rng = np.random.default_rng(d)
+    vals = _sum_vals(dtype, n + vs, d, rng).to(dev)[vs:]
+    rows = _rows("zipf", n + rs, 5000, d).to(dev, torch.int32)[rs:]
+    _sum_case(vals, rows, 5000)
+    _sum_case(vals, rows.to(torch.int64), 5000)
 
 
 def test_segment_sum_empty_and_tail_shape(dev):

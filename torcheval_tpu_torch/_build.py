@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-The kernels in ``csrc/*.cu`` have a plain C interface. On the first call that
-needs them, ``nvcc`` compiles each source for ``sm_90a`` (all sources at once,
-one process each) and links them into ``build/kernels/libtorcheval_kernels.so``
-beside the package; ``ctypes`` loads the result. Nothing is built or loaded
+The kernels in ``csrc/*.cu`` (and the headers ``csrc/*.cuh`` they include)
+have a plain C interface. On the first call that needs them, ``nvcc``
+compiles each source for ``sm_90a`` (all sources at once, one process each)
+and links them into ``build/kernels/libtorcheval_kernels.so`` beside the
+package; ``ctypes`` loads the result. Nothing is built or loaded
 when a module is imported, so the package imports on a machine with no
 ``nvcc`` and no GPU, where every wrapper runs its plain PyTorch version on
 CPU tensors.
@@ -135,13 +136,13 @@ def _compile(nvcc: str, sources, out_dir: Path) -> str:
 
 def library() -> ctypes.CDLL:
     """The kernels' shared library: built from ``csrc/*.cu`` on first use
-    (rebuilt when the sources change), loaded once per process. Raises when
-    it cannot be built."""
+    (rebuilt when a source or a header changes), loaded once per process.
+    Raises when it cannot be built."""
     with _loaded.lock:
         if _loaded.lib is not None:
             return _loaded.lib
         sources = sorted(CSRC.glob("*.cu"))
-        digest = _sources_digest(sources)
+        digest = _sources_digest([*sources, *sorted(CSRC.glob("*.cuh"))])
         lib_path = BUILD_DIR / LIB_NAME
         stamp = BUILD_DIR / "sources.sha256"
         if not (
