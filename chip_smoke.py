@@ -31,9 +31,22 @@ failed check. Phases:
    rows, ``{"acc": BinaryAccuracy()}`` and ``{"mean": Mean(), "max": Max()}``,
    checked per cohort against numpy (counts and maxima exactly, means within
    rtol 1e-5);
+   data-parallel leg: two ranks on the one card (processes this script
+   spawns, joined over gloo, since NCCL refuses two ranks on one GPU), each
+   feeding its 4 of 8 chunks of 2^24 predictions to a ``ShardedEvaluator``
+   of ``MulticlassAccuracy(num_classes=5)`` and macro
+   ``MulticlassF1Score(num_classes=5)`` and one of
+   ``BinaryAUROC(compaction_threshold=3 * 2**24)``; ``compute()`` syncs the
+   states over the ranks, and the synced results are checked against one
+   process over all 8 chunks without the port's kernels (counts by
+   ``torch.bincount``, exactly; AUROC uncompacted, within rtol 1e-5), and
+   the compaction kernel against its plain version at every fold size the
+   ranks ran; then a world of one rank over NCCL, through ``init_from_env``, runs the
+   sharded class counts (one histogram launch and one NCCL all_reduce);
 5. one JSON line per the kernels: launches on the main path (phases 3 and
-   4), time per launch, the plain version's and a library call's time, and
-   the least time the card could take (its bound).
+   4, the data-parallel ranks' included), time per launch, the plain
+   version's and a library call's time, and the least time the card could
+   take (its bound).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -41,6 +54,8 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -64,11 +79,17 @@ RETRIEVAL_KS = (10, 100)
 # traffic; its BinaryAUROC(approx=1024) member needs the unported sketch mode
 SLICED_COHORTS, SLICED_ROWS, SLICED_BATCHES = 1_000_000, 1 << 20, 16
 SLICED_ZIPF = 1.3
+# the data-parallel leg: the headline's data, 8 chunks over 2 ranks
+DP_RANKS, DP_CHUNKS = 2, 8
+DP_THRESHOLD = 3 * HEADLINE_CHUNK
+DP_TIMEOUT_S = 600
 TARGET_DENSITY = 1e-3
 CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-5, 1e-8
+# unit roundoff of the half types
+HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
 # covers the host's time to enqueue the timed call, so that a time is the
 # card's and not the wrapper's
@@ -110,13 +131,15 @@ class Timer:
 # ------------------------------------------------------------------ phase 2
 def check_hist(dev, gen):
     """The kernel against its plain version, exactly: random labels (out of
-    range on both sides) at the legs' class counts, and at the macro leg's
-    size every label equal, a ragged length and views off a 16-byte
+    range on both sides) at the legs' class counts (the headline's C and
+    the 2C bins of F1's joint key at its chunk size), and at the macro
+    leg's size every label equal, a ragged length and views off a 16-byte
     boundary."""
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
 
     def cases():
-        for n, c in ((HEADLINE_CHUNK, HEADLINE_CLASSES), (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000)):
+        for n, c in ((HEADLINE_CHUNK, HEADLINE_CLASSES), (HEADLINE_CHUNK, 2 * HEADLINE_CLASSES),
+                     (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000)):
             for dtype in (torch.int32, torch.int64):
                 yield (f"n={n} C={c} {str(dtype)[6:]}",
                        torch.randint(-3, c + 3, (n,), generator=gen, device=dev, dtype=dtype), c)
@@ -149,14 +172,18 @@ def _special_scores(n, dev, gen):
     return s
 
 
-def check_compaction(dev, gen):
+def check_compaction(dev, gen, sizes=(THRESHOLD, THRESHOLD - 12345)):
+    """The kernel against its plain version, bit for bit, at each of
+    ``sizes`` rows (the headline's fold by default; the data-parallel leg
+    passes the fold sizes its ranks ran), NaN and +-inf/+-0.0 among the
+    scores, at four mask densities."""
     from torcheval_tpu_torch.ops.stream_compact import (
         compact_summary_rows,
         compact_summary_rows_plain,
     )
 
     worst = 0
-    for n in (THRESHOLD, THRESHOLD - 12345):
+    for n in sizes:
         s = _special_scores(n, dev, gen)
         tp = torch.randint(0, 2**31 - 1, (n,), generator=gen, device=dev, dtype=torch.int32)
         fp = torch.randint(0, 2**31 - 1, (n,), generator=gen, device=dev, dtype=torch.int32)
@@ -263,8 +290,8 @@ def _segment_sum_cases(dev):
     range (negative and >= S), NaN and +-inf in the float columns, empty
     streams, and non-negative floats (``exact`` where every partial sum is
     exact); at the sliced leg's shape, (2^20, 2) into 10^6 cohorts, every
-    row 0, uniform rows, and values and rows as views off a 16-byte
-    boundary."""
+    row 0, uniform rows, values and rows as views off a 16-byte boundary,
+    and bfloat16 and float16 values."""
     rng = np.random.default_rng(SEED)
     cases = []
     for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
@@ -318,6 +345,9 @@ def _segment_sum_cases(dev):
         for vo, ro in ((1, 0), (0, 1), (1, 3)):
             cases.append((f"{name} power-law rows, values view at +{vo}, rows view at +{ro}",
                           vals[vo:vo + n], leg_rows[ro:ro + n], s, exact))
+    for dtype in (torch.bfloat16, torch.float16):
+        vals = torch.from_numpy(rng.standard_normal((n, 2))).to(dev, dtype)
+        cases.append((f"{str(dtype)[6:]} D=2 S={s} power-law rows", vals, leg_rows[:n], s, False))
     return cases
 
 
@@ -326,12 +356,20 @@ def check_segment_sum(dev):
     partial sums are all exact, exactly; other floats within the module's
     bound of a float64 reference, (count - 1) * u * sum|v| per segment and
     lane (plus the reference's own), with NaN and +-inf where the reference
-    has them. Returns the largest |kernel - plain| over finite entries."""
+    has them; half-precision values, which add as float32 and are rounded
+    once, within the float32 bound plus the half type's u times the float32
+    sum, and compared with the plain float32 sum rounded the same way (the
+    kernel sees float32 there, and the plain version's half-type adds are
+    less exact). Returns the largest |kernel - plain| over finite entries
+    of the kernel's own types."""
     from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
 
     worst = 0.0
     for name, vals, rows, s, exact in _segment_sum_cases(dev):
-        got, want = segment_sum(vals, rows, s), segment_sum_plain(vals, rows, s)
+        half = vals.dtype in HALF_U
+        got = segment_sum(vals, rows, s)
+        want = (segment_sum_plain(vals.float(), rows, s).to(vals.dtype) if half
+                else segment_sum_plain(vals, rows, s))
         torch.cuda.synchronize()
         _require(got.dtype == vals.dtype and got.shape == want.shape, f"segment_sum {name}: shape")
         if exact or not vals.dtype.is_floating_point:
@@ -341,8 +379,12 @@ def check_segment_sum(dev):
         ref = segment_sum_plain(vals.double(), rows, s)
         mag = segment_sum_plain(vals.double().abs(), rows, s)
         count = segment_sum_plain(torch.ones_like(rows, dtype=torch.float64), rows, s)[:, None]
-        u = 2.0**-24 if vals.dtype == torch.float32 else 2.0**-53
-        bound = (count - 1).clamp(min=0) * (u + 2.0**-53) * mag
+        if half:
+            adds = (count - 1).clamp(min=0) * (2.0**-24 + 2.0**-53) * mag
+            bound = adds + HALF_U[vals.dtype] * (ref.abs() + adds)
+        else:
+            u = 2.0**-24 if vals.dtype == torch.float32 else 2.0**-53
+            bound = (count - 1).clamp(min=0) * (u + 2.0**-53) * mag
         finite = torch.isfinite(ref)
         g = got.double()
         _require(torch.equal(torch.isnan(g), torch.isnan(ref))
@@ -352,7 +394,8 @@ def check_segment_sum(dev):
         _require(bool((err <= bound[finite] + 1e-300).all()), f"segment_sum {name}: bound")
         both = torch.isfinite(got) & torch.isfinite(want)
         diff = float((got[both].double() - want[both].double()).abs().max()) if bool(both.any()) else 0.0
-        worst = max(worst, diff)
+        if not half:
+            worst = max(worst, diff)
         ratio = float((err / bound[finite].clamp(min=1e-300)).max()) if err.numel() else 0.0
         print(f"  segment_sum {name}: within the bound (largest error {ratio:.4f} of it); "
               f"|kernel - plain| <= {diff:.3e}")
@@ -699,6 +742,207 @@ def check_sliced_leg(data, acc, agg, results):
     return float(rel.max())
 
 
+# ------------------------------------------------ phase 4, data-parallel leg
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_chunk(dev, i):
+    """Chunk ``i`` of the data-parallel leg, the same in every process."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 100 + i)
+    scores = torch.rand((HEADLINE_CHUNK, HEADLINE_CLASSES), generator=g, device=dev)
+    labels = torch.randint(0, HEADLINE_CLASSES, (HEADLINE_CHUNK,), generator=g, device=dev)
+    logits = torch.rand((HEADLINE_CHUNK,), generator=g, device=dev)
+    return scores, labels, logits, (labels == 0).to(torch.float32)
+
+
+def dp_worker(rank: int, port: str) -> int:
+    """One rank of the data-parallel leg (``chip_smoke.py --dp-rank R
+    PORT``): its block of the chunks through two ``ShardedEvaluator``s on
+    ``cuda:0``, synced over gloo; prints one ``DP_RESULT`` JSON line."""
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy, MulticlassF1Score
+    from torcheval_tpu_torch.metrics import toolkit
+    from torcheval_tpu_torch.ops import stream_compact as stream_compact_module
+    from torcheval_tpu_torch.ops.hist import hist
+    from torcheval_tpu_torch.ops.stream_compact import stream_compact
+    from torcheval_tpu_torch.parallel import (
+        ShardedEvaluator,
+        data_parallel_mesh,
+        init_from_env,
+        shutdown,
+    )
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DP_RANKS),
+                      RANK=str(rank), LOCAL_RANK="0")
+    _require(init_from_env(backend="gloo") == (rank, DP_RANKS), "data-parallel rank joined")
+    mesh = data_parallel_mesh()
+    dev = mesh.device
+    per_rank = DP_CHUNKS // DP_RANKS
+    chunks = [dp_chunk(dev, i) for i in range(rank * per_rank, (rank + 1) * per_rank)]
+    classification = ShardedEvaluator({
+        "accuracy": MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev),
+        "f1_macro": MulticlassF1Score(num_classes=HEADLINE_CLASSES, average="macro", device=dev),
+    }, mesh=mesh)
+    auroc = ShardedEvaluator(BinaryAUROC(compaction_threshold=DP_THRESHOLD, device=dev), mesh=mesh)
+    # untimed warm-up on local metrics (no collective): a fresh process loads
+    # each PyTorch kernel at its first call
+    head = [c[: 1 << 16] for c in chunks[0]]
+    MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev).update(head[0], head[1]).compute()
+    MulticlassF1Score(num_classes=HEADLINE_CLASSES, average="macro", device=dev).update(
+        head[0], head[1]).compute()
+    BinaryAUROC(compaction_threshold=1 << 15, device=dev).update(head[2], head[3]).update(
+        head[2], head[3]).compute()
+    # the row count of every compaction this rank runs, so that the parent
+    # holds the kernel against its plain version at these sizes
+    fold_rows = []
+    compact = stream_compact_module.compact_summary_rows
+
+    def recording_compact(scores, *rest):
+        fold_rows.append(int(scores.shape[0]))
+        return compact(scores, *rest)
+
+    stream_compact_module.compact_summary_rows = recording_compact
+    torch.cuda.synchronize()
+    dist.barrier()
+    hist.launches = 0
+    stream_compact.launches = 0
+    wire = toolkit._allgather_stacked
+    wire.rounds, wire.payload_bytes, wire.seconds = 0, 0, 0.0
+    t0 = time.perf_counter()
+    for scores, labels, logits, binary in chunks:
+        classification.update(scores, labels)
+        auroc.update(logits, binary)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = classification.compute()
+    t2 = time.perf_counter()
+    auroc_v = float(auroc.compute())
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out = {
+        "rank": rank,
+        "seconds": t3 - t0,
+        "update_seconds": t1 - t0,
+        "classification_compute_seconds": t2 - t1,
+        "auroc_compute_seconds": t3 - t2,
+        "accuracy": float(results["accuracy"]),
+        "f1_macro": float(results["f1_macro"]),
+        "auroc": auroc_v,
+        "hist_launches": hist.launches,
+        "stream_compact_launches": stream_compact.launches,
+        "fold_rows": fold_rows,
+        "sync_rounds": wire.rounds,
+        "sync_payload_bytes": wire.payload_bytes,
+        "sync_seconds": wire.seconds,
+    }
+    # the synced counts, for the exact check (two more small syncs)
+    for name in ("accuracy", "f1_macro"):
+        sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
+        out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
+    shutdown()
+    print("DP_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def dp_leg():
+    """Spawn the ranks, wait for them (killing all at the time limit) and
+    return each rank's result; any rank's failure fails the leg."""
+    port = str(_free_port())
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), port],
+                         cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(DP_RANKS)
+    ]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(err[-6000:], file=sys.stderr)
+            raise RuntimeError(f"check failed: data-parallel rank {r} exited {p.returncode}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("DP_RESULT ")]
+        _require(len(lines) == 1, f"data-parallel rank {r} printed its result")
+        results.append(json.loads(lines[0][len("DP_RESULT "):]))
+    return results
+
+
+def dp_reference(dev):
+    """One process over all 8 chunks without the port's kernels: the class
+    counts by ``torch.bincount``, the values from those counts, and the
+    AUROC uncompacted (a sort, no compaction kernel)."""
+    from torcheval_tpu_torch.metrics import BinaryAUROC
+    from torcheval_tpu_torch.metrics.functional.classification.f1_score import _f1_score_compute
+
+    c = HEADLINE_CLASSES
+    correct, total = 0, 0
+    tp, label, pred = (torch.zeros(c, dtype=torch.int64, device=dev) for _ in range(3))
+    auroc = BinaryAUROC(device=dev)
+    for i in range(DP_CHUNKS):
+        scores, labels, logits, binary = dp_chunk(dev, i)
+        p = scores.argmax(1)
+        hit = p == labels
+        correct += int(hit.sum())
+        total += labels.numel()
+        tp += torch.bincount(labels[hit], minlength=c)
+        label += torch.bincount(labels, minlength=c)
+        pred += torch.bincount(p, minlength=c)
+        auroc.update(logits, binary)
+        del scores, labels, logits, binary, p, hit
+    counts = {
+        "accuracy": {"num_correct": correct, "num_total": total},
+        "f1_macro": {"num_tp": tp.tolist(), "num_label": label.tolist(), "num_prediction": pred.tolist()},
+    }
+    f1 = _f1_score_compute(tp.to(torch.int32), label.to(torch.int32), pred.to(torch.int32), "macro")
+    return counts, correct / total, float(f1), float(auroc.compute())
+
+
+def nccl_world_of_one(dev, gen):
+    """A one-rank NCCL world through ``init_from_env``; the sharded class
+    counts run one histogram launch and one NCCL all_reduce there."""
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch.ops.hist import hist, hist_plain, sharded_class_counts
+    from torcheval_tpu_torch.parallel import init_from_env, shutdown
+
+    keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    try:
+        _require(init_from_env() == (0, 1), "NCCL world of one joined")
+        _require(dist.get_backend() == "nccl", f"backend {dist.get_backend()} is nccl")
+        labels = torch.randint(-3, HEADLINE_CLASSES + 3, (HEADLINE_CHUNK,), generator=gen, device=dev)
+        before = hist.launches
+        counts = sharded_class_counts(labels, HEADLINE_CLASSES)
+        torch.cuda.synchronize()
+        launched = hist.launches - before
+        _require(launched == 1, f"sharded class counts launched hist {launched} time(s)")
+        _require(counts.device == dev and torch.equal(counts, hist_plain(labels, HEADLINE_CLASSES)),
+                 "sharded class counts over NCCL equal the plain histogram")
+    finally:
+        shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launched
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -988,9 +1232,52 @@ def main() -> int:
     leg_rows = torch.from_numpy(acc.slice_table.lookup_rows(_sliced_batch(data, 1)[0])).to(dev)
     _, leg_scores, leg_targets = _sliced_batch(data, 1)
     del acc, agg, results
+    torch.cuda.empty_cache()
+
+    print(f"phase 4 data-parallel leg ({DP_RANKS} ranks on one card over gloo, "
+          f"{DP_CHUNKS} chunks of {HEADLINE_CHUNK})")
+    ranks = dp_leg()
+    counts, acc_ref, f1_ref, auroc_ref = dp_reference(dev)
+    dp_total = DP_CHUNKS * HEADLINE_CHUNK
+    for res in ranks:
+        r = res["rank"]
+        _require(res["accuracy_counts"] == counts["accuracy"], f"rank {r} synced accuracy counts")
+        _require(res["f1_macro_counts"] == counts["f1_macro"], f"rank {r} synced F1 counts")
+        _require(_close(res["accuracy"], acc_ref) and _close(res["f1_macro"], f1_ref),
+                 f"rank {r} accuracy {res['accuracy']} and F1 {res['f1_macro']} vs the plain "
+                 f"counts' {acc_ref} and {f1_ref}")
+        _require(np.isfinite(res["auroc"]) and _close(res["auroc"], auroc_ref),
+                 f"rank {r} synced AUROC {res['auroc']} vs uncompacted {auroc_ref}")
+        _require(res["sync_rounds"] == 4, f"rank {r}: two collections, two rounds each")
+        _require(res["hist_launches"] > 0 and res["stream_compact_launches"] >= 2,
+                 f"rank {r} launched hist and stream_compact")
+        print(f"  rank {r}: {dp_total} predictions over {DP_RANKS} ranks in {res['seconds']:.4f} s "
+              f"from its first update() to the synced compute(): {dp_total / res['seconds']:.1f} "
+              f"preds/s; sync {res['sync_seconds']:.4f} s in {res['sync_rounds']} rounds, "
+              f"{res['sync_payload_bytes']} payload bytes sent; launches hist "
+              f"{res['hist_launches']}, stream_compact {res['stream_compact_launches']}")
+        print(f"  rank {r}: updates {res['update_seconds']:.4f} s, accuracy+F1 compute "
+              f"{res['classification_compute_seconds']:.4f} s, AUROC compute (its pre-sync "
+              f"fold, the sync and the sort of the synced summaries) "
+              f"{res['auroc_compute_seconds']:.4f} s")
+    slowest = max(res["seconds"] for res in ranks)
+    print(f"  synced on every rank: accuracy {ranks[0]['accuracy']:.8f}, f1_macro "
+          f"{ranks[0]['f1_macro']:.8f} (counts equal torch.bincount's over all chunks: "
+          f"{acc_ref:.8f}, {f1_ref:.8f}), AUROC {ranks[0]['auroc']:.8f} (uncompacted "
+          f"{auroc_ref:.8f}); {dp_total / slowest:.1f} preds/s by the slowest rank")
+    fold_sizes = sorted({n for res in ranks for n in res["fold_rows"]})
+    print(f"  compaction kernel at the leg's fold sizes {fold_sizes}:")
+    errs["stream_compact"] = max(errs["stream_compact"], check_compaction(dev, gen, fold_sizes))
+    nccl_launches = nccl_world_of_one(dev, gen)
+    print(f"  NCCL world of one through init_from_env: sharded class counts equal the plain "
+          f"histogram ({nccl_launches} hist launch, one NCCL all_reduce)")
+    dp_launches = {
+        "hist": sum(res["hist_launches"] for res in ranks) + nccl_launches,
+        "stream_compact": sum(res["stream_compact_launches"] for res in ranks),
+    }
 
     print("phase 5 kernel timings at the main path's shapes")
-    launches = {k: headline_launches[k] + macro_launches[k] for k in headline_launches}
+    launches = {k: headline_launches[k] + macro_launches[k] + dp_launches[k] for k in headline_launches}
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
@@ -1032,4 +1319,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -317,6 +317,58 @@ def test_segment_sum_kernel_exact_where_partial_sums_are(dev, dtype, s):
     assert torch.equal(segment_sum(vals, rows, s), segment_sum_plain(vals, rows, s))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_segment_sum_half_precision_on_the_card(dev, dtype):
+    """Half-precision values at the sliced leg's shape, (2^20, 2) into 10^6
+    cohorts on power-law rows: one float32 launch, then each segment's sum
+    rounded once to the half type. Within the module's bound of a float64
+    sum: the float32 adds, (count - 1) * (2^-24 + 2^-53) * sum|v|, plus u of
+    the half type times the float32 sum."""
+    n, s = 1 << 20, 1_000_000
+    rng = np.random.default_rng(11)
+    vals = torch.from_numpy(rng.standard_normal((n, 2))).to(dev, dtype)
+    rows = _rows("zipf", n, s, 11).to(dev, torch.int32)
+    before = segment_sum.launches
+    got = segment_sum(vals, rows, s)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    assert got.dtype == dtype and got.shape == (s, 2)
+    ref = segment_sum_plain(vals.double(), rows, s)
+    mag = segment_sum_plain(vals.double().abs(), rows, s)
+    count = segment_sum_plain(torch.ones(n, dtype=torch.float64, device=dev), rows, s)[:, None]
+    adds = (count - 1).clamp(min=0) * (2.0**-24 + 2.0**-53) * mag
+    u = 2.0**-8 if dtype == torch.bfloat16 else 2.0**-11
+    bound = adds + u * (ref.abs() + adds)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "float16"])
+@pytest.mark.parametrize("name", ["BinaryAUROC", "BinaryAUPRC"])
+def test_half_precision_compacting_curves_on_the_card_equal_the_cpu(dev, name, kind):
+    """The scores cast to float32 before the fold, then the compaction
+    kernel; 3 batches of 300 (``default_rng(5)``) with threshold 100, as the
+    half-precision parity tests run on the CPU. bfloat16 gives the JAX
+    package's AUROC 0.48699 and AUPRC 0.51331."""
+    from torcheval_tpu_torch import metrics as T
+
+    dtype = getattr(torch, kind)
+    rng = np.random.default_rng(5)
+    scores = rng.random((3, 300)).astype(np.float32)
+    targets = rng.integers(0, 2, (3, 300)).astype(np.float32)
+    card = getattr(T, name)(compaction_threshold=100, device=dev)
+    cpu = getattr(T, name)(compaction_threshold=100, device="cpu")
+    before = stream_compact.launches
+    for sc, t in zip(scores, targets):
+        card.update(torch.tensor(sc).to(dtype).to(dev), torch.tensor(t).to(dev))
+        cpu.update(torch.tensor(sc).to(dtype), torch.tensor(t))
+    got = float(card.compute())
+    assert stream_compact.launches - before >= 3
+    assert got == pytest.approx(float(cpu.compute()), rel=1e-5)
+    if kind == "bfloat16":
+        want = 0.48699 if name == "BinaryAUROC" else 0.51331
+        assert got == pytest.approx(want, abs=5e-6)
+
+
 def _head_edges(d, size):
     """The rows csrc/scatter.cu privatises for D lanes of `size`-byte
     values at a large S: the first 64 rows in up to 32 copies within 16 KB
@@ -478,3 +530,47 @@ def test_sliced_macro_accuracy_at_many_classes_equals_the_cpu(dev):
         else:
             assert torch.equal(value.cpu(), want_state), state
     assert torch.allclose(got["values"].cpu(), want["values"], rtol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,c", [(1000, 7), ((1 << 18) + 1, 1 << 12), (1 << 22, 5)])
+def test_match_triple_counts_on_the_card_is_two_histograms(dev, n, c):
+    from torcheval_tpu_torch.ops.confusion import match_triple_counts
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    pred = torch.randint(-2, c + 2, (n,), generator=g, device=dev)
+    target = torch.where(torch.rand(n, generator=g, device=dev) < 0.3, pred,
+                         torch.randint(-2, c + 2, (n,), generator=g, device=dev))
+    before = hist.launches
+    got = match_triple_counts(pred, target, c)
+    torch.cuda.synchronize()
+    assert hist.launches == before + 2
+    for x, w in zip(got, match_triple_counts(pred.cpu(), target.cpu(), c)):
+        assert x.dtype == torch.int32 and torch.equal(x.cpu(), w)
+
+
+@pytest.mark.parametrize("average", ["micro", "macro", "weighted", None])
+def test_f1_on_the_card_equals_the_cpu(dev, average):
+    from torcheval_tpu_torch.metrics import MulticlassF1Score
+
+    rng = np.random.default_rng(2)
+    card = MulticlassF1Score(num_classes=5, average=average, device=dev)
+    cpu = MulticlassF1Score(num_classes=5, average=average, device="cpu")
+    for _ in range(3):
+        scores = rng.random((4096, 5)).astype(np.float32)
+        labels = rng.integers(0, 5, 4096)
+        card.update(scores, labels)
+        cpu.update(scores, labels)
+    for name in ("num_tp", "num_label", "num_prediction"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    assert torch.allclose(card.compute().cpu(), cpu.compute(), rtol=1e-5)
+
+
+def test_sharded_class_counts_at_world_size_one_equal_hist(dev):
+    from torcheval_tpu_torch.ops.hist import sharded_class_counts
+
+    labels = torch.randint(-3, 12, (100_003,), device=dev)
+    before = hist.launches
+    got = sharded_class_counts(labels, 9)
+    torch.cuda.synchronize()
+    assert hist.launches == before + 1 and got.device == labels.device
+    assert torch.equal(got.cpu(), hist_plain(labels.cpu(), 9))

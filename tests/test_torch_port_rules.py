@@ -17,12 +17,14 @@ from torcheval_tpu_torch.metrics import (
     NDCG,
     BinaryAccuracy,
     BinaryAUROC,
+    BinaryF1Score,
     HitRate,
     Max,
     Mean,
     MeanSquaredError,
     Min,
     MulticlassAccuracy,
+    MulticlassF1Score,
     MultilabelAccuracy,
     RecallAtK,
     ReciprocalRank,
@@ -30,7 +32,8 @@ from torcheval_tpu_torch.metrics import (
     Sum,
     TopKMultilabelAccuracy,
 )
-from torcheval_tpu_torch.ops.hist import hist
+from torcheval_tpu_torch.ops.confusion import match_triple_counts
+from torcheval_tpu_torch.ops.hist import hist, sharded_class_counts
 from torcheval_tpu_torch.ops.scatter import segment_scatter, segment_sum
 from torcheval_tpu_torch.ops.stream_compact import compact_summary_rows, stream_compact
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel
@@ -227,3 +230,121 @@ def test_wrapper_refuses_non_cuda_device_after_loading(monkeypatch):
         topk_kernel(torch.zeros(4, 2000, device="meta"), 5)
     with pytest.raises(ValueError, match="CUDA tensors"):
         segment_sum(torch.zeros(4, 2, device="meta"), torch.zeros(4, dtype=torch.int64, device="meta"), 3)
+
+
+# ------------------------------------------------ sync and data parallelism
+SYNC_SLICE_MODULES = [
+    "torcheval_tpu_torch.examples.distributed_example",
+    "torcheval_tpu_torch.metrics.classification.f1_score",
+    "torcheval_tpu_torch.metrics.functional.classification.f1_score",
+    "torcheval_tpu_torch.metrics.toolkit",
+    "torcheval_tpu_torch.parallel.bootstrap",
+    "torcheval_tpu_torch.parallel.evaluator",
+    "torcheval_tpu_torch.parallel.mesh",
+    "torcheval_tpu_torch.utils.dist",
+    "torcheval_tpu_torch.utils.test_utils.dummy_metric",
+    "torcheval_tpu_torch.utils.test_utils.metric_class_tester",
+    "torcheval_tpu_torch.utils.test_utils.sync_worker",
+]
+
+
+@pytest.mark.parametrize("name", SYNC_SLICE_MODULES)
+def test_sync_slice_modules_are_checked(name):
+    # each is one of the modules the no-JAX and counterpart rules above walk
+    assert name in _modules()
+    path = PACKAGE.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files()
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda **kw: MulticlassF1Score(num_classes=3, average="macro", **kw),
+        lambda **kw: BinaryF1Score(**kw),
+    ],
+    ids=["MulticlassF1Score", "BinaryF1Score"],
+)
+def test_f1_metrics_default_to_cuda(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_f1_and_sharded_counts_raise_instead_of_falling_back(no_library):
+    before = hist.launches
+    labels = torch.tensor([0, 1, 1, 2])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        match_triple_counts(labels, labels, 3)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sharded_class_counts(labels, 3)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MulticlassF1Score(num_classes=3, average="macro", device="cpu").update(torch.rand(4, 3), labels)
+    assert hist.launches == before
+
+
+def _host_moves(path: Path):
+    """``(function, line)`` of every call that moves or places data on the
+    host: ``.cpu()``, ``.numpy()``, ``torch.device("cpu")`` and a
+    ``device="cpu"`` keyword."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Call):
+                f = child.func
+                if isinstance(f, ast.Attribute) and f.attr in ("cpu", "numpy"):
+                    found.append((func, child.lineno))
+                args = list(child.args) + [k.value for k in child.keywords if k.arg == "device"]
+                if any(isinstance(a, ast.Constant) and a.value == "cpu" for a in args):
+                    found.append((func, child.lineno))
+            visit(child, inner)
+
+    visit(tree, "<module>")
+    return found
+
+
+# the only host moves: the descriptor matrix (shapes and types, never
+# state), and the object lane's pickles, which load back onto each metric's
+# device; the collective device is the host only for a non-NCCL backend
+_HOST_MOVES_ALLOWED = {
+    "metrics/toolkit.py": {"_gather_collection_states", "_tree_to_host"},
+    "utils/dist.py": {"collective_device"},
+}
+
+
+@pytest.mark.parametrize(
+    "rel",
+    ["metrics/toolkit.py", "utils/dist.py", "parallel/mesh.py", "parallel/bootstrap.py",
+     "parallel/evaluator.py"],
+)
+def test_sync_and_parallel_never_move_cuda_state_to_the_host(rel):
+    allowed = _HOST_MOVES_ALLOWED.get(rel, set())
+    bad = [(f, line) for f, line in _host_moves(PACKAGE / rel) if f not in allowed]
+    assert not bad, f"{rel}: host moves outside {sorted(allowed)}: {bad}"
+
+
+def test_nccl_collectives_stay_on_the_card(monkeypatch):
+    from torcheval_tpu_torch.utils import dist as tdist
+
+    monkeypatch.setattr(tdist.dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    assert tdist.collective_device() == torch.device("cuda", 2)
+    monkeypatch.setattr(tdist.dist, "get_backend", lambda group=None: "gloo")
+    assert tdist.collective_device() == torch.device("cpu")
+
+
+def test_evaluator_places_metrics_on_the_mesh_device(monkeypatch):
+    from torcheval_tpu_torch.parallel import DataParallelMesh, ShardedEvaluator, data_parallel_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        data_parallel_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedEvaluator(Sum(device="cpu"))
+    meta = DataParallelMesh(size=1, rank=0, device=torch.device("meta"))
+    ev = ShardedEvaluator({"acc": MulticlassAccuracy(device="cpu"), "sum": Sum(device="cpu")}, mesh=meta)
+    assert all(m.device.type == "meta" for m in ev.metrics.values())
+    assert all(m.num_correct.device.type == "meta" for m in [ev.metrics["acc"]])

@@ -153,6 +153,8 @@ def test_validation_errors():
         segment_sum(torch.zeros((5, 2)), r, 3)
     with pytest.raises(TypeError, match="rows must be"):
         segment_sum(v, r.float(), 3)
-    for bad in (torch.float16, torch.bool, torch.uint8):
-        with pytest.raises(TypeError, match="int32, int64, float32 or float64"):
+    for bad in (torch.bool, torch.uint8, torch.int16):
+        with pytest.raises(TypeError, match="int32, int64, float32, float64, bfloat16 or float16"):
             segment_sum(v.to(bad), r, 3)
+    # half precision adds in its own type on the CPU (the JAX package's XLA route)
+    assert segment_sum(v.to(torch.float16) + 1, r, 3).dtype == torch.float16

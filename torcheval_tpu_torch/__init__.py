@@ -9,8 +9,10 @@ JAX package's hand-written TPU kernels replaced by hand-written CUDA kernels
 ``MultilabelAccuracy``, ``TopKMultilabelAccuracy``, ``BinaryAUROC``,
 ``BinaryAUPRC``, ``HitRate``, ``ReciprocalRank``, ``NDCG``, ``MAP``,
 ``RecallAtK``, ``Sum``, ``Mean``, ``Max``, ``Min``, ``MeanSquaredError``,
-``MetricCollection`` and ``SlicedMetricCollection``, on the histogram,
-stream-compaction, top-k and segment-sum kernels.
+``MulticlassF1Score``, ``BinaryF1Score``, ``MetricCollection`` and
+``SlicedMetricCollection``, on the histogram, stream-compaction, top-k and
+segment-sum kernels; cross-process sync on ``torch.distributed``
+(``metrics.toolkit``) and data-parallel evaluation (``parallel``).
 """
 
 from torcheval_tpu_torch.version import __version__

@@ -5,7 +5,9 @@ from torcheval_tpu_torch.metrics.classification import (
     BinaryAccuracy,
     BinaryAUPRC,
     BinaryAUROC,
+    BinaryF1Score,
     MulticlassAccuracy,
+    MulticlassF1Score,
     MultilabelAccuracy,
     TopKMultilabelAccuracy,
 )
@@ -19,13 +21,14 @@ from torcheval_tpu_torch.metrics.ranking import (
     ReciprocalRank,
 )
 from torcheval_tpu_torch.metrics.regression import MeanSquaredError
-from torcheval_tpu_torch.metrics.sliced import SlicedMetricCollection
+from torcheval_tpu_torch.metrics.sliced import SlicedMetricCollection, SlicedResult, SliceTable
 from torcheval_tpu_torch.metrics.state import Reduction
 
 __all__ = [
     "BinaryAccuracy",
     "BinaryAUPRC",
     "BinaryAUROC",
+    "BinaryF1Score",
     "HitRate",
     "MAP",
     "Max",
@@ -35,12 +38,15 @@ __all__ = [
     "MetricCollection",
     "Min",
     "MulticlassAccuracy",
+    "MulticlassF1Score",
     "MultilabelAccuracy",
     "NDCG",
     "RecallAtK",
     "ReciprocalRank",
     "Reduction",
     "SlicedMetricCollection",
+    "SlicedResult",
+    "SliceTable",
     "Sum",
     "TopKMultilabelAccuracy",
 ]

@@ -8,12 +8,15 @@ from torcheval_tpu_torch.metrics.classification.accuracy import (
     TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.metrics.classification.auroc import BinaryAUPRC, BinaryAUROC
+from torcheval_tpu_torch.metrics.classification.f1_score import BinaryF1Score, MulticlassF1Score
 
 __all__ = [
     "BinaryAccuracy",
     "BinaryAUPRC",
     "BinaryAUROC",
+    "BinaryF1Score",
     "MulticlassAccuracy",
+    "MulticlassF1Score",
     "MultilabelAccuracy",
     "TopKMultilabelAccuracy",
 ]

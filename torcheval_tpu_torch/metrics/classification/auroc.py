@@ -55,11 +55,14 @@ def _pad_cap(n: int) -> int:
 
 def _combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp):
     """Raw caches (unit counts) and summary caches (aggregated counts) as
-    one (score, tp, fp) column set."""
+    one (score, tp, fp) column set. Scores become float32, the summary's
+    type and the compaction kernel's 32-bit word: exact for bfloat16,
+    float16 and int32 scores below 2^24, and what JAX holds float64 scores
+    as (without x64)."""
     parts_s, parts_tp, parts_fp = [], [], []
     if raw_s:
         t = torch.cat(raw_t).to(torch.int32)
-        parts_s.append(torch.cat(raw_s))
+        parts_s.append(torch.cat(raw_s).to(torch.float32))
         parts_tp.append(t)
         parts_fp.append(1 - t)
     if sum_s:

@@ -6,7 +6,9 @@ from torcheval_tpu_torch.metrics.functional.classification import (
     binary_accuracy,
     binary_auprc,
     binary_auroc,
+    binary_f1_score,
     multiclass_accuracy,
+    multiclass_f1_score,
     multilabel_accuracy,
     topk_multilabel_accuracy,
 )
@@ -26,12 +28,14 @@ __all__ = [
     "binary_accuracy",
     "binary_auprc",
     "binary_auroc",
+    "binary_f1_score",
     "frequency_at_k",
     "hit_rate",
     "map_at_k",
     "mean",
     "mean_squared_error",
     "multiclass_accuracy",
+    "multiclass_f1_score",
     "multilabel_accuracy",
     "ndcg_at_k",
     "num_collisions",

@@ -9,14 +9,14 @@ from typing import Tuple, Union
 
 import torch
 
-from torcheval_tpu_torch.metrics.functional.aggregation.sum import _weight_check
+from torcheval_tpu_torch.metrics.functional.aggregation.sum import _weight_check, _weighted
 from torcheval_tpu_torch.utils.convert import as_tensor
 
 
 def _mean_update(
     input: torch.Tensor, weight: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    weighted_sum = torch.sum(input * weight)
+    weighted_sum = torch.sum(_weighted(input, weight))
     if weight.ndim == 0:
         total_weight = weight * input.numel()
     else:

@@ -12,8 +12,16 @@ import torch
 from torcheval_tpu_torch.utils.convert import as_tensor
 
 
+def _weighted(input: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``input * weight`` in the promoted type of both: a 0-dim float32
+    weight does not widen a bfloat16 or float16 ``input`` under torch's
+    promotion rules, but JAX's strongly typed weight does, so the product
+    (and every sum of it) is float32 there."""
+    return input.to(torch.promote_types(input.dtype, weight.dtype)) * weight
+
+
 def _sum_update(input: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    return torch.sum(input * weight)
+    return torch.sum(_weighted(input, weight))
 
 
 def _weight_check(input: torch.Tensor, weight) -> torch.Tensor:

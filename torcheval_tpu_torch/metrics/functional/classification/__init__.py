@@ -11,12 +11,18 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     binary_auprc,
     binary_auroc,
 )
+from torcheval_tpu_torch.metrics.functional.classification.f1_score import (
+    binary_f1_score,
+    multiclass_f1_score,
+)
 
 __all__ = [
     "binary_accuracy",
     "binary_auprc",
     "binary_auroc",
+    "binary_f1_score",
     "multiclass_accuracy",
+    "multiclass_f1_score",
     "multilabel_accuracy",
     "topk_multilabel_accuracy",
 ]

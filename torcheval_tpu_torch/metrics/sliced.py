@@ -304,6 +304,10 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
     lanes are refreshed from it when state is read.
     """
 
+    # the toolkit's sync aligns gathered replicas by id before folding
+    # (align_sliced_gathered) and adopts the union table afterwards
+    _sliced_sync = True
+
     def __init__(self, table: SliceTable, device: DeviceLike = None) -> None:
         super().__init__(device=device)
         self._table = table

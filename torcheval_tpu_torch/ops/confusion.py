@@ -1,7 +1,7 @@
 """Class counts: the histogram behind per-class accuracy.
 
-JAX counterpart: ``torcheval_tpu/ops/confusion.py`` (``class_counts`` only;
-``match_triple_counts`` and the confusion matrix come with the rest of
+JAX counterpart: ``torcheval_tpu/ops/confusion.py`` (``class_counts`` and
+``match_triple_counts``; the confusion matrix comes with the rest of
 classification). The JAX package picks one of four lowerings by size and
 backend. Here there is one route per case: an unweighted count is the
 histogram kernel (``ops/hist.py``: the CUDA kernel on the card, its plain
@@ -18,6 +18,11 @@ reads the whole stream once per tile, so its cost would grow with B times
 the bin count; the segment sum's global atomics do work in proportion to
 the stream for any number of segments. No kernel wrapper ever sees a
 batched tensor.
+
+``match_triple_counts`` takes the JAX package's joint-key form at every
+size: two unweighted counts, so on the card two histogram launches and no
+``index_add_``. The JAX package keeps a weighted form for batches under its
+matmul budget; the integer counts of both forms are equal.
 """
 
 from __future__ import annotations
@@ -81,3 +86,21 @@ def class_counts(
     out = torch.zeros(num_classes + 1, dtype=weights.dtype, device=weights.device)
     out.index_add_(0, idx, weights)
     return out[:num_classes]
+
+
+def match_triple_counts(pred: torch.Tensor, target: torch.Tensor, num_classes: int):
+    """``(num_tp, num_label, num_pred)`` per class, each ``(num_classes,)``
+    int32: the sufficient statistics of F1, precision and recall.
+
+    tp and label fold into one unweighted count over the joint key
+    ``2 * target + (pred == target)``: class c's misses land in bin 2c and
+    its hits in bin 2c + 1, so ``num_tp = bins[1::2]`` and
+    ``num_label = bins[0::2] + num_tp``. Out-of-range targets give keys
+    outside ``[0, 2 * num_classes)`` and drop, as do out-of-range
+    predictions from ``num_pred``."""
+    p, t = _as_index(pred), _as_index(target)
+    key = torch.where(t >= 0, 2 * t + (p == t).to(t.dtype), -1)
+    bins = class_counts(key, 2 * num_classes)
+    num_tp = bins[1::2]
+    num_label = bins[0::2] + num_tp
+    return num_tp, num_label, class_counts(p, num_classes)

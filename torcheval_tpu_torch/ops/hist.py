@@ -8,7 +8,10 @@ the Pallas kernel ``_hist_kernel``). Both compute the unweighted
 :func:`hist` runs the kernel on a CUDA tensor and raises if it cannot;
 :func:`hist_plain` is the same function in plain PyTorch, which :func:`hist`
 runs for a CPU tensor and which tests and ``chip_smoke.py`` hold the kernel
-against.
+against. :func:`sharded_class_counts` is the counterpart of
+``sharded_pallas_class_counts`` (``pallas_hist.py:160-165``): each rank
+counts its own labels with :func:`hist`, and one int32 ``all_reduce`` sums
+the counts over the process group.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.utils import dist as _dist
 
 _LABEL_DTYPES = (torch.int32, torch.int64)
 
@@ -70,3 +74,16 @@ def hist(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 hist.launches = 0
+
+
+def sharded_class_counts(labels: torch.Tensor, num_classes: int, group=None) -> torch.Tensor:
+    """``(num_classes,)`` int32 counts of every rank's ``labels`` in
+    ``group`` (the whole ``torch.distributed`` world for None): :func:`hist`
+    on this rank's labels, then one int32 ``all_reduce(SUM)``, staged
+    through the host for gloo. The result is on ``labels``' device on every
+    rank. With one rank it equals :func:`hist`; with no world it is
+    :func:`hist`, and no collective runs."""
+    local = hist(labels, num_classes)
+    if not _dist.initialized():
+        return local
+    return _dist.all_reduce_sum(local, group)

@@ -13,8 +13,13 @@ sliced collection (``metrics/sliced.py``) folds every batch through
   adds one to ``segment_sum.launches``; a CPU tensor runs
   :func:`segment_sum_plain` (``index_add_`` into a dead extra segment that
   is cut off), which the tests and ``chip_smoke.py`` also hold the kernel
-  against. Values are int32, int64, float32 or float64 and keep their type;
-  other types raise ``TypeError``. The TPU kernel sums a float32 one-hot
+  against. Values are int32, int64, float32, float64, bfloat16 or float16
+  and keep their type; other types raise ``TypeError``. Half-precision
+  values add in their own type on the CPU, as the JAX package's XLA route
+  adds them there; the kernel has no half-precision form, so on the card
+  they add as float32 and each segment's sum is rounded once to the half
+  type: within the float32 bound below of the exact sum, plus ``u`` of the
+  half type times that float32 sum. The TPU kernel sums a float32 one-hot
   product, exact for integers to 2^24 a segment and only inside a segment
   envelope; the CUDA kernel adds with atomics of the values' own type, so
   integer sums are exact (and wrap like XLA's scatter-add, the JAX
@@ -25,7 +30,8 @@ sliced collection (``metrics/sliced.py``) folds every batch through
   so they are not bitwise reproducible. The bound every route meets, for
   any order of adds, is ``|got - exact| <= (count - 1) * u * sum(|v|)`` per
   segment and lane, with ``count`` the segment's number of samples and
-  ``u`` = 2^-24 for float32, 2^-53 for float64 (the bound of recursive
+  ``u`` = 2^-24 for float32, 2^-53 for float64, 2^-8 for bfloat16 and
+  2^-11 for float16 (the bound of recursive
   summation); NaN and infinities propagate as in any sum.
 * ``reduce="max"``/``"min"`` run ``scatter_reduce_`` (``amax``/``amin``)
   into a buffer filled with the reduce's identity (-inf or the integer
@@ -68,10 +74,17 @@ def _check(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> None:
         raise ValueError(f"num_segments must be >= 0, got {num_segments}.")
 
 
+# half-precision values: the plain version adds in their own type, in
+# sample order, as XLA's scatter-add does on the CPU; the kernel route adds
+# them as float32 and rounds each segment's sum once
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _check_sum_dtype(vals: torch.Tensor) -> None:
-    if vals.dtype not in _VAL_CODES:
+    if vals.dtype not in _VAL_CODES and vals.dtype not in _HALF:
         raise TypeError(
-            f"segment_sum takes int32, int64, float32 or float64 values, got {vals.dtype}."
+            "segment_sum takes int32, int64, float32, float64, bfloat16 or float16 "
+            f"values, got {vals.dtype}."
         )
 
 
@@ -108,6 +121,8 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
     _check_sum_dtype(vals)
     if _build.runs_plain(vals):
         return segment_sum_plain(vals, rows, num_segments)
+    if vals.dtype in _HALF:
+        return segment_sum(vals.to(torch.float32), rows, num_segments).to(vals.dtype)
     lib = _build.library()
     tail = vals.shape[1:]
     flat = vals.reshape(vals.shape[0], math.prod(tail)).contiguous()
