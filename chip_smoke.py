@@ -13,13 +13,23 @@ failed check. Phases:
 1. device: the card's name and power limit, CUDA version, kernel build time;
 2. kernels against their plain PyTorch versions, on the card, at the main
    path's shapes and at edge cases (the top-k kernel also against the dense
-   route, a stable sort);
+   route, a stable sort), and at the shapes the deferred windows give them:
+   the segment sum at the sliced leg's window, (2^24, 2) int32 and float32
+   into 10^6 cohorts, and the histogram at the small-batch leg's window,
+   1,638,400 labels into 10 bins;
 3. headline leg: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
    count, plus a small stream checked against float64 numpy references;
 4. macro leg: ``MulticlassAccuracy(average="macro", num_classes=1000)`` over
    8 chunks of 2^22 rows, checked against the plain histogram;
+   small-batch leg (BASELINE config 1, ``bench.py:498-553``, with distinct
+   batches): a ``MetricCollection`` of ``MulticlassAccuracy(num_classes=5)``
+   and macro ``MulticlassF1Score(num_classes=5)`` over 200 batches of
+   (8192, 5) scores, which fold in one window; the counts checked exactly
+   against ``torch.bincount``'s over all batches, the values within rtol
+   1e-5; and, as information, a standalone ``MulticlassAccuracy`` over the
+   same stream (config 1 itself);
    top-k leg: ``TopKMultilabelAccuracy(k=5, criteria="contain")`` over 4
    batches of (8192, 10000) scores, every criterion's counts checked
    against the plain top-k and the first 64 rows against a float64 numpy
@@ -46,7 +56,10 @@ failed check. Phases:
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
-   take (its bound).
+   take (its bound); the segment sum also at the sliced leg's window.
+
+Every leg prints its fold cadence: the window steps and the solo folds of
+``metrics/deferred.py`` that it ran, and the batches each folded.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +96,8 @@ SLICED_ZIPF = 1.3
 DP_RANKS, DP_CHUNKS = 2, 8
 DP_THRESHOLD = 3 * HEADLINE_CHUNK
 DP_TIMEOUT_S = 600
+# BASELINE config 1 (bench.py:498-553): 200 batches of (8192, 5) scores
+SMALL_ROWS, SMALL_CLASSES, SMALL_BATCHES = 8192, 5, 200
 TARGET_DENSITY = 1e-3
 CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
@@ -103,6 +118,34 @@ def _require(ok: bool, what: str) -> None:
 
 def _close(a: float, b: float) -> bool:
     return abs(a - b) <= ATOL + RTOL * abs(b)
+
+
+def fold_counts():
+    """The deferred folds' counters: window steps, those that folded
+    batches, their batches, solo and group folds, their batches (zeros for
+    a package without windows)."""
+    from torcheval_tpu_torch.metrics import deferred
+
+    ws = getattr(deferred, "window_step", None)
+    fp = getattr(deferred, "fold_pending", None)
+    return (
+        getattr(ws, "calls", 0), getattr(ws, "windows", 0), getattr(ws, "batches", 0),
+        getattr(fp, "calls", 0), getattr(fp, "chunks", 0),
+    )
+
+
+def cadence(before) -> dict:
+    keys = ("window_steps", "windows", "window_batches", "folds", "fold_batches")
+    return dict(zip(keys, (a - b for a, b in zip(fold_counts(), before))))
+
+
+def cadence_text(c: dict) -> str:
+    folded = c["windows"] + c["folds"]
+    batches = c["window_batches"] + c["fold_batches"]
+    per = f"{batches / folded:.2f}" if folded else "-"
+    return (f"window steps {c['window_steps']} ({c['windows']} folding "
+            f"{c['window_batches']} batches), solo/group folds {c['folds']} "
+            f"({c['fold_batches']} batches): {per} batches per fold")
 
 
 class Timer:
@@ -139,7 +182,8 @@ def check_hist(dev, gen):
 
     def cases():
         for n, c in ((HEADLINE_CHUNK, HEADLINE_CLASSES), (HEADLINE_CHUNK, 2 * HEADLINE_CLASSES),
-                     (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000)):
+                     (MACRO_CHUNK, MACRO_CLASSES), (1 << 20, 20000),
+                     (SMALL_BATCHES * SMALL_ROWS, 2 * SMALL_CLASSES)):
             for dtype in (torch.int32, torch.int64):
                 yield (f"n={n} C={c} {str(dtype)[6:]}",
                        torch.randint(-3, c + 3, (n,), generator=gen, device=dev, dtype=dtype), c)
@@ -348,6 +392,14 @@ def _segment_sum_cases(dev):
     for dtype in (torch.bfloat16, torch.float16):
         vals = torch.from_numpy(rng.standard_normal((n, 2))).to(dev, dtype)
         cases.append((f"{str(dtype)[6:]} D=2 S={s} power-law rows", vals, leg_rows[:n], s, False))
+    # the sliced leg's window: its 16 batches fold in one segment sum
+    n = SLICED_BATCHES * SLICED_ROWS
+    window_rows = torch.from_numpy(_zipf_rows(rng, n, s)).to(dev, torch.int32)
+    for dtype in (torch.int32, torch.float32):
+        vals = (torch.from_numpy(rng.integers(0, 2, (n, 2), dtype=np.int32)) if dtype == torch.int32
+                else torch.from_numpy(rng.random((n, 2), dtype=np.float32))).to(dev)
+        cases.append((f"{str(dtype)[6:]} D=2 S={s} power-law rows, the sliced window of {n} rows",
+                      vals, window_rows, s, dtype == torch.int32))
     return cases
 
 
@@ -525,6 +577,86 @@ def macro_leg(dev, gen):
     return value, update_ms
 
 
+def small_batch_data(dev, gen):
+    """BASELINE config 1's shapes, 200 distinct batches made on the card."""
+    return [
+        (torch.rand((SMALL_ROWS, SMALL_CLASSES), generator=gen, device=dev),
+         torch.randint(0, SMALL_CLASSES, (SMALL_ROWS,), generator=gen, device=dev))
+        for _ in range(SMALL_BATCHES)
+    ]
+
+
+def small_batch_leg(dev, batches):
+    """Accuracy and macro F1 in one collection, from the first ``update()``
+    to both ``compute()`` results."""
+    from torcheval_tpu_torch.metrics import MetricCollection, MulticlassAccuracy, MulticlassF1Score
+
+    col = MetricCollection({
+        "accuracy": MulticlassAccuracy(num_classes=SMALL_CLASSES, device=dev),
+        "f1_macro": MulticlassF1Score(num_classes=SMALL_CLASSES, average="macro", device=dev),
+    })
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for scores, labels in batches:
+        col.update(scores, labels)
+    out = col.compute()
+    end.record()
+    end.synchronize()
+    return col, out, start.elapsed_time(end) / 1e3, time.perf_counter() - t0
+
+
+def small_batch_standalone(dev, batches):
+    """Config 1 itself: a standalone ``MulticlassAccuracy`` (information)."""
+    from torcheval_tpu_torch.metrics import MulticlassAccuracy
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    acc = MulticlassAccuracy(num_classes=SMALL_CLASSES, device=dev)
+    for scores, labels in batches:
+        acc.update(scores, labels)
+    value = float(acc.compute())
+    end.record()
+    end.synchronize()
+    return value, start.elapsed_time(end) / 1e3
+
+
+def check_small_batch(col, out, batches):
+    """The counts exactly against ``torch.bincount``'s over all batches, the
+    values within rtol 1e-5 of the values of those counts."""
+    from torcheval_tpu_torch.metrics.functional.classification.f1_score import _f1_score_compute
+
+    c = SMALL_CLASSES
+    dev = batches[0][0].device
+    correct, total = 0, 0
+    tp, label, pred = (torch.zeros(c, dtype=torch.int64, device=dev) for _ in range(3))
+    for scores, labels in batches:
+        p = scores.argmax(1)
+        hit = p == labels
+        correct += int(hit.sum())
+        total += labels.numel()
+        tp += torch.bincount(labels[hit], minlength=c)
+        label += torch.bincount(labels, minlength=c)
+        pred += torch.bincount(p, minlength=c)
+    acc_sd = col["accuracy"].state_dict()
+    f1_sd = col["f1_macro"].state_dict()
+    _require(int(acc_sd["num_correct"]) == correct and int(acc_sd["num_total"]) == total,
+             f"small-batch accuracy counts {int(acc_sd['num_correct'])}/{int(acc_sd['num_total'])} "
+             f"vs bincount {correct}/{total}")
+    for name, want in (("num_tp", tp), ("num_label", label), ("num_prediction", pred)):
+        _require(torch.equal(f1_sd[name].to(torch.int64), want), f"small-batch F1 {name}")
+    f1_want = float(_f1_score_compute(tp.to(torch.int32), label.to(torch.int32),
+                                      pred.to(torch.int32), "macro"))
+    acc_v, f1_v = float(out["accuracy"]), float(out["f1_macro"])
+    _require(_close(acc_v, correct / total) and _close(f1_v, f1_want),
+             f"small-batch accuracy {acc_v} and F1 {f1_v} vs {correct / total} and {f1_want}")
+    return acc_v, f1_v
+
+
 def topk_leg_data(dev, gen):
     return [
         (torch.rand((TOPK_ROWS, TOPK_LABELS), generator=gen, device=dev),
@@ -588,12 +720,14 @@ def check_topk_leg(dev, batches):
             # the plain route: the dense top-k, a stable sort on the card
             c, t = _topk_multilabel_stats(scores, target, criteria, TOPK_K, "dense")
             correct, total = correct + int(c), total + int(t)
-        _require(int(m.num_correct) == correct and int(m.num_total) == total,
-                 f"top-k {criteria} counts {int(m.num_correct)}/{int(m.num_total)} vs plain {correct}/{total}")
+        sd = m.state_dict()
+        _require(int(sd["num_correct"]) == correct and int(sd["num_total"]) == total,
+                 f"top-k {criteria} counts {int(sd['num_correct'])}/{int(sd['num_total'])} vs plain "
+                 f"{correct}/{total}")
         got = float(topk_multilabel_accuracy(head_s, head_t, criteria=criteria, k=TOPK_K))
         want = _numpy_topk_accuracy(np_s, np_t, criteria)
         _require(_close(got, want), f"top-k {criteria} first 64 rows {got} vs numpy {want}")
-        print(f"  {criteria}: {int(m.num_correct)}/{int(m.num_total)} equal to the plain top-k; "
+        print(f"  {criteria}: {int(sd['num_correct'])}/{int(sd['num_total'])} equal to the plain top-k; "
               f"first 64 rows {got:.8f} vs float64 numpy {want:.8f}")
 
 
@@ -652,6 +786,7 @@ def sliced_setup(dev, data):
     ids, s, t = _sliced_batch(data, 0)
     acc.update(ids, s, t)
     agg.update(ids, s)
+    acc.state_dicts(), agg.state_dicts()  # the registration batch folds here
     torch.cuda.synchronize()
     return acc, agg
 
@@ -812,6 +947,7 @@ def dp_worker(rank: int, port: str) -> int:
     stream_compact.launches = 0
     wire = toolkit._allgather_stacked
     wire.rounds, wire.payload_bytes, wire.seconds = 0, 0, 0.0
+    folds0 = fold_counts()
     t0 = time.perf_counter()
     for scores, labels, logits, binary in chunks:
         classification.update(scores, labels)
@@ -838,6 +974,7 @@ def dp_worker(rank: int, port: str) -> int:
         "sync_rounds": wire.rounds,
         "sync_payload_bytes": wire.payload_bytes,
         "sync_seconds": wire.seconds,
+        "cadence": cadence(folds0),
     }
     # the synced counts, for the exact check (two more small syncs)
     for name in ("accuracy", "f1_macro"):
@@ -1007,13 +1144,15 @@ def kernel_rows(dev, gen, timer, launches, errs, fold):
     return rows
 
 
-def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets):
-    """The kernel at the sliced leg's two launches, on one of its batches,
-    into 1,000,000 cohorts by the batch's interned rows: the accuracy
-    member's (N, 2) int32 deltas (num_correct, num_total), and the Mean
-    member's (N, 2) float32 deltas (weighted_sum, weights: the scores and
-    ones, stacked as the fold stacks them). Information: the int32 deltas
-    with every row 0 (one cohort takes the batch) and with uniform rows."""
+def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets, window):
+    """The kernel at the sliced leg's two launches a batch, on one of its
+    batches, into 1,000,000 cohorts by the batch's interned rows: the
+    accuracy member's (N, 2) int32 deltas (num_correct, num_total), and the
+    Mean member's (N, 2) float32 deltas (weighted_sum, weights: the scores
+    and ones, stacked as the fold stacks them); and the same two at the
+    leg's window, its 16 batches in one launch each (``window``: their rows,
+    scores and targets). Information: the int32 deltas with every row 0 (one
+    cohort takes the batch) and with uniform rows."""
     from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
 
     s = SLICED_COHORTS
@@ -1047,6 +1186,11 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
         "shape": f"({SLICED_ROWS}, 2) int32 deltas into {s} cohorts, power-law rows of the sliced leg",
     }
     row["at_f32_d2"] = times(torch.stack([leg_scores, torch.ones_like(leg_scores)], dim=-1))
+    w_rows, w_scores, w_targets = window
+    w_correct = ((w_scores >= 0.5).to(torch.float32) == w_targets).to(torch.int32)
+    row["at_window_i32_d2"] = times(torch.stack([w_correct, torch.ones_like(w_correct)], dim=-1), w_rows)
+    del w_correct
+    row["at_window_f32_d2"] = times(torch.stack([w_scores, torch.ones_like(w_scores)], dim=-1), w_rows)
     row["at_i32_d2_every_row_0"] = times(deltas, torch.zeros_like(leg_rows))
     uniform = torch.randint(0, s, leg_rows.shape, device=dev, dtype=leg_rows.dtype,
                             generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -1143,8 +1287,10 @@ def main() -> int:
     print("phase 3 headline leg")
     hist.launches = 0
     stream_compact.launches = 0
+    folds0 = fold_counts()
     acc, acc_v, auroc_v, seconds, host_seconds, peak = headline_leg(dev, chunks)
     headline_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    headline_cadence = cadence(folds0)
     total = HEADLINE_CHUNKS * HEADLINE_CHUNK
     _require(stream_compact.launches >= 2, f"stream_compact launches {stream_compact.launches} >= 2")
     correct, auroc_ref = headline_reference(dev, chunks)
@@ -1157,6 +1303,7 @@ def main() -> int:
           f"peak memory {peak / 2**30:.2f} GiB (incl. {HEADLINE_CHUNKS} resident input chunks)")
     print(f"  accuracy {acc_v:.8f} (direct count {correct / total:.8f}); "
           f"AUROC {auroc_v:.8f} (uncompacted {auroc_ref:.8f}); launches {headline_launches}")
+    print(f"  fold cadence: {cadence_text(headline_cadence)}")
     small_reference_check(dev)
     del chunks, acc
     torch.cuda.empty_cache()
@@ -1164,26 +1311,57 @@ def main() -> int:
     print("phase 4 macro leg")
     hist.launches = 0
     stream_compact.launches = 0
+    folds0 = fold_counts()
     macro_v, update_ms = macro_leg(dev, gen)
     macro_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    macro_cadence = cadence(folds0)
     _require(hist.launches > 0, "hist launched on the macro leg")
     macro_total = MACRO_CHUNKS * MACRO_CHUNK
     print(f"  macro accuracy {macro_v:.8f} over {macro_total} rows (counts equal the plain "
           f"histogram); update time {update_ms:.3f} ms: {macro_total / update_ms * 1e3:.1f} "
           f"preds/s; launches {macro_launches}")
+    print(f"  fold cadence: {cadence_text(macro_cadence)}")
+
+    print("phase 4 small-batch leg (BASELINE config 1, with distinct batches)")
+    batches = small_batch_data(dev, gen)
+    small_batch_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
+    small_batch_standalone(dev, batches)
+    hist.launches = 0
+    stream_compact.launches = 0
+    folds0 = fold_counts()
+    col, out, small_s, small_host = small_batch_leg(dev, batches)
+    small_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    small_cadence = cadence(folds0)
+    _require(hist.launches > 0, "hist launched on the small-batch leg")
+    small_acc, small_f1 = check_small_batch(col, out, batches)
+    folds0 = fold_counts()
+    alone_v, alone_s = small_batch_standalone(dev, batches)
+    alone_cadence = cadence(folds0)
+    _require(_close(alone_v, small_acc), f"standalone accuracy {alone_v} vs {small_acc}")
+    n_rows = SMALL_BATCHES * SMALL_ROWS
+    print(f"  accuracy {small_acc:.8f} and macro F1 {small_f1:.8f} over {n_rows} rows "
+          f"(counts equal torch.bincount's) in {small_s:.6f} s (CUDA events; {small_host:.6f} s "
+          f"on the host clock): {n_rows / small_s:.1f} rows/s; launches {small_launches}")
+    print(f"  fold cadence: {cadence_text(small_cadence)}")
+    print(f"  standalone MulticlassAccuracy (config 1 itself, information): {n_rows / alone_s:.1f} "
+          f"rows/s ({alone_s:.6f} s); fold cadence: {cadence_text(alone_cadence)}")
+    del batches, col, out
 
     print("phase 4 top-k leg (BASELINE config 4)")
     batches = topk_leg_data(dev, gen)
     topk_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
     topk_kernel.launches = 0
+    folds0 = fold_counts()
     _, topk_v, topk_s, topk_peak = topk_leg(dev, batches)
     topk_launches = topk_kernel.launches
+    topk_cadence = cadence(folds0)
     _require(topk_launches > 0, "topk launched on the top-k leg")
     n_rows = TOPK_BATCHES * TOPK_ROWS
     print(f"  contain accuracy {topk_v:.8f} over {n_rows} rows of {TOPK_LABELS} labels in "
           f"{topk_s:.4f} s (CUDA events): {n_rows / topk_s:.1f} rows/s; topk launches "
           f"{topk_launches}; peak memory {topk_peak / 2**30:.2f} GiB (incl. {TOPK_BATCHES} "
           f"resident batches)")
+    print(f"  fold cadence: {cadence_text(topk_cadence)}")
     check_topk_leg(dev, batches)
     del batches
     torch.cuda.empty_cache()
@@ -1194,8 +1372,10 @@ def main() -> int:
     for k in RETRIEVAL_KS:
         retrieval_leg(dev, batches, k)  # warm-up
         topk_kernel.launches = 0
+        folds0 = fold_counts()
         ndcg, value, seconds = retrieval_leg(dev, batches, k)
         launched = topk_kernel.launches
+        ndcg_cadence = cadence(folds0)
         retrieval_launches += launched
         _require(launched > 0 and np.isfinite(value), f"NDCG@{k} launched the kernel, finite")
         plain, plain_value, _ = retrieval_leg(dev, batches, k, topk_method="dense")
@@ -1205,6 +1385,7 @@ def main() -> int:
         print(f"  NDCG@{k} {value:.8f} (dense route {plain_value:.8f}) over {n_rows} rows of "
               f"{RETRIEVAL_LABELS} labels in {seconds:.4f} s (CUDA events): {n_rows / seconds:.1f} "
               f"rows/s; topk launches {launched}")
+        print(f"  fold cadence: {cadence_text(ndcg_cadence)}")
     del batches
     torch.cuda.empty_cache()
 
@@ -1214,8 +1395,10 @@ def main() -> int:
     sliced_epoch(dev, data, *sliced_setup(dev, data))  # warm-up: first use of each kernel
     acc, agg = sliced_setup(dev, data)
     segment_sum.launches = 0
+    folds0 = fold_counts()
     results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
     sliced_launches = segment_sum.launches
+    sliced_cadence = cadence(folds0)
     _require(sliced_launches > 0, "segment_sum launched on the sliced leg")
     worst_mean = check_sliced_leg(data, acc, agg, results)
     intern_s = interning_seconds(acc.slice_table, data)
@@ -1225,12 +1408,17 @@ def main() -> int:
     print(f"  host interning {intern_s:.4f} s per batch per collection (two collections intern "
           f"each batch); peak memory {sliced_peak / 2**30:.2f} GiB (incl. all "
           f"{SLICED_BATCHES + 1} resident batches); segment_sum launches {sliced_launches}")
+    print(f"  fold cadence: {cadence_text(sliced_cadence)}; segment_sum launches per epoch "
+          f"{sliced_launches}")
     print(f"  per-cohort num_correct/num_total and max equal numpy exactly; means within "
           f"{worst_mean:.3e} of float64; slice ids in first-seen order")
     print(f"  unsliced MetricCollections on identical rows: {plain_s:.4f} s "
           f"({n_rows / plain_s:.1f} rows/s); config11_sliced_ratio {plain_s / sliced_s:.4f}")
     leg_rows = torch.from_numpy(acc.slice_table.lookup_rows(_sliced_batch(data, 1)[0])).to(dev)
     _, leg_scores, leg_targets = _sliced_batch(data, 1)
+    window = slice(SLICED_ROWS, (SLICED_BATCHES + 1) * SLICED_ROWS)
+    window_inputs = (torch.from_numpy(acc.slice_table.lookup_rows(data[0][window])).to(dev),
+                     data[1][window], data[2][window])
     del acc, agg, results
     torch.cuda.empty_cache()
 
@@ -1260,6 +1448,7 @@ def main() -> int:
               f"{res['classification_compute_seconds']:.4f} s, AUROC compute (its pre-sync "
               f"fold, the sync and the sort of the synced summaries) "
               f"{res['auroc_compute_seconds']:.4f} s")
+        print(f"  rank {r}: fold cadence: {cadence_text(res['cadence'])}")
     slowest = max(res["seconds"] for res in ranks)
     print(f"  synced on every rank: accuracy {ranks[0]['accuracy']:.8f}, f1_macro "
           f"{ranks[0]['f1_macro']:.8f} (counts equal torch.bincount's over all chunks: "
@@ -1277,12 +1466,14 @@ def main() -> int:
     }
 
     print("phase 5 kernel timings at the main path's shapes")
-    launches = {k: headline_launches[k] + macro_launches[k] + dp_launches[k] for k in headline_launches}
+    launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
+                for k in headline_launches}
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
     rows.append(segment_sum_row(dev, timer, sliced_launches, errs["segment_sum"],
-                                leg_rows, leg_scores, leg_targets))
+                                leg_rows, leg_scores, leg_targets, window_inputs))
+    del window_inputs
     torch.cuda.synchronize()
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -1304,6 +1495,13 @@ def main() -> int:
               f"int64, C={c} (information)")
     print(f"  segment_sum: the wrapper's zeroing of the ({SLICED_COHORTS}, 2) output alone "
           f"{rows[3]['zeroing_ms']:.4f} ms (information)")
+    n_window = SLICED_BATCHES * SLICED_ROWS
+    for key, what in (("at_window_i32_d2", f"int32 deltas, the sliced leg's window of {n_window} rows"),
+                      ("at_window_f32_d2", f"float32 deltas, the sliced leg's window of {n_window} rows")):
+        t = rows[3][key]
+        print(f"  segment_sum: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+              f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({n_window}, 2) {what} "
+              f"into {SLICED_COHORTS} cohorts")
     for key, what in (("at_f32_d2", "float32 deltas, power-law rows of the sliced leg"),
                       ("at_i32_d2_every_row_0", "int32 deltas, every row 0 (information)"),
                       ("at_i32_d2_uniform_rows", "int32 deltas, uniform rows (information)")):

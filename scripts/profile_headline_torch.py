@@ -3,12 +3,14 @@
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py [--leg headline|topk|ndcg10|ndcg100|sliced]
+    python3 scripts/profile_headline_torch.py [--leg headline|small|topk|ndcg10|ndcg100|sliced]
 
 It builds one leg of ``chip_smoke.py`` with its data made on the card from
 a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
 BinaryAUROC with compaction_threshold = 6 * 2^24, 16 chunks of 2^24
-predictions), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
+predictions), ``small`` (MulticlassAccuracy and macro MulticlassF1Score over
+5 classes in one MetricCollection, 200 batches of 8192 rows: BASELINE
+config 1's shapes), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
 (8192, 10000) scores), ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
 over 4 batches of (64, 1,000,000) scores) or ``sliced`` (the two sliced
 collections over 1,000,000 cohorts, 16 batches of 1,048,576 rows after a
@@ -16,13 +18,16 @@ registration batch that is not profiled). It runs the leg once to warm up,
 then once under ``torch.profiler``, and prints the wall time of both runs,
 the device's busy time (the union of the intervals in which a kernel, copy
 or memset ran) and idle share over the profiled run, and the device time by
-kernel name (top 25). Exits non-zero without a CUDA device or when the
-profiler records no device activity.
+kernel name (top 25). ``--runs N`` then times N more runs without the
+profiler and prints each and their median: the way to compare two trees'
+packages in turns on one leg. Exits non-zero without a CUDA device or when
+the profiler records no device activity.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -74,6 +79,14 @@ def _plain_leg(cs, name, dev, gen):
             return seconds, (acc_v, auroc_v)
 
         return run, cs.HEADLINE_CHUNKS * cs.HEADLINE_CHUNK, "preds"
+    if name == "small":
+        batches = cs.small_batch_data(dev, gen)
+
+        def run():
+            _, out, seconds, _ = cs.small_batch_leg(dev, batches)
+            return seconds, (float(out["accuracy"]), float(out["f1_macro"]))
+
+        return run, cs.SMALL_BATCHES * cs.SMALL_ROWS, "rows"
     if name == "topk":
         batches = cs.topk_leg_data(dev, gen)
 
@@ -94,8 +107,9 @@ def _plain_leg(cs, name, dev, gen):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--leg", choices=("headline", "topk", "ndcg10", "ndcg100", "sliced"),
+    parser.add_argument("--leg", choices=("headline", "small", "topk", "ndcg10", "ndcg100", "sliced"),
                         default="headline")
+    parser.add_argument("--runs", type=int, default=0, help="timed runs after the profiled one")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_headline_torch: no CUDA device.", file=sys.stderr)
@@ -134,6 +148,14 @@ def main() -> int:
     print(f"{'device ms':>10} {'share':>7} {'calls':>6}  kernel")
     for name, (us, calls) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"{us / 1e3:10.3f} {us / summed:7.4f} {calls:6d}  {name[:90]}")
+    times = []
+    for _ in range(args.runs):
+        prepare()
+        times.append(run()[0])
+    if times:
+        print("timed runs (s): " + json.dumps(times))
+        print(f"median {sorted(times)[len(times) // 2]:.6f} s, "
+              f"{total / sorted(times)[len(times) // 2]:.1f} {unit}/s")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

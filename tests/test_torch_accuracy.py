@@ -88,10 +88,11 @@ def test_streaming_multiclass_matches_jax(average, k):
     for i in range(0, 900, 250):
         ours.update(scores[i:i + 250], labels[i:i + 250])
         theirs.update(scores[i:i + 250], labels[i:i + 250])
-    folded = theirs.state_dict()  # the JAX metric defers its folds
-    np.testing.assert_array_equal(ours.num_correct.numpy(), np.asarray(folded["num_correct"]))
-    np.testing.assert_array_equal(ours.num_total.numpy(), np.asarray(folded["num_total"]))
-    assert ours.num_correct.dtype == torch.int32
+    folded = theirs.state_dict()  # both metrics defer their folds
+    mine = ours.state_dict()
+    np.testing.assert_array_equal(mine["num_correct"].numpy(), np.asarray(folded["num_correct"]))
+    np.testing.assert_array_equal(mine["num_total"].numpy(), np.asarray(folded["num_total"]))
+    assert mine["num_correct"].dtype == torch.int32
     _close(ours.compute(), theirs.compute())
 
 
@@ -117,7 +118,7 @@ def test_merge_reset_and_state_dict():
         scores[300:], labels[300:]
     )
     a.merge_state([b])
-    assert torch.equal(a.num_correct, whole.num_correct)
+    assert torch.equal(a.state_dict()["num_correct"], whole.state_dict()["num_correct"])
     _close(a.compute(), whole.compute())
     # a state_dict is a copy: later updates do not reach it
     sd = whole.state_dict()
@@ -197,9 +198,9 @@ def test_streaming_multilabel_matches_jax(criteria):
     for i in range(0, 500, 200):
         ours.update(scores[i:i + 200], target[i:i + 200])
         theirs.update(scores[i:i + 200], target[i:i + 200])
-    folded = theirs.state_dict()
-    assert int(ours.num_correct) == int(folded["num_correct"])
-    assert int(ours.num_total) == int(folded["num_total"])
+    folded, mine = theirs.state_dict(), ours.state_dict()
+    assert int(mine["num_correct"]) == int(folded["num_correct"])
+    assert int(mine["num_total"]) == int(folded["num_total"])
     _close(ours.compute(), theirs.compute())
 
 
@@ -213,10 +214,10 @@ def test_streaming_topk_multilabel_matches_jax(criteria, k):
     for i in range(0, 400, 150):
         ours.update(scores[i:i + 150], target[i:i + 150])
         theirs.update(scores[i:i + 150], target[i:i + 150])
-    folded = theirs.state_dict()
-    assert ours.num_correct.dtype == torch.int32
-    assert int(ours.num_correct) == int(folded["num_correct"])
-    assert int(ours.num_total) == int(folded["num_total"])
+    folded, mine = theirs.state_dict(), ours.state_dict()
+    assert mine["num_correct"].dtype == torch.int32
+    assert int(mine["num_correct"]) == int(folded["num_correct"])
+    assert int(mine["num_total"]) == int(folded["num_total"])
     _close(ours.compute(), theirs.compute())
     assert topk_kernel.launches == before  # CPU tensors: the plain versions
 

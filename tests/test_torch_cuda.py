@@ -226,9 +226,10 @@ def test_topk_multilabel_on_the_card_equals_the_cpu(dev, criteria):
     before = topk_kernel.launches
     on_card.update(scores, target)
     on_cpu.update(scores.cpu(), target.cpu())
+    card_sd, cpu_sd = on_card.state_dict(), on_cpu.state_dict()  # the deferred folds
     assert topk_kernel.launches == before + 1
-    assert int(on_card.num_correct) == int(on_cpu.num_correct)
-    assert int(on_card.num_total) == int(on_cpu.num_total)
+    assert int(card_sd["num_correct"]) == int(cpu_sd["num_correct"])
+    assert int(card_sd["num_total"]) == int(cpu_sd["num_total"])
 
 
 @pytest.mark.parametrize("k", [10, 100])
@@ -238,9 +239,10 @@ def test_ranking_on_the_card_equals_the_cpu(dev, k):
     rel = (torch.rand((16, 50_000), generator=g, device=dev) < 0.001).to(torch.float32)
     before = topk_kernel.launches
     on_card = NDCG(k=k, device=dev).update(scores, rel)
+    card_valid = int(on_card.state_dict()["num_valid"])  # the deferred fold
     assert topk_kernel.launches == before + 2  # the scores and the ideal ranking
     on_cpu = NDCG(k=k, device="cpu").update(scores.cpu(), rel.cpu())
-    assert int(on_card.num_valid) == int(on_cpu.num_valid)
+    assert card_valid == int(on_cpu.state_dict()["num_valid"])
     assert torch.allclose(on_card.compute().cpu(), on_cpu.compute(), rtol=1e-5, atol=1e-8)
     tgt = torch.randint(0, 50_000, (16,), generator=g, device=dev)
     rr = ReciprocalRank(k=k, device=dev).update(scores, tgt).compute().cpu()
@@ -487,9 +489,10 @@ def test_sliced_collections_on_the_card_equal_the_cpu(dev):
             acc.update(ids, s, t)
             agg.update(ids, s)
             macro.update(ids, scores, labels)
-    assert segment_sum.launches > before
+    assert segment_sum.launches == before  # deferred to the windows' folds
     for got_col, want_col in zip(card, cpu):
         got, want = got_col.compute(), want_col.compute()
+        assert segment_sum.launches > before
         for key in got:
             np.testing.assert_array_equal(got[key].slice_ids, want[key].slice_ids)
             g, w = got[key]["values"].cpu(), want[key]["values"]
@@ -518,6 +521,7 @@ def test_sliced_macro_accuracy_at_many_classes_equals_the_cpu(dev):
         )
         before = segment_sum.launches
         col.update(ids, torch.from_numpy(scores).to(device), torch.from_numpy(labels).to(device))
+        col.state_dicts()  # the window's fold
         if device == dev:
             assert segment_sum.launches > before
         cols[device] = col
@@ -560,8 +564,9 @@ def test_f1_on_the_card_equals_the_cpu(dev, average):
         labels = rng.integers(0, 5, 4096)
         card.update(scores, labels)
         cpu.update(scores, labels)
+    card_sd, cpu_sd = card.state_dict(), cpu.state_dict()
     for name in ("num_tp", "num_label", "num_prediction"):
-        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+        assert torch.equal(card_sd[name].cpu(), cpu_sd[name])
     assert torch.allclose(card.compute().cpu(), cpu.compute(), rtol=1e-5)
 
 
@@ -574,3 +579,131 @@ def test_sharded_class_counts_at_world_size_one_equal_hist(dev):
     torch.cuda.synchronize()
     assert hist.launches == before + 1 and got.device == labels.device
     assert torch.equal(got.cpu(), hist_plain(labels.cpu(), 9))
+
+
+# ------------------------------------------------------------------ windows
+def test_window_step_on_the_card_equals_the_cpu(dev):
+    """A collection's window of 20 batches, folded in one window step: the
+    counts exactly, the values within rtol 1e-5; F1's concat fold is two
+    histogram launches for the whole window."""
+    from torcheval_tpu_torch.metrics import MetricCollection, MulticlassF1Score
+    from torcheval_tpu_torch.metrics import deferred
+
+    rng = np.random.default_rng(3)
+    batches = [(rng.random((2048, 5)).astype(np.float32), rng.integers(0, 5, 2048)) for _ in range(20)]
+
+    def make(device):
+        return MetricCollection({
+            "acc": MulticlassAccuracy(num_classes=5, device=device),
+            "macro": MulticlassAccuracy(average="macro", num_classes=5, device=device),
+            "f1": MulticlassF1Score(num_classes=5, average="macro", device=device),
+        })
+
+    card, cpu = make(dev), make("cpu")
+    for scores, labels in batches:
+        card.update(torch.from_numpy(scores).to(dev), torch.from_numpy(labels).to(dev))
+        cpu.update(scores, labels)
+    assert len(card._window.chunks) == len(cpu._window.chunks) == 20
+    hists, steps = hist.launches, deferred.window_step.calls
+    got, want = card.compute(), cpu.compute()
+    torch.cuda.synchronize()
+    assert deferred.window_step.calls == steps + 2
+    # F1's two over the window (the stacked macro accuracy's counts run the
+    # class counts' vmap rule, a segment sum)
+    assert hist.launches == hists + 2
+    for name in got:
+        assert torch.allclose(got[name].cpu(), want[name], rtol=1e-5, atol=1e-8), name
+        for state, value in card[name].state_dict().items():
+            assert torch.equal(value.cpu(), cpu[name].state_dict()[state]), (name, state)
+
+
+def test_ndcg_window_on_the_card_equals_the_cpu(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    card, cpu = NDCG(k=10, device=dev), NDCG(k=10, device="cpu")
+    for _ in range(3):
+        scores = torch.rand((16, 20_000), generator=g, device=dev)
+        rel = (torch.rand((16, 20_000), generator=g, device=dev) < 0.002).to(torch.float32)
+        card.update(scores, rel)
+        cpu.update(scores.cpu(), rel.cpu())
+    before = topk_kernel.launches
+    got = card.compute()
+    assert topk_kernel.launches == before + 6  # the batches fold one by one
+    assert int(card.num_valid) == int(cpu.state_dict()["num_valid"])
+    assert torch.allclose(got.cpu(), cpu.compute(), rtol=1e-5, atol=1e-8)
+
+
+def test_sliced_window_is_one_segment_sum_per_group_on_the_card(dev):
+    rng = np.random.default_rng(5)
+    stream = [((rng.zipf(1.3, 4096) - 1) % 500 * 7919 + 13, rng.random(4096).astype(np.float32),
+               (rng.random(4096) < 0.4).astype(np.float32)) for _ in range(6)]
+    card = SlicedMetricCollection({"acc": BinaryAccuracy(device=dev), "mean": Mean(device=dev)}, capacity=1024)
+    cpu = SlicedMetricCollection({"acc": BinaryAccuracy(device="cpu"), "mean": Mean(device="cpu")}, capacity=1024)
+    for ids, s, t in stream:
+        card.update(ids, torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+        cpu.update(ids, s, t)
+    before = segment_sum.launches
+    got, want = card.compute(), cpu.compute()
+    # the accuracy's (N, 2) int32 pair; the Mean's (N, 1) float32 delta pair
+    # is a (weighted_sum, weights) group of one shape and type
+    assert segment_sum.launches == before + 2
+    for key in got:
+        np.testing.assert_array_equal(got[key].slice_ids, want[key].slice_ids)
+        assert torch.allclose(got[key]["values"].cpu(), want[key]["values"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("budget", ["chunks", "bytes"])
+def test_valve_fires_at_the_same_batch_on_the_card_as_on_the_cpu(dev, budget):
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    rng = np.random.default_rng(6)
+    x, t = rng.random((512, 5)).astype(np.float32), rng.integers(0, 5, 512)
+
+    def lengths(device):
+        col = MetricCollection(MulticlassAccuracy(num_classes=5, device=device))
+        member = col["metric"]
+        if budget == "chunks":
+            member._DEFER_MAX_CHUNKS = 3
+        else:
+            member._DEFER_BUDGET_BYTES = 3 * (x.nbytes + t.nbytes)
+        seen = []
+        for _ in range(10):
+            col.update(torch.from_numpy(x).to(device), torch.from_numpy(t).to(device))
+            seen.append(len(col._window.chunks))
+        return seen, float(col.compute())
+
+    card, cpu = lengths(dev), lengths("cpu")
+    assert card[0] == cpu[0] == [1, 2, 0] * 3 + [1]
+    assert card[1] == cpu[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_segment_sum_at_the_sliced_window_shape(dev, dtype):
+    """The sliced leg's window: 2^24 rows of (N, 2) deltas into 10^6
+    cohorts, power-law rows."""
+    n, s = 1 << 24, 1_000_000
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = ((torch.rand(n, generator=g, device=dev) ** 4) * s).to(torch.int32)
+    if dtype == torch.int32:
+        vals = torch.randint(0, 2, (n, 2), generator=g, device=dev, dtype=torch.int32)
+    else:
+        vals = torch.rand((n, 2), generator=g, device=dev)
+    got = segment_sum(vals, rows, s)
+    want = segment_sum_plain(vals, rows, s)
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        count = torch.bincount(rows.to(torch.int64), minlength=s).to(torch.float64)[:, None]
+        mag = segment_sum_plain(vals.abs().to(torch.float64), rows, s)
+        bound = count * 2.0**-24 * mag  # the float32 summation bound, per cohort
+        assert bool(((got.double() - want.double()).abs() <= 2 * bound + 1e-30).all())
+
+
+def test_hist_at_the_small_batch_window_shape(dev):
+    """F1's window of 200 batches of 8192 labels: 1,638,400 labels, 10 bins."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    labels = torch.randint(-1, 11, (200 * 8192,), generator=g, device=dev)
+    before = hist.launches
+    got = hist(labels, 10)
+    torch.cuda.synchronize()
+    assert hist.launches == before + 1
+    assert torch.equal(got, hist_plain(labels, 10))

@@ -152,7 +152,8 @@ class TestF1Classes(MetricClassTester):
         stream = copy.deepcopy(port)
         for i in range(n):
             stream.update(**{k: v[i] for k, v in update_kwargs.items()})
-        for got, want in zip((getattr(stream, s) for s in _STATES), self._ref_states(ref)):
+        folded = stream.state_dict()
+        for got, want in zip((folded[s] for s in _STATES), self._ref_states(ref)):
             np.testing.assert_array_equal(got.numpy(), want)
 
     def test_multiclass_every_average(self):

@@ -162,7 +162,7 @@ def test_wrappers_raise_instead_of_falling_back(no_library):
     with pytest.raises(RuntimeError, match="nvcc"):
         MulticlassAccuracy(average="macro", num_classes=3, device="cpu").update(
             torch.rand(4, 3), labels.clamp(max=2)
-        )
+        ).compute()  # the fold, deferred to the read, reaches the kernel
     assert (hist.launches, stream_compact.launches) == before
 
 
@@ -178,9 +178,9 @@ def test_topk_wrapper_raises_instead_of_falling_back(no_library):
     with pytest.raises(RuntimeError, match="nvcc"):
         TopKMultilabelAccuracy(k=5, topk_method="kernel", device="cpu").update(
             x, torch.zeros(4, 2000, dtype=torch.int32)
-        )
+        ).compute()
     with pytest.raises(RuntimeError, match="nvcc"):
-        NDCG(k=5, topk_method="kernel", device="cpu").update(x, torch.rand(4, 2000))
+        NDCG(k=5, topk_method="kernel", device="cpu").update(x, torch.rand(4, 2000)).compute()
     assert topk_kernel.launches == before
 
 
@@ -199,12 +199,12 @@ def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library):
     with pytest.raises(RuntimeError, match="nvcc"):
         SlicedMetricCollection({"acc": BinaryAccuracy(device="cpu")}).update(
             ids, torch.rand(4), torch.ones(4)
-        )
+        ).compute()
     # a per-class fold under vmap reaches the segment-sum wrapper unbatched
     with pytest.raises(RuntimeError, match="nvcc"):
         SlicedMetricCollection(
             {"acc": MulticlassAccuracy(average="macro", num_classes=3, device="cpu")}
-        ).update(ids, torch.rand(4, 3), torch.tensor([0, 1, 2, 1]))
+        ).update(ids, torch.rand(4, 3), torch.tensor([0, 1, 2, 1])).compute()
     assert (segment_sum.launches, hist.launches) == before
 
 
@@ -279,7 +279,9 @@ def test_f1_and_sharded_counts_raise_instead_of_falling_back(no_library):
     with pytest.raises(RuntimeError, match="nvcc"):
         sharded_class_counts(labels, 3)
     with pytest.raises(RuntimeError, match="nvcc"):
-        MulticlassF1Score(num_classes=3, average="macro", device="cpu").update(torch.rand(4, 3), labels)
+        MulticlassF1Score(num_classes=3, average="macro", device="cpu").update(
+            torch.rand(4, 3), labels
+        ).compute()
     assert hist.launches == before
 
 
@@ -348,3 +350,43 @@ def test_evaluator_places_metrics_on_the_mesh_device(monkeypatch):
     ev = ShardedEvaluator({"acc": MulticlassAccuracy(device="cpu"), "sum": Sum(device="cpu")}, mesh=meta)
     assert all(m.device.type == "meta" for m in ev.metrics.values())
     assert all(m.num_correct.device.type == "meta" for m in [ev.metrics["acc"]])
+
+
+def _host_syncs(path: Path):
+    """``(function, line)`` of every call that waits for the device or
+    copies to the host: ``.item()``, ``.cpu()``, ``.tolist()``, ``.numpy()``,
+    ``torch.cuda.synchronize()``; and every import of numpy."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Call) and isinstance(child.func, ast.Attribute):
+                if child.func.attr in ("item", "cpu", "tolist", "numpy", "synchronize"):
+                    found.append((func, child.lineno))
+            if isinstance(child, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in child.names] + [getattr(child, "module", None) or ""]
+                if any(n.split(".")[0] == "numpy" for n in names):
+                    found.append((func, child.lineno))
+            visit(child, inner)
+
+    visit(tree, "<module>")
+    return found
+
+
+# none: the window step stays capturable by a CUDA graph
+_HOST_SYNCS_ALLOWED = {"metrics/deferred.py": set()}
+
+
+@pytest.mark.parametrize("rel", sorted(_HOST_SYNCS_ALLOWED))
+def test_window_step_makes_no_host_sync(rel):
+    allowed = _HOST_SYNCS_ALLOWED[rel]
+    bad = [(f, line) for f, line in _host_syncs(PACKAGE / rel) if f not in allowed]
+    assert not bad, f"{rel}: host syncs outside {sorted(allowed)}: {bad}"
+
+
+def test_host_sync_rule_sees_a_sync(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import numpy as np\n\ndef f(x):\n    return x.sum().item()\n")
+    assert _host_syncs(probe) == [("<module>", 1), ("f", 4)]

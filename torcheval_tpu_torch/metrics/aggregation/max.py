@@ -46,6 +46,7 @@ class _ExtremumMetric(DeferredFoldMixin, Metric[torch.Tensor]):
     ``_state_name`` with the identity ``_identity``, combined by
     ``_fold_reduce``."""
 
+    _fold_per_chunk = True
     _state_name = ""
     _identity = 0.0
 
@@ -53,6 +54,7 @@ class _ExtremumMetric(DeferredFoldMixin, Metric[torch.Tensor]):
         super().__init__(device=device)
         red = Reduction.MAX if self._fold_reduce is torch.maximum else Reduction.MIN
         self._add_state(self._state_name, torch.tensor(self._identity), reduction=red)
+        self._init_deferred()
         self._weak = True
 
     def update(self, input):
@@ -71,6 +73,7 @@ class _ExtremumMetric(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["_ExtremumMetric"]):
+        metrics = self._fold_for_merge(metrics)
         name = self._state_name
         for metric in metrics:
             value = _weak_combine(

@@ -44,12 +44,14 @@ class Mean(DeferredFoldMixin, Metric[torch.Tensor]):
     warning (reading ``weights`` waits for the device)."""
 
     _fold_fn = staticmethod(_mean_deferred_fold)
+    _fold_per_chunk = True
     _compute_fn = staticmethod(_mean_deferred_compute)
 
     def __init__(self, *, device: DeviceLike = None) -> None:
         super().__init__(device=device)
         self._add_state("weighted_sum", zeros_state(), reduction=Reduction.SUM)
         self._add_state("weights", zeros_state(), reduction=Reduction.SUM)
+        self._init_deferred()
 
     def update(self, input, *, weight: Union[float, int, torch.Tensor] = 1.0) -> "Mean":
         input = self._input(input)
@@ -68,6 +70,7 @@ class Mean(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["Mean"]) -> "Mean":
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             self.weighted_sum = self.weighted_sum + metric.weighted_sum.to(self._device)
             self.weights = self.weights + metric.weights.to(self._device)

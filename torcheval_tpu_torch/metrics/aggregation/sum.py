@@ -33,11 +33,13 @@ class Sum(DeferredFoldMixin, Metric[torch.Tensor]):
     """Streaming (weighted) sum; state is one float32 scalar."""
 
     _fold_fn = staticmethod(_sum_deferred_fold)
+    _fold_per_chunk = True
     _compute_fn = staticmethod(_sum_deferred_compute)
 
     def __init__(self, *, device: DeviceLike = None) -> None:
         super().__init__(device=device)
         self._add_state("weighted_sum", zeros_state(), reduction=Reduction.SUM)
+        self._init_deferred()
 
     def update(self, input, *, weight: Union[float, int, torch.Tensor] = 1.0) -> "Sum":
         input = self._input(input)
@@ -51,6 +53,7 @@ class Sum(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["Sum"]) -> "Sum":
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             self.weighted_sum = self.weighted_sum + metric.weighted_sum.to(self._device)
         return self

@@ -4,9 +4,10 @@ JAX counterpart: ``torcheval_tpu/metrics/classification/accuracy.py``
 (``MulticlassAccuracy``, ``BinaryAccuracy``, ``MultilabelAccuracy`` and
 ``TopKMultilabelAccuracy``). Each class declares its fold and its compute as
 module-level pure functions with their statics, the contract of
-``metrics/deferred.py``; ``update()`` validates the batch and folds it into
-the counters at once (the JAX classes defer it), with the same results. The
-sliced collection (``metrics/sliced.py``) runs the same folds per sample.
+``metrics/deferred.py``: ``update()`` validates the batch and defers it, and
+the stacked fold (``_fold_per_chunk``) folds the pending batches at the
+next read or valve, as in the JAX package. The sliced collection
+(``metrics/sliced.py``) runs the same folds per sample.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ class MulticlassAccuracy(DeferredFoldMixin, Metric[torch.Tensor]):
     or per-class ``(num_classes,)`` int32 counters (macro, none)."""
 
     _fold_fn = staticmethod(_acc_fold)
+    _fold_per_chunk = True
     _compute_fn = staticmethod(_accuracy_compute)
 
     def __init__(
@@ -84,6 +86,7 @@ class MulticlassAccuracy(DeferredFoldMixin, Metric[torch.Tensor]):
         self._add_state(
             "num_total", zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM
         )
+        self._init_deferred()
         self._fold_params = (average, num_classes, k)
         self._compute_params = (average,)
 
@@ -98,6 +101,7 @@ class MulticlassAccuracy(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["MulticlassAccuracy"]) -> "MulticlassAccuracy":
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             self.num_correct = self.num_correct + metric.num_correct.to(self._device)
             self.num_total = self.num_total + metric.num_total.to(self._device)
@@ -148,7 +152,7 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
     kernel. ``topk_method`` forces one lowering and is checked here, at
     construction. Not sliceable: the top-k kernel's wrapper has no
     ``torch.func.vmap`` rule (``_fold_vmap = False``, as in the JAX
-    package)."""
+    package), so the batches of a window fold one by one."""
 
     _fold_fn = staticmethod(_topk_fold)
     _fold_vmap = False

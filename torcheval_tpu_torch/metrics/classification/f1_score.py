@@ -3,7 +3,8 @@
 JAX counterpart: ``torcheval_tpu/metrics/classification/f1_score.py``
 (``MulticlassF1Score``, ``BinaryF1Score``). The fold and the compute are the
 module-level functions of ``metrics/deferred.py``'s contract; ``update()``
-folds each batch at once (the JAX classes defer it), with the same results.
+defers the batch, and the concat fold (``_fold_per_chunk`` False) counts the
+pending batches in one ``match_triple_counts``, as in the JAX package.
 State is the int32 triple ``num_tp``, ``num_label``, ``num_prediction``:
 scalars for ``average="micro"`` and the binary metric, ``(num_classes,)``
 otherwise, all reduced by SUM.
@@ -61,6 +62,7 @@ class MulticlassF1Score(DeferredFoldMixin, Metric[torch.Tensor]):
         shape = () if average == "micro" else (num_classes,)
         for name in _STATES:
             self._add_state(name, zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM)
+        self._init_deferred()
         self._fold_params = (num_classes, average)
         self._compute_params = (average,)
 
@@ -80,6 +82,7 @@ class MulticlassF1Score(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["MulticlassF1Score"]) -> "MulticlassF1Score":
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             for name in _STATES:
                 setattr(self, name, getattr(self, name) + getattr(metric, name).to(self._device))

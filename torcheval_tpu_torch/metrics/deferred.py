@@ -1,35 +1,93 @@
-"""The fold contract of array-state metrics.
+"""Deferred folds: ``update()`` appends the batch, and the math runs later.
 
-JAX counterpart: ``torcheval_tpu/metrics/deferred.py`` (the
-``DeferredFoldMixin`` contract: ``_fold_fn``, ``_fold_reduce``,
-``_compute_fn`` and their statics, ``_apply_deltas`` and
-``_deferred_compute``). A metric declares its per-batch math as a
-module-level pure function, and its terminal compute as another, so that a
-wrapper such as the sliced collection (``metrics/sliced.py``) can run the
-same math per sample (``torch.func.vmap``) and per slice.
+JAX counterpart: ``torcheval_tpu/metrics/deferred.py``. A deferring metric
+does not fold per batch. ``update()`` validates the batch's shapes and types
+(once per signature), and appends the placed tensors to a **pending list**.
+The fold runs later, over all the pending batches at once, when:
 
-The JAX package defers the folds: ``update()`` appends the batch, and one
-program folds the pending batches at read time or on a memory budget.
-PyTorch runs eagerly, so here :meth:`DeferredFoldMixin._defer` folds at
-once: it validates the batch with ``_update_check``, runs ``_fold_fn`` on it
-and merges the deltas into the state with ``_fold_reduce``. The pending
-windows, the byte and chunk valve, group folds and donation are not ported.
+* the logical state is read: ``compute``, ``state_dict``,
+  ``load_state_dict``, ``to``, ``merge_state``, ``_prepare_for_merge_state``
+  (every sync), pickling and deepcopy;
+* the **valve** opens: the pending batches hold ``_DEFER_BUDGET_BYTES``
+  (256 MB) or ``_DEFER_MAX_CHUNKS`` (256) batches. A metric that a
+  collection manages and that is streamed into directly folds at twice
+  that.
+
+A fold has one of two shapes, picked per pending list:
+
+* **stacked** (``_fold_per_chunk`` True: per-sample folds reduced by a sum,
+  max or min, such as accuracy, MSE and the aggregations). When every
+  pending batch has one shape and type, the batches are stacked into one
+  ``(batches, ...)`` operand per column, ``_fold_fn`` runs over the leading
+  axis under ``torch.func.vmap``, the per-batch deltas are reduced over that
+  axis by the ``_fold_reduce``'s reduction, and the state is combined with
+  them once. A fold that cannot run under ``vmap`` (``_fold_vmap`` False:
+  top-k accuracy and the retrieval metrics) runs batch by batch and combines
+  each batch's deltas into the state in turn, as the JAX ``lax.scan`` does.
+  Ragged batches accumulate their deltas batch by batch, then combine once;
+* **concat** (``_fold_per_chunk`` False: count folds such as F1, and the
+  sliced members). The pending columns are concatenated and folded once, so
+  the count kernels see one large operand.
+
+The structure, not only the result, is the JAX package's, so that float and
+half-precision sums round as JAX's do: the sliced ``Sum``/``Mean`` of a window
+of bfloat16 values equals JAX's exactly on the CPU.
+
+**Windows.** A :class:`~torcheval_tpu_torch.metrics.collection.
+MetricCollection` appends each batch once to an :class:`EvalWindow` that its
+deferring members share, and closes the window with :func:`window_step`:
+every member's fold over the window's batches and, at ``compute()``, every
+member's ``_compute_fn``. Standalone metrics fed the same tensors (identity,
+not value) fold together in one :func:`fold_pending` (group folds).
+
+**No donation.** The JAX package donates state and, when the collection
+placed them itself, the window's batches to the fold program, and pins the
+donated inputs until the program retires. PyTorch has neither need: a fold
+writes new state tensors out of place, and the caching allocator orders a
+freed block's reuse on its stream, so a window may drop its references to
+the batches as soon as the fold is enqueued. "Owned" keeps the JAX meaning
+(the collection placed the buffer itself, from numpy or a CPU tensor) and
+decides only whether a window may release the batches before the fold math
+runs (after building its stacked or concatenated operands).
+
+**Mutable inputs.** A window holds the caller's tensors past ``update()``,
+and a caller who rewrites one in place would change the result silently.
+Each batch's tensors' version counters (``tensor._version``) are recorded at
+the append and compared at the fold, which raises ``RuntimeError`` if one
+moved. The counter cannot see memory rewritten outside autograd's tracking:
+a static CUDA-graph output replayed into, writes through ``tensor.data`` or
+through a numpy or DLPack view, and tensors made under
+``torch.inference_mode()``, which carry no counter. Pass a fresh tensor to
+``update()``, or read the state first.
+
+**Transforms.** An update made during CUDA-graph capture, under a
+``torch.func`` transform or while ``torch.compile`` traces folds at once, so
+no wrapped or captured tensor outlives its transform in a pending list.
+
+**Counters.** :func:`window_step` counts its calls, those that folded
+batches and the batches they folded (``window_step.calls``,
+``window_step.windows``, ``window_step.batches``); :func:`fold_pending`
+counts the solo and group folds (``fold_pending.calls``,
+``fold_pending.chunks``, ``fold_pending.grouped``), as the kernel wrappers
+count their launches.
 
 Contract for subclasses::
 
     def _my_fold(input, target, threshold):   # module level, pure
-        return {"num_tp": ..., "num_fp": ...}  # batch -> {state: delta}
+        return {"num_tp": ..., "num_fp": ...}  # batches -> {state: delta}
 
     def _my_compute(num_tp, num_fp, threshold):  # states in registration order
         return ...
 
     class MyMetric(DeferredFoldMixin, Metric[torch.Tensor]):
         _fold_fn = staticmethod(_my_fold)
+        _fold_per_chunk = True                  # stacked; False: concat
         _compute_fn = staticmethod(_my_compute)
 
         def __init__(self, ..., device=None):
             super().__init__(device=device)
             self._add_state(...)
+            self._init_deferred()
             self._fold_params = (threshold,)
             self._compute_params = (threshold,)
 
@@ -41,34 +99,378 @@ Contract for subclasses::
 
         def compute(self):
             return self._deferred_compute()
+
+        def merge_state(self, metrics):
+            for m in self._fold_for_merge(metrics):   # folds both sides first
+                ...
+
+Reading a state attribute directly (``m.num_total``) between updates gives
+the folded-so-far value; ``state_dict()`` and ``compute()`` fold first.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import itertools
+import weakref
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+Chunk = Tuple[torch.Tensor, ...]
+Versions = Tuple[Optional[int], ...]
+
+# Live standalone deferring metrics: a metric that folds looks here for peers
+# whose pending batches are the same tensors (metrics fed the same stream
+# outside any collection) and folds them in one go. Weak: registration keeps
+# no metric alive.
+_live_deferred: "weakref.WeakSet" = weakref.WeakSet()
+_defer_seq = itertools.count(1)
+
+_is_functorch_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+
+def _chunks_identical(a: Sequence[Chunk], b: Sequence[Chunk]) -> bool:
+    """Two pending lists hold the same tensor objects in the same order."""
+    return len(a) == len(b) and all(
+        len(c) == len(h) and all(x is y for x, y in zip(c, h)) for c, h in zip(a, b)
+    )
+
+
+def _is_prefix(short: Sequence[Chunk], long: Sequence[Chunk]) -> bool:
+    """``short`` is an identity prefix of ``long``: peers fed one stream are
+    usually a batch apart mid-loop, so the common part folds together."""
+    return len(short) <= len(long) and _chunks_identical(short, long[: len(short)])
+
+
+def _uniform_chunks(chunks: Sequence[Chunk]) -> bool:
+    """Every batch has one arity and the same shape and type per column."""
+    head = chunks[0]
+    for c in chunks[1:]:
+        if len(c) != len(head):
+            return False
+        for x, h in zip(c, head):
+            if x.shape != h.shape or x.dtype != h.dtype:
+                return False
+    return True
+
+
+def _add(state: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    return state + delta
+
+
+def _sum0(v: torch.Tensor) -> torch.Tensor:
+    # in the delta's own type, as jnp.sum keeps int32 (torch.sum widens it)
+    return torch.sum(v, dim=0, dtype=v.dtype)
+
+
+def _amax0(v: torch.Tensor) -> torch.Tensor:
+    return torch.amax(v, dim=0)
+
+
+def _amin0(v: torch.Tensor) -> torch.Tensor:
+    return torch.amin(v, dim=0)
+
+
+# _fold_reduce -> its reduction over the stacked batch axis
+_AXIS_REDUCERS = {None: _sum0, torch.maximum: _amax0, torch.minimum: _amin0}
+
+
+def _under_transform(args: Sequence[Any]) -> bool:
+    """True while ``torch.compile`` traces, under a ``torch.func`` transform,
+    or while the current CUDA stream captures a graph."""
+    if torch.compiler.is_compiling():
+        return True
+    cuda = False
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if _is_functorch_wrapped(a):
+                return True
+            cuda = cuda or a.is_cuda
+    return cuda and torch.cuda.is_current_stream_capturing()
+
+
+def _versions(args: Sequence[torch.Tensor]) -> Versions:
+    """Each tensor's version counter; ``None`` for an inference tensor,
+    which has none."""
+    return tuple(None if a.is_inference() else a._version for a in args)
+
+
+def _check_unchanged(owner: str, chunks: Sequence[Chunk], versions: Sequence[Versions]) -> None:
+    for chunk, vers in zip(chunks, versions):
+        for a, v in zip(chunk, vers):
+            if v is not None and a._version != v:
+                raise RuntimeError(
+                    f"{owner}: a tensor passed to update() was modified in place after the "
+                    "call and before its batch was folded, which would change the result "
+                    "silently. Pass a fresh tensor to update(), or read the state with "
+                    "compute() or state_dict(), which fold the pending batches, before "
+                    "reusing the buffer."
+                )
+
+
+def _member_deltas(
+    members: Sequence[Tuple[str, "DeferredFoldMixin"]],
+    chunks: Sequence[Chunk],
+    release: Optional[Callable[[], None]] = None,
+) -> Dict[str, List[Dict[str, torch.Tensor]]]:
+    """Each member's deltas over ``chunks``, as a list of delta dicts to
+    combine into its state in order. Nothing is combined here, so a fold
+    that raises leaves every state as it was. ``release`` (the window's
+    owned batches) runs once every operand is built, before the fold math."""
+    uniform = len(chunks) > 1 and _uniform_chunks(chunks)
+    stacked_members, scan_members, other = [], [], []
+    for key, m in members:
+        cls = type(m)
+        if uniform and cls._fold_per_chunk:
+            if cls._fold_vmap and cls._fold_reduce in _AXIS_REDUCERS:
+                stacked_members.append((key, m))
+            else:
+                scan_members.append((key, m))
+        else:
+            other.append((key, m))
+    stacked = tuple(torch.stack(cols) for cols in zip(*chunks)) if stacked_members else None
+    concat = None
+    if any(not type(m)._fold_per_chunk or len(chunks) == 1 for _, m in other):
+        concat = tuple(torch.cat(cols) if len(cols) > 1 else cols[0] for cols in zip(*chunks))
+    if scan_members:
+        # the scan's batches: rows of the stack when there is one
+        seq = (
+            [tuple(col[i] for col in stacked) for i in range(len(chunks))]
+            if stacked is not None
+            else list(chunks)
+        )
+    ragged = {k for k, m in other if type(m)._fold_per_chunk and len(chunks) > 1}
+    if release is not None and not ragged and (not scan_members or stacked is not None):
+        release()
+
+    out: Dict[str, List[Dict[str, torch.Tensor]]] = {}
+    if stacked_members:
+
+        def all_deltas(*chunk):
+            return {key: type(m)._fold_fn(*chunk, *m._fold_params) for key, m in stacked_members}
+
+        delta_stacks = torch.func.vmap(all_deltas)(*stacked)
+        for key, m in stacked_members:
+            red = _AXIS_REDUCERS[type(m)._fold_reduce]
+            out[key] = [{n: red(v) for n, v in delta_stacks[key].items()}]
+    for key, m in scan_members:
+        fn = type(m)._fold_fn
+        out[key] = [fn(*c, *m._fold_params) for c in seq]
+    for key, m in other:
+        fn = type(m)._fold_fn
+        if key in ragged:
+            red = type(m)._fold_reduce or _add
+            acc = None
+            for c in chunks:
+                d = fn(*c, *m._fold_params)
+                acc = d if acc is None else {n: red(acc[n], v) for n, v in d.items()}
+            out[key] = [acc]
+        else:
+            out[key] = [fn(*concat, *m._fold_params)]
+    return out
+
+
+def _combine(
+    members: Sequence[Tuple[str, "DeferredFoldMixin"]],
+    outs: Dict[str, List[Dict[str, torch.Tensor]]],
+) -> None:
+    for key, m in members:
+        for deltas in outs.get(key, ()):
+            m._apply_deltas(deltas)
+
+
+def fold_pending(members: Sequence["DeferredFoldMixin"], chunks: Sequence[Chunk]) -> None:
+    """Fold ``chunks`` into every metric of ``members`` (one metric's own
+    pending batches, or a group's shared prefix): the solo and group lane.
+    The callers check the version counters and clear the pending lists."""
+    pairs = [(str(i), m) for i, m in enumerate(members)]
+    _combine(pairs, _member_deltas(pairs, chunks))
+    fold_pending.calls += 1
+    fold_pending.chunks += len(chunks)
+    fold_pending.grouped += len(pairs) > 1
+
+
+fold_pending.calls = 0
+fold_pending.chunks = 0
+fold_pending.grouped = 0
+
+
+def group_fold(members: Dict[str, "DeferredFoldMixin"]) -> None:
+    """Fold every member's own pending batches at once when they hold the
+    same tensors (members each fed the same batches through their own
+    ``update``); else fold each member alone."""
+    pending = [m for m in members.values() if m._pending]
+    if not pending:
+        return
+    head = pending[0]._pending
+    aligned = len(pending) == len(members) and all(
+        _chunks_identical(m._pending, head) for m in pending[1:]
+    )
+    if not aligned:
+        for m in pending:
+            m._fold_own()
+        return
+    for m in pending:
+        _check_unchanged(type(m).__name__, m._pending, m._pending_versions)
+    fold_pending(pending, head)
+    for m in pending:
+        m._clear_pending()
+
+
+def window_step(
+    members: Dict[str, "DeferredFoldMixin"],
+    chunks: Sequence[Chunk],
+    *,
+    versions: Optional[Sequence[Versions]] = None,
+    compute_keys: Iterable[str] = (),
+    owned_chunks: bool = False,
+) -> Dict[str, Any]:
+    """One whole-window step: fold ``chunks`` into every member's state and,
+    for the ``compute_keys`` members with a ``_compute_fn``, run the terminal
+    compute on the folded states. Returns ``{member name: result}``.
+
+    ``versions`` are the batches' version counters at the append, checked
+    before anything runs. ``owned_chunks`` vouches that the collection
+    placed every batch itself: a list of them is then emptied once the fold's
+    operands are built. The callers clear their pending lists (only after
+    this returns, so a failing fold never discards batches it did not
+    consume). Makes no host synchronisation."""
+    compute_keys = set(compute_keys)
+    computing = [
+        (name, m)
+        for name, m in members.items()
+        if name in compute_keys and type(m)._compute_fn is not None
+    ]
+    n = len(chunks)
+    if not n and not computing:
+        return {}
+    if n:
+        if versions is not None:
+            names = ", ".join(type(m).__name__ for m in members.values())
+            _check_unchanged(names, chunks, versions)
+        pairs = list(members.items())
+        release = chunks.clear if owned_chunks and isinstance(chunks, list) else None
+        _combine(pairs, _member_deltas(pairs, chunks, release))
+    results = {
+        name: type(m)._compute_fn(
+            *(getattr(m, s) for s in m._state_name_to_default), *m._compute_params
+        )
+        for name, m in computing
+    }
+    window_step.calls += 1
+    window_step.windows += n > 0
+    window_step.batches += n
+    return results
+
+
+window_step.calls = 0
+window_step.windows = 0
+window_step.batches = 0
+
+
+class EvalWindow:
+    """The pending batches a collection's deferring members share.
+
+    ``MetricCollection.update()`` appends each placed batch here once, and
+    the window closes as one :func:`window_step`. ``owned`` says whether
+    the collection placed every batch itself. ``sig`` caches the full
+    ``(shape, dtype)`` signature the collection's fast path last validated.
+    ``owner`` refers weakly to the collection: a member prunes the windows
+    of collections that died, after folding their batches."""
+
+    __slots__ = (
+        "members",
+        "chunks",
+        "versions",
+        "nbytes",
+        "sig",
+        "sig_nbytes",
+        "owned",
+        "owner",
+        "__weakref__",
+    )
+
+    def __init__(self, members: Dict[str, "DeferredFoldMixin"], owner: Any = None) -> None:
+        self.members = members
+        self.chunks: List[Chunk] = []
+        self.versions: List[Versions] = []
+        self.nbytes = 0
+        self.sig: Optional[Tuple[Any, ...]] = None
+        self.sig_nbytes = 0
+        self.owned = True
+        # a window built without a collection counts as alive
+        self.owner = weakref.ref(owner) if owner is not None else (lambda: self)
+
+    def append(self, chunk: Chunk, versions: Versions, nbytes: int, owned: bool) -> None:
+        self.chunks.append(chunk)
+        self.versions.append(versions)
+        self.nbytes += nbytes
+        self.owned = self.owned and owned
+
+    def clear(self) -> None:
+        self.chunks = []
+        self.versions = []
+        self.nbytes = 0
+        self.owned = True
+
+    def close(self, compute_keys: Iterable[str] = ()) -> Dict[str, Any]:
+        """Fold everything pending into the members' states and run the
+        ``compute_keys`` members' computes. Whatever a computed member's
+        state depends on folds first: its other collections' open windows,
+        and the members' own pending batches (a member streamed into
+        directly), in one group fold where those align."""
+        compute_keys = tuple(compute_keys)
+        for key in compute_keys:
+            m = self.members.get(key)
+            if m is None:
+                continue
+            for w in m._live_windows():
+                if w is not self and w.chunks:
+                    w.close()
+        if any(m._pending for m in self.members.values()):
+            group_fold(self.members)
+        results = window_step(
+            self.members,
+            self.chunks,
+            versions=self.versions,
+            compute_keys=compute_keys,
+            owned_chunks=self.owned and bool(self.chunks),
+        )
+        self.clear()
+        return results
+
 
 class DeferredFoldMixin:
-    """Mixin for array-state metrics whose update is a pure fold.
+    """Mixin for tensor-state metrics whose update is a pure fold.
 
     Class attributes:
 
-    * ``_fold_fn(*update_args, *_fold_params) -> {state: delta}``;
-    * ``_fold_reduce``: ``None`` adds deltas into state; a combine such as
-      ``torch.maximum`` threads extrema states instead;
+    * ``_fold_fn(*update_args, *_fold_params) -> {state: delta}``, a
+      module-level function; an optional update argument (a weight) is an
+      extra column, and the fold tells them apart by arity;
+    * ``_fold_per_chunk``: True for per-sample folds reduced by
+      ``_fold_reduce`` (the stacked shape), False for count folds (concat);
+    * ``_fold_reduce``: ``None`` adds deltas into state; ``torch.maximum``
+      or ``torch.minimum`` threads extrema states instead;
     * ``_fold_vmap``: False when the fold cannot run under
-      ``torch.func.vmap`` (a kernel with no batching rule), which keeps the
-      metric out of the sliced collection;
+      ``torch.func.vmap`` (a kernel with no batching rule): its batches fold
+      one by one, and the metric stays out of the sliced collection;
     * ``_compute_fn(*states_in_registration_order, *_compute_params)``: the
       pure terminal compute, or ``None`` when compute has host-side
-      behaviour;
-    * ``_update_check(*update_args)``: the shape and type validation, or
-      ``None``.
+      behaviour (then ``compute()`` must call ``_fold_now()`` first);
+    * ``_update_check(*update_args)``: the shape and type validation, run
+      once per batch signature, or ``None``.
     """
 
+    # 256 MB of pending update arguments before a fold is forced
+    _DEFER_BUDGET_BYTES: int = 1 << 28
+    # and at most 256 pending batches: under a constant batch shape every
+    # valve fold sees one stacked shape
+    _DEFER_MAX_CHUNKS: int = 256
+    _defers = True  # MetricCollection: members that share the window
+
     _fold_fn: Optional[Any] = None
+    _fold_per_chunk: bool = False
     _fold_reduce: Optional[Any] = None
     _fold_vmap: bool = True
     _compute_fn: Optional[Any] = None
@@ -76,33 +478,234 @@ class DeferredFoldMixin:
     _compute_params: Tuple[Any, ...] = ()
     _update_check: Optional[Any] = None
 
+    def _init_deferred(self) -> None:
+        self._pending: List[Chunk] = []
+        self._pending_versions: List[Versions] = []
+        self._pending_bytes = 0
+        # (ndim, dtype, trailing shape) of the pending batches' columns
+        self._pending_sig: Optional[Tuple[Any, ...]] = None
+        # (shapes, dtypes, nbytes) of the last validated batch: the fast path
+        self._defer_cache: Optional[Tuple[Any, ...]] = None
+        # registration order: the stable order of a group's members
+        self._defer_seq = next(_defer_seq)
+        _live_deferred.add(self)
+
+    def _clear_pending(self) -> None:
+        self._pending = []
+        self._pending_versions = []
+        self._pending_bytes = 0
+
+    # ------------------------------------------------------------ machinery
     def _defer(self, *args: torch.Tensor) -> None:
-        """Validate one batch and fold it into the state at once."""
+        if _under_transform(args):
+            check = self._update_check
+            if check is not None:
+                check(*args)
+            self._apply_deltas(type(self)._fold_fn(*args, *self._fold_params))
+            return
+        cache = self._defer_cache
+        if cache is not None:
+            shapes, dtypes, nbytes = cache
+            if len(args) == len(shapes):
+                for i, a in enumerate(args):
+                    if type(a) is not torch.Tensor or a.shape != shapes[i] or a.dtype != dtypes[i]:
+                        break
+                else:
+                    # the signature the last validated batch had: validation,
+                    # the signature flush and the byte count are all
+                    # functions of it
+                    self._pending.append(args)
+                    self._pending_versions.append(_versions(args))
+                    pb = self._pending_bytes = self._pending_bytes + nbytes
+                    if pb >= self._DEFER_BUDGET_BYTES or len(self._pending) >= self._DEFER_MAX_CHUNKS:
+                        self._defer_budget_check()
+                    return
+        self._defer_slow(args)
+
+    def _defer_slow(self, args: Chunk) -> None:
         check = self._update_check
         if check is not None:
             check(*args)
-        self._apply_deltas(type(self)._fold_fn(*args, *self._fold_params))
+        sig = tuple((a.ndim, a.dtype, a.shape[1:]) for a in args)
+        if self._pending and sig != self._pending_sig:
+            # a change of arity, rank, trailing shape or type: one fold never
+            # mixes signatures, so the old ones fold first
+            self._fold_own()
+        self._pending.append(args)
+        self._pending_versions.append(_versions(args))
+        self._pending_sig = sig
+        nbytes = sum(int(a.nbytes) for a in args)
+        self._pending_bytes += nbytes
+        self._defer_cache = (tuple(a.shape for a in args), tuple(a.dtype for a in args), nbytes)
+        self._defer_budget_check()
+
+    def _over_budget(self, scale: int) -> bool:
+        return (
+            self._pending_bytes >= scale * self._DEFER_BUDGET_BYTES
+            or len(self._pending) >= scale * self._DEFER_MAX_CHUNKS
+        )
+
+    def _defer_budget_check(self) -> None:
+        # a collection owns its members' fold trigger; a managed member
+        # streamed into directly still folds itself at twice the budget
+        scale = 2 if getattr(self, "_defer_managed", False) else 1
+        if self._over_budget(scale):
+            # peers fed the same stream are a batch behind at most: the
+            # shared prefix frees almost everything in one fold
+            self._group_fold_attempt()
+            if self._over_budget(scale):
+                self._fold_own()
 
     def _apply_deltas(self, deltas: Dict[str, torch.Tensor]) -> None:
-        """Merge per-batch deltas into the state, out of place (a scalar
-        state may widen to the delta's shape or type, as in the JAX
-        package: an unweighted int32 count becomes float32 under a weighted
-        update)."""
-        red = type(self)._fold_reduce
+        """Merge deltas into the state, out of place (a scalar state may
+        widen to the delta's shape or type, as in the JAX package: an
+        unweighted int32 count becomes float32 under a weighted update)."""
+        red = type(self)._fold_reduce or _add
         for name, delta in deltas.items():
-            cur = getattr(self, name)
-            setattr(self, name, cur + delta if red is None else red(cur, delta))
+            setattr(self, name, red(getattr(self, name), delta))
+
+    def _group_fold_attempt(self) -> None:
+        """Fold the longest identity prefix of pending batches shared with
+        live standalone peers in one fold; the batches past it stay
+        pending on their owners."""
+        pending = self._pending
+        if not pending or getattr(self, "_defer_managed", False):
+            return
+        peers = [
+            m
+            for m in _live_deferred
+            if m is not self
+            and not getattr(m, "_defer_managed", False)
+            and m.device == self.device
+            and m._pending
+            and (_is_prefix(m._pending, pending) or _is_prefix(pending, m._pending))
+        ]
+        if not peers:
+            return
+        group = sorted([self, *peers], key=lambda m: (type(m).__qualname__, m._defer_seq))
+        common = min(len(m._pending) for m in group)
+        chunks = self._pending[:common]
+        if not all(_is_prefix(chunks, m._pending) for m in group):
+            return
+        for m in group:
+            _check_unchanged(type(m).__name__, chunks, m._pending_versions[:common])
+        fold_pending(group, chunks)
+        for m in group:
+            m._pending = m._pending[common:]
+            m._pending_versions = m._pending_versions[common:]
+            m._pending_bytes = sum(int(a.nbytes) for c in m._pending for a in c)
+
+    def _live_windows(self) -> Tuple[EvalWindow, ...]:
+        """The shared windows this metric belongs to, after pruning those
+        whose collection died (their batches fold first: they carry updates
+        the caller made)."""
+        windows = getattr(self, "_defer_windows", None)
+        if not windows:
+            return ()
+        for w in [w for w in windows if w.owner() is None]:
+            if w.chunks:
+                w.close()
+            windows.remove(w)
+        return tuple(windows)
+
+    def _fold_now(self) -> None:
+        """Fold every batch this metric's logical state depends on: the open
+        windows of every collection it belongs to, then its own pending."""
+        for w in self._live_windows():
+            if w.chunks:
+                w.close()
+        self._fold_own()
+
+    def _fold_own(self) -> None:
+        """Fold this metric's own pending batches: with the standalone peers
+        that share a prefix of them, then the rest alone."""
+        if not self._pending:
+            return
+        self._group_fold_attempt()
+        pending = self._pending
+        if not pending:
+            return
+        _check_unchanged(type(self).__name__, pending, self._pending_versions)
+        fold_pending((self,), pending)
+        # cleared after the fold: a fold that raises keeps every batch
+        self._clear_pending()
+
+    def _fold_for_merge(self, metrics: Iterable["DeferredFoldMixin"]) -> List["DeferredFoldMixin"]:
+        """Fold this metric and the merge sources before ``merge_state``
+        reads their states; the sources as a list."""
+        metrics = list(metrics)
+        self._fold_now()
+        for m in metrics:
+            m._fold_now()
+        return metrics
 
     def _on_window_result(self, result):
-        """Host-side post-processing of a ``_compute_fn`` result (the JAX
-        package applies it to the result of its in-program compute).
-        Default: identity."""
+        """Host-side post-processing of a ``_compute_fn`` result, as the
+        metric's own ``compute()`` would apply it. Default: identity."""
         return result
 
     def _deferred_compute(self):
-        """``compute()`` body: the pure ``_compute_fn`` on the states."""
+        """``compute()`` body for metrics with a pure ``_compute_fn``: the
+        fold and the terminal compute in one window step (this metric's own,
+        or the close of the last open window it belongs to, which drains its
+        other windows first)."""
+        open_windows = [w for w in self._live_windows() if w.chunks]
+        if open_windows:
+            last = open_windows[-1]
+            key = next(k for k, v in last.members.items() if v is self)
+            results = last.close(compute_keys=(key,))
+            if key in results:
+                return self._on_window_result(results[key])
+        elif self._pending:
+            if not getattr(self, "_defer_managed", False):
+                self._group_fold_attempt()
+            if self._pending:
+                results = window_step(
+                    {"s": self},
+                    tuple(self._pending),
+                    versions=self._pending_versions,
+                    compute_keys=("s",),
+                )
+                self._clear_pending()
+                if "s" in results:
+                    return self._on_window_result(results["s"])
         result = type(self)._compute_fn(
-            *(getattr(self, n) for n in self._state_name_to_default),
-            *self._compute_params,
+            *(getattr(self, n) for n in self._state_name_to_default), *self._compute_params
         )
         return self._on_window_result(result)
+
+    # ------------------------------------------------------ lifecycle hooks
+    def reset(self):
+        for w in self._live_windows():
+            if w.chunks:
+                # a shared window's batches belong to every member: fold
+                # them so the siblings keep theirs (this member's share lands
+                # in state the reset wipes next)
+                w.close()
+        self._clear_pending()
+        self._pending_sig = None
+        self._defer_cache = None
+        return super().reset()
+
+    # load_state_dict needs no override: Metric.load_state_dict folds into
+    # the old state before it overwrites, which keeps a partial load exact
+    # for the states it does not name.
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # pickling and deepcopy fold first and carry nothing pending; a copy
+        # answers to no collection
+        self._fold_now()
+        state = dict(self.__dict__)
+        for name in ("_defer_managed", "_defer_windows", "_defer_cache"):
+            state.pop(name, None)
+        state["_pending"] = []
+        state["_pending_versions"] = []
+        state["_pending_bytes"] = 0
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._clear_pending()
+        self._pending_sig = None
+        self._defer_cache = None
+        _live_deferred.add(self)  # a restored metric groups with peers again

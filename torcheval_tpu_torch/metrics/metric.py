@@ -8,9 +8,12 @@ pickling. State is ``torch.Tensor``s on the metric's device, which is
 ``cuda:0`` unless the caller passes another (``device="cpu"`` runs on the
 CPU). With no GPU, the default raises.
 
-PyTorch runs eagerly, so ``update`` folds each batch into the state at once.
-``_fold_now`` stays as the hook that every read of the logical state calls
-first, for metrics that defer work.
+Metrics with a pure fold defer it (``metrics/deferred.py``): ``update``
+appends the batch, and :meth:`Metric._fold_now` folds the pending batches.
+Every read of the logical state calls it first: ``state_dict``,
+``load_state_dict`` (so a partial load keeps the pending contribution of the
+states it does not name), ``to`` and ``_prepare_for_merge_state`` (every
+sync); the mixin adds pickling and deepcopy.
 """
 
 from __future__ import annotations
@@ -103,8 +106,9 @@ class Metric(Generic[TComputeReturn], ABC):
         self._fold_now()
 
     def _fold_now(self) -> None:
-        """Fold any deferred work into the logical state. A no-op here:
-        this slice's metrics fold on every ``update``."""
+        """Fold any deferred work into the logical state. A no-op here;
+        :class:`~torcheval_tpu_torch.metrics.deferred.DeferredFoldMixin`
+        overrides it."""
 
     # ------------------------------------------------------------- life cycle
     def reset(self: TSelf) -> TSelf:

@@ -3,9 +3,10 @@
 JAX counterpart: ``torcheval_tpu/metrics/ranking/_retrieval.py``. They are
 means over valid rows, so their state is two scalars: ``score_sum``
 (float32) and ``num_valid`` (int32), both ``Reduction.SUM``. The label axis
-lives only inside the top-k engine call of each update, never in state. The
-JAX classes defer their folds; here ``update()`` folds each batch at once,
-with the same state.
+lives only inside the top-k engine call of each fold, never in state. The
+classes defer their folds (``metrics/deferred.py``): the top-k kernel has no
+``torch.func.vmap`` rule (``_fold_vmap = False``), so the batches of a window
+fold one by one, as the JAX ``lax.scan`` folds them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
 from torcheval_tpu_torch.metrics.functional.ranking.retrieval import (
     _retrieval_input_check,
 )
@@ -23,12 +25,36 @@ from torcheval_tpu_torch.ops.topk import _METHODS as _TOPK_METHODS
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 
-class RetrievalMeanMetric(Metric[torch.Tensor]):
+def _retrieval_fold(input, target, kernel, k, topk_method):
+    """One batch's ``score_sum`` and ``num_valid`` deltas from the
+    subclass's NaN-poisoned per-sample scores."""
+    per_sample = kernel(input, target, k, topk_method)
+    valid = ~torch.isnan(per_sample)
+    return {
+        "score_sum": torch.sum(torch.where(valid, per_sample, 0.0)),
+        "num_valid": valid.sum(dtype=torch.int32),
+    }
+
+
+def _mean_compute(score_sum, num_valid):
+    """The mean over valid rows; NaN before the first valid row."""
+    return torch.where(
+        num_valid > 0,
+        score_sum / torch.clamp(num_valid, min=1).to(torch.float32),
+        torch.nan,
+    )
+
+
+class RetrievalMeanMetric(DeferredFoldMixin, Metric[torch.Tensor]):
     """Mean of a per-sample retrieval score over the rows where it is not
     NaN. Subclasses set ``_kernel``, a function of ``(input, target, k,
     topk_method)`` from ``functional/ranking/retrieval.py``."""
 
     _kernel = None
+    _fold_fn = staticmethod(_retrieval_fold)
+    _fold_per_chunk = True
+    _fold_vmap = False
+    _compute_fn = staticmethod(_mean_compute)
 
     def __init__(
         self,
@@ -52,25 +78,22 @@ class RetrievalMeanMetric(Metric[torch.Tensor]):
         self._add_state(
             "num_valid", zeros_state((), dtype=torch.int32), reduction=Reduction.SUM
         )
+        self._init_deferred()
+        self._fold_params = (type(self)._kernel, k, topk_method)
+
+    def _update_check(self, input, target) -> None:
+        _retrieval_input_check(input, target, self.k)
 
     def update(self, input, target):
-        input, target = self._input(input), self._input(target)
-        _retrieval_input_check(input, target, self.k)
-        per_sample = self._kernel(input, target, self.k, self.topk_method)
-        valid = ~torch.isnan(per_sample)
-        self.score_sum += torch.sum(torch.where(valid, per_sample, 0.0))
-        self.num_valid += valid.sum(dtype=torch.int32)
+        self._defer(self._input(input), self._input(target))
         return self
 
     def compute(self) -> torch.Tensor:
         """The mean over valid rows; NaN before the first valid row."""
-        return torch.where(
-            self.num_valid > 0,
-            self.score_sum / torch.clamp(self.num_valid, min=1).to(torch.float32),
-            torch.nan,
-        )
+        return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["RetrievalMeanMetric"]):
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             self.score_sum = self.score_sum + metric.score_sum.to(self._device)
             self.num_valid = self.num_valid + metric.num_valid.to(self._device)

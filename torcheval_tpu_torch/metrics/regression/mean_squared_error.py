@@ -45,6 +45,7 @@ class MeanSquaredError(DeferredFoldMixin, Metric[torch.Tensor]):
     ``"raw_values"``."""
 
     _fold_fn = staticmethod(_mse_deferred_fold)
+    _fold_per_chunk = True
     _compute_fn = staticmethod(_mse_deferred_compute)
 
     def __init__(self, *, multioutput: str = "uniform_average", device: DeviceLike = None) -> None:
@@ -53,6 +54,7 @@ class MeanSquaredError(DeferredFoldMixin, Metric[torch.Tensor]):
         self.multioutput = multioutput
         self._add_state("sum_squared_error", zeros_state(), reduction=Reduction.SUM)
         self._add_state("sum_weight", zeros_state((), dtype=torch.int32), reduction=Reduction.SUM)
+        self._init_deferred()
         self._compute_params = (multioutput,)
 
     def _update_check(self, input, target, sample_weight=None) -> None:
@@ -70,6 +72,7 @@ class MeanSquaredError(DeferredFoldMixin, Metric[torch.Tensor]):
         return self._deferred_compute()
 
     def merge_state(self, metrics: Iterable["MeanSquaredError"]) -> "MeanSquaredError":
+        metrics = self._fold_for_merge(metrics)
         for metric in metrics:
             self.sum_squared_error = self.sum_squared_error + metric.sum_squared_error.to(
                 self._device

@@ -35,6 +35,18 @@ Results come back keyed by the original ids: ``compute()`` returns
 
 The id column stays on the host (interning needs its bytes), and each
 batch's interned rows are copied to the members' device.
+
+**Windows.** The members ride the collection's window
+(``metrics/deferred.py``) as concat-fold members (``_fold_per_chunk =
+False``): ``update()`` appends ``(rows, *columns)`` to the window once, and
+the window's fold concatenates its batches and runs one segment scatter per
+group of deltas, so a ``sum`` group is one segment-sum launch per window. A
+capacity growth does not fold the window, as in the JAX package: rows never
+move, the states are padded out of place, and the fold reads the capacity
+when it runs. On the CPU a window of bfloat16 or float16 deltas adds in the
+half type in sample order, so the sliced ``Sum``/``Mean`` equal the JAX
+package's under the same windows exactly; on the card the segment-sum
+kernel adds in float32 and rounds once (``ops/scatter.py``).
 """
 
 from __future__ import annotations
@@ -304,12 +316,14 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
     lanes are refreshed from it when state is read.
     """
 
+    _fold_per_chunk = False  # concat: one segment scatter per window
     # the toolkit's sync aligns gathered replicas by id before folding
     # (align_sliced_gathered) and adopts the union table afterwards
     _sliced_sync = True
 
     def __init__(self, table: SliceTable, device: DeviceLike = None) -> None:
         super().__init__(device=device)
+        self._init_deferred()
         self._table = table
         self._table_version = -1
         self._row_defaults: Dict[str, torch.Tensor] = {}
@@ -438,7 +452,7 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         combine into this member's rows through ``segment_scatter`` with
         each state's declared reduction. Equal to having streamed the
         other's batches here (integer adds and extrema exactly)."""
-        for other in metrics:
+        for other in self._fold_for_merge(metrics):
             o_count = other._table.count
             if o_count == 0:
                 continue
@@ -582,6 +596,7 @@ def check_sliceable(metric: Metric) -> None:
             f"{cls.__qualname__} cannot be sliced: its _fold_reduce has no known "
             "per-slice segment op."
         )
+    metric._fold_now()  # a pending batch makes the metric a used one
     for name, default in metric._state_name_to_default.items():
         if not isinstance(default, torch.Tensor):
             raise ValueError(
@@ -652,9 +667,8 @@ class SlicedMetricCollection(MetricCollection):
         if not args:
             raise ValueError("update needs at least one metric column after slice_ids.")
         rows = self._intern_and_grow(_to_numpy(slice_ids))
-        # a copy from pageable memory waits for the stream, but the host's
-        # interning bounds this path, and pinned staging measured no faster
-        return super().update(torch.from_numpy(rows).to(self._device), *args)
+        # the rows are placed like any numpy column, so the window owns them
+        return self._update_impl((rows, *args), {})
 
     def _intern_and_grow(self, slice_ids: np.ndarray) -> np.ndarray:
         """Intern a batch; if the members reject the grown capacity, the
@@ -685,7 +699,11 @@ class SlicedMetricCollection(MetricCollection):
         cap = self.slice_table.predict_growth(int(union.shape[0]))
         for m in self.metrics.values():
             m._check_capacity(cap)
+        if self._window is not None:
+            self._window.close()
         for other in others:
+            if other._window is not None:
+                other._window.close()
             for name, member in self.metrics.items():
                 member.merge_state([other.metrics[name]])
         return self
