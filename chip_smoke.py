@@ -16,7 +16,12 @@ failed check. Phases:
    route, a stable sort), and at the shapes the deferred windows give them:
    the segment sum at the sliced leg's window, (2^24, 2) int32 and float32
    into 10^6 cohorts, and the histogram at the small-batch leg's window,
-   1,638,400 labels into 10 bins;
+   1,638,400 labels into 10 bins; and at the shapes of the config-3 and
+   curve legs: the histogram over 1,300,000 joint keys into 10^6 bins and
+   over 10^7 binned keys into 202,000 bins, the segment sum over the binned
+   curve's stacked window (5 * 10^7 keys into 1,010,000 segments), and the
+   per-class compaction bit for bit against the batched two-sort at the
+   curve leg's two fold widths;
 3. headline leg: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
@@ -30,6 +35,19 @@ failed check. Phases:
    against ``torch.bincount``'s over all batches, the values within rtol
    1e-5; and, as information, a standalone ``MulticlassAccuracy`` over the
    same stream (config 1 itself);
+   config-3 leg (BASELINE config 3, ``bench.py:639-733``, with distinct
+   batches): ``MulticlassConfusionMatrix(1000)`` and macro
+   ``MulticlassF1Score`` over 13 batches of 100,000 int32 predictions, in
+   one ``MetricCollection`` and standalone; the matrix checked exactly
+   against ``torch.bincount``, F1 (and, as information, macro precision and
+   recall) within rtol 1e-5 of float64 values from it;
+   ImageNet-val curve leg: ``MulticlassAUROC`` and ``MulticlassAUPRC``
+   (``compaction_threshold=20_000``) and
+   ``MulticlassBinnedPrecisionRecallCurve(1000, threshold=100)`` over 5
+   batches of (10,000, 1000) softmax scores, per class within rtol 1e-5 of
+   float64 numpy, the binned counts exactly against numpy's, and
+   ``multiclass_precision_recall_curve`` on the first batch against the
+   CPU;
    top-k leg: ``TopKMultilabelAccuracy(k=5, criteria="contain")`` over 4
    batches of (8192, 10000) scores, every criterion's counts checked
    against the plain top-k and the first 64 rows against a float64 numpy
@@ -56,7 +74,11 @@ failed check. Phases:
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
-   take (its bound); the segment sum also at the sliced leg's window.
+   take (its bound); the segment sum also at the sliced leg's window and
+   the binned curve's; ``hist_c2``, the histogram at config 3's 10^6 bins
+   (with the segment sum's time on the same keys), and
+   ``stream_compact_rows``, the compaction over the curve leg's flattened
+   per-class fold.
 
 Every leg prints its fold cadence: the window steps and the solo folds of
 ``metrics/deferred.py`` that it ran, and the batches each folded.
@@ -98,6 +120,15 @@ DP_THRESHOLD = 3 * HEADLINE_CHUNK
 DP_TIMEOUT_S = 600
 # BASELINE config 1 (bench.py:498-553): 200 batches of (8192, 5) scores
 SMALL_ROWS, SMALL_CLASSES, SMALL_BATCHES = 8192, 5, 200
+# BASELINE config 3 (bench.py:639-733): 13 batches of 100,000 int32
+# predictions and labels at C = 1000 (config 3 feeds one batch 13 times; the
+# leg makes each batch distinct)
+CM_CLASSES, CM_ROWS, CM_BATCHES = 1000, 100_000, 13
+# the ImageNet-1k validation set's size at full width: 50,000 rows of 1000
+# softmax scores, in 5 batches of 10,000
+CURVE_ROWS, CURVE_CLASSES, CURVE_BATCHES = 10_000, 1000, 5
+CURVE_COMPACTION = 20_000
+CURVE_THRESHOLDS = 100
 TARGET_DENSITY = 1e-3
 CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
@@ -268,6 +299,69 @@ def check_compact_counts(dev, gen, scores, targets):
                  f"{name}: NaN padding")
         print(f"  compact_counts_fast == compact_counts ({name}, n={s.shape[0]}, "
               f"n_unique={nl}, nan_dropped={int(a[4])}): live rows bit-equal, padding NaN")
+
+
+def check_classification_shapes(dev, gen):
+    """The kernels at the shapes the config-3 and curve legs give them: the
+    histogram over config 3's window of joint keys into C^2 = 10^6 bins and
+    over one curve batch's binned keys into 2 * C * (T + 1) = 202,000 bins;
+    the segment sum at the binned curve's stacked window (5 batches, one
+    segment sum over 5 * 10^7 keys into 5 * 202,000 segments); and the
+    per-class compaction (one stream compaction over the flattened C * M
+    rows) bit for bit against the batched two-sort, at the curve leg's two
+    fold widths. Every one exact."""
+    from torcheval_tpu_torch.metrics.classification.auroc import _pad_cap
+    from torcheval_tpu_torch.ops.hist import hist, hist_plain
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+    from torcheval_tpu_torch.ops.summary import compact_count_rows, compact_count_rows_fast
+
+    c2 = CM_CLASSES * CM_CLASSES
+    n = CM_BATCHES * CM_ROWS
+    keys = torch.randint(0, CM_CLASSES, (n,), generator=gen, device=dev, dtype=torch.int32) * CM_CLASSES
+    keys += torch.randint(0, CM_CLASSES, (n,), generator=gen, device=dev, dtype=torch.int32)
+    keys[::1001] = -1  # a pair out of range
+    bins = 2 * CURVE_CLASSES * (CURVE_THRESHOLDS + 1)
+    binned = torch.randint(0, bins, (CURVE_ROWS * CURVE_CLASSES,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for name, labels, c in ((f"config 3's window, {n} int32 joint keys, C^2={c2}", keys, c2),
+                            (f"one curve batch, {binned.numel()} int32 binned keys, {bins} bins",
+                             binned, bins)):
+        got, want = hist(labels, c), hist_plain(labels, c)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, want), f"hist {name}")
+        print(f"  hist {name}: exact")
+    b = CURVE_BATCHES
+    rows = (binned.to(torch.int64).repeat(b).reshape(b, -1)
+            + torch.arange(b, device=dev)[:, None] * bins).reshape(-1)
+    rows[::997] = -1
+    ones = torch.ones(rows.shape[0], dtype=torch.int32, device=dev)
+    got, want = segment_sum(ones, rows, b * bins), segment_sum_plain(ones, rows, b * bins)
+    torch.cuda.synchronize()
+    _require(torch.equal(got, want), "segment_sum at the binned window")
+    print(f"  segment_sum int32 D=1 S={b * bins}, the binned curve's stacked window of "
+          f"{rows.numel()} keys: exact")
+    del keys, binned, rows, ones, got, want
+    first = _pad_cap(CURVE_COMPACTION)
+    for m in (first, _pad_cap(CURVE_COMPACTION + first)):  # the leg's two fold widths
+        s = torch.rand((CURVE_CLASSES, m), generator=gen, device=dev)
+        s = (s * 4096).floor() / 4096  # ties inside each class row
+        s[:, -m // 8:] = float("nan")  # the padding a fold adds
+        s[0, 1] = float("nan")  # a NaN sample
+        s[1, :] = s[2, 0]  # a row that is one tie group, ending where the next starts
+        tp = torch.randint(0, 3, (CURVE_CLASSES, m), generator=gen, device=dev, dtype=torch.int32)
+        fp = torch.randint(0, 3, (CURVE_CLASSES, m), generator=gen, device=dev, dtype=torch.int32)
+        tp[:, -m // 8:] = 0
+        fp[:, -m // 8:] = 0
+        want = compact_count_rows(s, tp, fp)
+        got = compact_count_rows_fast(s, tp, fp)
+        torch.cuda.synchronize()
+        _require(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+                 f"per-class compaction scores at ({CURVE_CLASSES}, {m})")
+        for i in range(1, 5):
+            _require(torch.equal(got[i], want[i]), f"per-class compaction output {i} at ({CURVE_CLASSES}, {m})")
+        print(f"  per-class compaction ({CURVE_CLASSES}, {m}) = {CURVE_CLASSES * m} flattened rows, "
+              f"{int(got[3].sum())} kept: bit-equal to the batched two-sort")
+        del s, tp, fp, got, want
 
 
 def _topk_cases(dev, gen):
@@ -877,6 +971,202 @@ def check_sliced_leg(data, acc, agg, results):
     return float(rel.max())
 
 
+# ------------------------------------------------ phase 4, config-3 leg
+def cm_leg_data(dev, gen):
+    """BASELINE config 3's 13 batches, each distinct, made on the card."""
+    return [
+        (torch.randint(0, CM_CLASSES, (CM_ROWS,), generator=gen, device=dev, dtype=torch.int32),
+         torch.randint(0, CM_CLASSES, (CM_ROWS,), generator=gen, device=dev, dtype=torch.int32))
+        for _ in range(CM_BATCHES)
+    ]
+
+
+def cm_leg(dev, batches, collection: bool):
+    """``MulticlassConfusionMatrix(1000)`` and macro ``MulticlassF1Score``,
+    in one ``MetricCollection`` (bench.py's ``_fused`` form) or standalone,
+    from the first ``update()`` to both ``compute()`` results."""
+    from torcheval_tpu_torch.metrics import (
+        MetricCollection,
+        MulticlassConfusionMatrix,
+        MulticlassF1Score,
+    )
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cm = MulticlassConfusionMatrix(CM_CLASSES, device=dev)
+    f1 = MulticlassF1Score(num_classes=CM_CLASSES, average="macro", device=dev)
+    if collection:
+        col = MetricCollection({"cm": cm, "f1": f1})
+        for pred, label in batches:
+            col.update(pred, label)
+        out = col.compute()
+        mat, f1_v = out["cm"], out["f1"]
+    else:
+        for pred, label in batches:
+            cm.update(pred, label)
+            f1.update(pred, label)
+        mat, f1_v = cm.compute(), f1.compute()
+    end.record()
+    end.synchronize()
+    return mat, float(f1_v), start.elapsed_time(end) / 1e3
+
+
+def _macro_from_matrix(mat: np.ndarray):
+    """Macro F1, precision and recall of a count matrix in float64, with the
+    metrics' rules: a class with neither a label nor a prediction leaves
+    the mean; an undefined precision or recall counts as 0."""
+    tp = np.diag(mat).astype(np.float64)
+    label = mat.sum(1).astype(np.float64)
+    pred = mat.sum(0).astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        p = np.where(pred > 0, tp / pred, np.nan)
+        r = np.where(label > 0, tp / label, np.nan)
+        f1 = np.nan_to_num(2 * p * r / (p + r))
+    mask = (label > 0) | (pred > 0)
+    return {
+        "f1": float(f1[mask].sum() / mask.sum()),
+        "precision": float(np.nan_to_num(p)[mask].sum() / mask.sum()),
+        "recall": float(np.nan_to_num(r)[mask].sum() / mask.sum()),
+    }
+
+
+def check_cm_leg(batches, mat, f1_v):
+    """The matrix exactly against ``torch.bincount(label * C + pred)`` over
+    all batches, F1 within rtol 1e-5 of its float64 value from that matrix.
+    Returns the float64 macro values."""
+    c = CM_CLASSES
+    want = torch.zeros(c * c, dtype=torch.int64, device=batches[0][0].device)
+    for pred, label in batches:
+        want += torch.bincount(label.long() * c + pred.long(), minlength=c * c)
+    _require(mat.dtype == torch.int32 and torch.equal(mat.long().reshape(-1), want),
+             "config-3 confusion matrix vs torch.bincount")
+    ref = _macro_from_matrix(want.reshape(c, c).cpu().numpy())
+    _require(_close(f1_v, ref["f1"]), f"config-3 macro F1 {f1_v} vs float64 {ref['f1']}")
+    return ref
+
+
+def cm_information(dev, batches, ref):
+    """Macro ``MulticlassPrecision`` and ``MulticlassRecall`` on the same
+    batches (information, untimed), held to the matrix's float64 values."""
+    from torcheval_tpu_torch.metrics import MulticlassPrecision, MulticlassRecall
+
+    out = {}
+    for name, cls in (("precision", MulticlassPrecision), ("recall", MulticlassRecall)):
+        m = cls(num_classes=CM_CLASSES, average="macro", device=dev)
+        for pred, label in batches:
+            m.update(pred, label)
+        out[name] = float(m.compute())
+        _require(_close(out[name], ref[name]), f"config-3 macro {name} {out[name]} vs {ref[name]}")
+    return out
+
+
+# ------------------------------------------ phase 4, ImageNet-val curve leg
+def curve_leg_data(dev, gen):
+    """The ImageNet-1k validation set's size: 5 batches of 10,000 rows of
+    1000 softmax scores (float32) and int64 labels, made on the card."""
+    return [
+        (torch.softmax(torch.randn((CURVE_ROWS, CURVE_CLASSES), generator=gen, device=dev) * 3, dim=1),
+         torch.randint(0, CURVE_CLASSES, (CURVE_ROWS,), generator=gen, device=dev))
+        for _ in range(CURVE_BATCHES)
+    ]
+
+
+def curve_leg(dev, batches):
+    """``MulticlassAUROC`` and ``MulticlassAUPRC`` (per class, compacting
+    every 20,000 rows) and ``MulticlassBinnedPrecisionRecallCurve(1000,
+    threshold=100)`` fed the same batches, from the first ``update()`` to the
+    three ``compute()`` results. Also returns the flattened row count of
+    each compaction."""
+    import torcheval_tpu_torch.metrics.classification.auroc as auroc_mod
+    from torcheval_tpu_torch.metrics import (
+        MulticlassAUPRC,
+        MulticlassAUROC,
+        MulticlassBinnedPrecisionRecallCurve,
+    )
+
+    fold_rows = []
+    compact_parts = auroc_mod._mc_compact_parts
+
+    def counted(*args):
+        fold_rows.append(args[7] * args[6])  # classes x padded rows
+        return compact_parts(*args)
+
+    auroc_mod._mc_compact_parts = counted
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        auroc = MulticlassAUROC(num_classes=CURVE_CLASSES, average=None,
+                                compaction_threshold=CURVE_COMPACTION, device=dev)
+        auprc = MulticlassAUPRC(num_classes=CURVE_CLASSES, average=None,
+                                compaction_threshold=CURVE_COMPACTION, device=dev)
+        binned = MulticlassBinnedPrecisionRecallCurve(CURVE_CLASSES, threshold=CURVE_THRESHOLDS, device=dev)
+        for scores, labels in batches:
+            auroc.update(scores, labels)
+            auprc.update(scores, labels)
+            binned.update(scores, labels)
+        out = auroc.compute(), auprc.compute(), binned.compute()
+        end.record()
+        end.synchronize()
+    finally:
+        auroc_mod._mc_compact_parts = compact_parts
+    peak = torch.cuda.max_memory_allocated(dev)
+    return binned, out, start.elapsed_time(end) / 1e3, peak, fold_rows
+
+
+def check_curve_leg(batches, binned, out):
+    """AUROC and AUPRC per class within rtol 1e-5 of float64 numpy (the
+    Mann-Whitney rank sum, and average precision over unique thresholds);
+    the binned counts exactly against a numpy count from each class's
+    sorted scores. Returns the largest relative error of each."""
+    x = torch.cat([b[0] for b in batches]).cpu().numpy()
+    t = torch.cat([b[1] for b in batches]).cpu().numpy()
+    xt = np.ascontiguousarray(x.T)
+    auroc, auprc, _ = (o.cpu().numpy() if isinstance(o, torch.Tensor) else o for o in out)
+    thr = binned.threshold.cpu().numpy()
+    sd = binned.state_dict()
+    tp, fp, fn = (sd[k].cpu().numpy() for k in ("num_tp", "num_fp", "num_fn"))
+    worst = {"auroc": 0.0, "auprc": 0.0}
+    for c in range(CURVE_CLASSES):
+        col = xt[c].astype(np.float64)
+        pos = (t == c).astype(np.float64)
+        for name, got, want in (("auroc", auroc[c], _mann_whitney_auc(col, pos)),
+                                ("auprc", auprc[c], _average_precision(col, pos))):
+            _require(np.isfinite(got) and _close(float(got), float(want)),
+                     f"class {c} {name} {got} vs float64 {want}")
+            worst[name] = max(worst[name], abs(float(got) - want) / abs(want))
+        every, hits = np.sort(xt[c]), np.sort(xt[c][t == c])
+        n_pred = every.size - np.searchsorted(every, thr, side="left")  # scores >= threshold
+        n_tp = hits.size - np.searchsorted(hits, thr, side="left")
+        _require(np.array_equal(tp[:, c], n_tp) and np.array_equal(fp[:, c], n_pred - n_tp)
+                 and np.array_equal(fn[:, c], hits.size - n_tp), f"binned counts of class {c}")
+    return worst
+
+
+def check_exact_curve(batches):
+    """``multiclass_precision_recall_curve`` on the first batch on the card,
+    against the same function on the CPU (the plain route): equal lengths
+    and thresholds, precision and recall within rtol 1e-5."""
+    from torcheval_tpu_torch.metrics.functional import multiclass_precision_recall_curve
+
+    scores, labels = batches[0]
+    got = multiclass_precision_recall_curve(scores, labels)
+    want = multiclass_precision_recall_curve(scores.cpu(), labels.cpu())
+    points = 0
+    for c in range(CURVE_CLASSES):
+        gp, gr, gt = (g[c].cpu() for g in got)
+        wp, wr, wt = (w[c] for w in want)
+        _require(gt.shape == wt.shape and torch.equal(gt, wt), f"exact curve thresholds of class {c}")
+        _require(torch.allclose(gp, wp, rtol=RTOL, atol=ATOL) and torch.allclose(gr, wr, rtol=RTOL, atol=ATOL),
+                 f"exact curve of class {c}")
+        points += gt.numel()
+    return points
+
+
 # ------------------------------------------------ phase 4, data-parallel leg
 def _free_port() -> int:
     with socket.socket() as sock:
@@ -1197,6 +1487,25 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
     row["at_i32_d2_uniform_rows"] = times(deltas, uniform)
     # information: the wrapper's zeroing of the (S, 2) output alone
     row["zeroing_ms"] = timer.ms(lambda: torch.zeros((s, 2), dtype=torch.int32, device=dev))
+    # the binned curve's stacked window: int32 ones by B * bins + key
+    bins = 2 * CURVE_CLASSES * (CURVE_THRESHOLDS + 1)
+    segments = CURVE_BATCHES * bins
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    keys = torch.randint(0, segments, (CURVE_BATCHES * CURVE_ROWS * CURVE_CLASSES,), generator=g,
+                         device=dev)
+    ones = torch.ones(keys.shape[0], dtype=torch.int32, device=dev)
+
+    def library():
+        return torch.zeros(segments, dtype=torch.int32, device=dev).index_add_(0, keys, ones)
+
+    row["at_binned_window"] = {
+        "rows": keys.numel(),
+        "segments": segments,
+        "ms": timer.ms(lambda: segment_sum(ones, keys, segments)),
+        "plain_ms": timer.ms(lambda: segment_sum_plain(ones, keys, segments)),
+        "bound_ms": (keys.numel() * (4 + 8) + segments * 4) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": timer.ms(library),
+    }
     return row
 
 
@@ -1234,6 +1543,92 @@ def topk_row(dev, gen, timer, launches, err):
         "library_ms": timer.ms(lambda: torch.topk(equal, 100)),
     }
     return row
+
+
+def hist_c2_row(dev, timer, launches, keys):
+    """The histogram at config 3's confusion-matrix shape: the window's
+    1,300,000 int32 joint keys into C^2 = 10^6 bins, beside
+    ``torch.bincount`` (the library) and the segment sum on the same keys."""
+    from torcheval_tpu_torch.ops.hist import hist, hist_plain
+    from torcheval_tpu_torch.ops.scatter import segment_sum
+
+    c2 = CM_CLASSES * CM_CLASSES
+    ones = torch.ones(keys.shape[0], dtype=torch.int32, device=dev)
+    err = int((hist(keys, c2).long() - hist_plain(keys, c2).long()).abs().max())
+    _require(err == 0, "hist at C^2 against its plain version")
+    return {
+        "name": "hist_c2",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/hist.cu",
+        "replaces": "torcheval_tpu/ops/pallas_hist.py:55",
+        "launches": launches,
+        "max_abs_err": float(err),
+        "ms": timer.ms(lambda: hist(keys, c2)),
+        "plain_ms": timer.ms(lambda: hist_plain(keys, c2)),
+        "bound_ms": (keys.numel() * keys.element_size() + c2 * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: torch.bincount(keys, minlength=c2)),
+        "segment_sum_ms": timer.ms(lambda: segment_sum(ones, keys, c2)),
+        "shape": (f"config 3's window: ({keys.numel()},) int32 joint keys into {c2} bins; launches: "
+                  "every hist launch of the config-3 leg, its C^2 launch and F1's two a fold"),
+    }
+
+
+def curve_fold_inputs(batches):
+    """The per-class fold's inputs at the curve leg's first compaction: the
+    first 20,000 rows' (C, M) count columns padded to M = 32,768, sorted
+    and tie-merged (the compaction's input, flattened), and the columns."""
+    from torcheval_tpu_torch.metrics.classification.auroc import _mc_combined_counts, _pad_cap
+    from torcheval_tpu_torch.ops.summary import PAD_SCORE, _sorted_deltas
+
+    k = CURVE_COMPACTION // CURVE_ROWS
+    s, tp, fp = _mc_combined_counts([b[0] for b in batches[:k]], [b[1] for b in batches[:k]],
+                                    [], [], [], CURVE_CLASSES)
+    pad = (CURVE_CLASSES, _pad_cap(s.shape[1]) - s.shape[1])
+    s = torch.cat([s, s.new_full(pad, PAD_SCORE)], dim=1)
+    tp = torch.cat([tp, tp.new_zeros(pad)], dim=1)
+    fp = torch.cat([fp, fp.new_zeros(pad)], dim=1)
+    ss, dtp, dfp, keep, _ = _sorted_deltas(s, tp, fp)
+    return (ss.reshape(-1), dtp.reshape(-1), dfp.reshape(-1), keep.reshape(-1)), (s, tp, fp)
+
+
+def compact_rows_row(timer, launches, fold):
+    """The compaction kernel over the flattened C * M rows of the curve
+    leg's first per-class fold, beside boolean-mask indexing (the library);
+    and, as information, the whole per-class fold both ways."""
+    from torcheval_tpu_torch.ops.stream_compact import (
+        compact_summary_rows,
+        compact_summary_rows_plain,
+    )
+    from torcheval_tpu_torch.ops.summary import compact_count_rows, compact_count_rows_fast
+
+    (s, tp, fp, keep), cols = fold
+    n = s.numel()
+    stacked = torch.stack([s.view(torch.int32), tp, fp])
+    got = compact_summary_rows(s, tp, fp, keep)
+    want = compact_summary_rows_plain(s, tp, fp, keep)
+    torch.cuda.synchronize()
+    err = max(int((g.view(torch.int32).long() - w.view(torch.int32).long()).abs().max())
+              for g, w in zip(got[:3], want[:3]))
+    _require(err == 0 and int(got[3]) == int(want[3]), "compaction at the per-class fold's rows")
+    return {
+        "name": "stream_compact_rows",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/stream_compact.cu",
+        "replaces": "torcheval_tpu/ops/stream_compact.py:103",
+        "launches": launches,
+        "max_abs_err": float(err),
+        "ms": timer.ms(lambda: compact_summary_rows(s, tp, fp, keep)),
+        "plain_ms": timer.ms(lambda: compact_summary_rows_plain(s, tp, fp, keep)),
+        "bound_ms": n * (keep.element_size() + 3 * 4 + 3 * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: stacked[:, keep]),
+        "fold": {"fast_ms": timer.ms(lambda: compact_count_rows_fast(*cols), reps=5),
+                 "two_sort_ms": timer.ms(lambda: compact_count_rows(*cols), reps=5)},
+        "shape": (f"the curve leg's first per-class fold, flattened: {n} rows "
+                  f"({CURVE_CLASSES} x {n // CURVE_CLASSES}), {int(keep.sum())} kept; launches: "
+                  "the curve leg's"),
+    }
 
 
 def first_fold_inputs(chunks):
@@ -1281,6 +1676,7 @@ def main() -> int:
     errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen),
             "topk": check_topk(dev, gen), "segment_sum": check_segment_sum(dev)}
     check_compact_counts(dev, gen, fold_scores, fold_t)
+    check_classification_shapes(dev, gen)
     del fold_scores, fold_t
     torch.cuda.synchronize()
 
@@ -1346,6 +1742,62 @@ def main() -> int:
     print(f"  standalone MulticlassAccuracy (config 1 itself, information): {n_rows / alone_s:.1f} "
           f"rows/s ({alone_s:.6f} s); fold cadence: {cadence_text(alone_cadence)}")
     del batches, col, out
+
+    print("phase 4 config-3 leg (BASELINE config 3, with distinct batches)")
+    batches = cm_leg_data(dev, gen)
+    for collection in (True, False):  # warm-up: the first use of each PyTorch kernel
+        cm_leg(dev, batches, collection)
+    cm_total = CM_BATCHES * CM_ROWS
+    hist.launches = 0
+    cm_launches = 0
+    for collection, form in ((True, "MetricCollection (bench.py's _fused)"), (False, "standalone")):
+        before = hist.launches
+        folds0 = fold_counts()
+        mat, f1_v, cm_s = cm_leg(dev, batches, collection)
+        form_cadence = cadence(folds0)
+        launched = hist.launches - before
+        _require(launched > 0, f"hist launched on the config-3 leg ({form})")
+        cm_ref = check_cm_leg(batches, mat, f1_v)
+        print(f"  {form}: confusion matrix (equal to torch.bincount's) and macro F1 {f1_v:.8f} "
+              f"(float64 from the matrix {cm_ref['f1']:.8f}) over {cm_total} predictions in "
+              f"{cm_s:.6f} s (CUDA events): {cm_total / cm_s:.1f} preds/s; hist launches {launched}")
+        print(f"  {form}: fold cadence: {cadence_text(form_cadence)}")
+    info = cm_information(dev, batches, cm_ref)
+    cm_launches = hist.launches
+    print(f"  macro precision {info['precision']:.8f} and recall {info['recall']:.8f} on the same "
+          f"batches (information; float64 from the matrix {cm_ref['precision']:.8f}, "
+          f"{cm_ref['recall']:.8f}); hist launches over the leg {cm_launches}")
+    cm_keys = torch.cat([label * CM_CLASSES + pred for pred, label in batches])
+    del batches, mat
+
+    print(f"phase 4 ImageNet-val curve leg ({CURVE_BATCHES} x ({CURVE_ROWS}, {CURVE_CLASSES}) "
+          f"softmax scores)")
+    batches = curve_leg_data(dev, gen)
+    hist.launches = 0
+    stream_compact.launches = 0
+    segment_sum.launches = 0
+    folds0 = fold_counts()
+    binned, curve_out, curve_s, curve_peak, curve_folds = curve_leg(dev, batches)
+    curve_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches,
+                      "segment_sum": segment_sum.launches}
+    curve_cadence = cadence(folds0)
+    _require(stream_compact.launches >= 4 and segment_sum.launches > 0,
+             f"the curve leg launched stream_compact and segment_sum: {curve_launches}")
+    worst = check_curve_leg(batches, binned, curve_out)
+    points = check_exact_curve(batches)
+    curve_total = CURVE_BATCHES * CURVE_ROWS
+    print(f"  MulticlassAUROC macro {float(curve_out[0].mean()):.8f}, MulticlassAUPRC macro "
+          f"{float(curve_out[1].mean()):.8f} (per class within {worst['auroc']:.3e} and "
+          f"{worst['auprc']:.3e} of float64 numpy), binned counts equal numpy's, over "
+          f"{curve_total} rows in {curve_s:.4f} s (CUDA events): {curve_total / curve_s:.1f} rows/s; "
+          f"peak memory {curve_peak / 2**30:.2f} GiB (incl. {CURVE_BATCHES} resident batches)")
+    print(f"  compactions ran on {curve_folds} flattened rows; launches {curve_launches}")
+    print(f"  fold cadence: {cadence_text(curve_cadence)}")
+    print(f"  multiclass_precision_recall_curve on the first {CURVE_ROWS} rows equals the CPU's "
+          f"({points} thresholds over {CURVE_CLASSES} classes)")
+    curve_fold = curve_fold_inputs(batches)
+    del batches, binned, curve_out
+    torch.cuda.empty_cache()
 
     print("phase 4 top-k leg (BASELINE config 4)")
     batches = topk_leg_data(dev, gen)
@@ -1467,13 +1919,17 @@ def main() -> int:
 
     print("phase 5 kernel timings at the main path's shapes")
     launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
-                for k in headline_launches}
+                + curve_launches[k] for k in headline_launches}
+    launches["hist"] += cm_launches
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
-    rows.append(segment_sum_row(dev, timer, sliced_launches, errs["segment_sum"],
-                                leg_rows, leg_scores, leg_targets, window_inputs))
+    rows.append(segment_sum_row(dev, timer, sliced_launches + curve_launches["segment_sum"],
+                                errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     del window_inputs
+    rows.append(hist_c2_row(dev, timer, cm_launches, cm_keys))
+    rows.append(compact_rows_row(timer, curve_launches["stream_compact"], curve_fold))
+    del cm_keys, curve_fold
     torch.cuda.synchronize()
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
@@ -1509,6 +1965,14 @@ def main() -> int:
         print(f"  segment_sum: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
               f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({SLICED_ROWS}, 2) {what} "
               f"into {SLICED_COHORTS} cohorts")
+    print(f"  hist_c2: segment_sum on the same keys {rows[4]['segment_sum_ms']:.4f} ms")
+    t = rows[3]["at_binned_window"]
+    print(f"  segment_sum: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+          f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at the binned curve's stacked "
+          f"window, {t['rows']} int32 ones into {t['segments']} segments")
+    fold_t = rows[5]["fold"]
+    print(f"  per-class fold at {rows[5]['shape']}: compact_count_rows_fast {fold_t['fast_ms']:.4f} ms, "
+          f"the batched two-sort {fold_t['two_sort_ms']:.4f} ms")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

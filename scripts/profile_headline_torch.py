@@ -3,7 +3,7 @@
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py [--leg headline|small|topk|ndcg10|ndcg100|sliced]
+    python3 scripts/profile_headline_torch.py [--leg headline|small|topk|ndcg10|ndcg100|sliced|config3|config3_standalone|curves]
 
 It builds one leg of ``chip_smoke.py`` with its data made on the card from
 a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
@@ -12,9 +12,15 @@ predictions), ``small`` (MulticlassAccuracy and macro MulticlassF1Score over
 5 classes in one MetricCollection, 200 batches of 8192 rows: BASELINE
 config 1's shapes), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
 (8192, 10000) scores), ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
-over 4 batches of (64, 1,000,000) scores) or ``sliced`` (the two sliced
+over 4 batches of (64, 1,000,000) scores), ``sliced`` (the two sliced
 collections over 1,000,000 cohorts, 16 batches of 1,048,576 rows after a
-registration batch that is not profiled). It runs the leg once to warm up,
+registration batch that is not profiled), ``config3`` /
+``config3_standalone`` (MulticlassConfusionMatrix(1000) and macro
+MulticlassF1Score over 13 batches of 100,000 int32 predictions, in one
+MetricCollection or standalone: BASELINE config 3) or ``curves``
+(MulticlassAUROC and MulticlassAUPRC compacting every 20,000 rows and
+MulticlassBinnedPrecisionRecallCurve over 5 batches of (10,000, 1000)
+softmax scores: the ImageNet-1k validation set's size). It runs the leg once to warm up,
 then once under ``torch.profiler``, and prints the wall time of both runs,
 the device's busy time (the union of the intervals in which a kernel, copy
 or memset ran) and idle share over the profiled run, and the device time by
@@ -95,6 +101,22 @@ def _plain_leg(cs, name, dev, gen):
             return seconds, (value,)
 
         return run, cs.TOPK_BATCHES * cs.TOPK_ROWS, "rows"
+    if name in ("config3", "config3_standalone"):
+        batches = cs.cm_leg_data(dev, gen)
+
+        def run():
+            _, f1_v, seconds = cs.cm_leg(dev, batches, name == "config3")
+            return seconds, (f1_v,)
+
+        return run, cs.CM_BATCHES * cs.CM_ROWS, "preds"
+    if name == "curves":
+        batches = cs.curve_leg_data(dev, gen)
+
+        def run():
+            _, out, seconds, _, _ = cs.curve_leg(dev, batches)
+            return seconds, (float(out[0].mean()), float(out[1].mean()))
+
+        return run, cs.CURVE_BATCHES * cs.CURVE_ROWS, "rows"
     k = int(name[len("ndcg"):])
     batches = cs.retrieval_leg_data(dev, gen)
 
@@ -107,8 +129,9 @@ def _plain_leg(cs, name, dev, gen):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--leg", choices=("headline", "small", "topk", "ndcg10", "ndcg100", "sliced"),
-                        default="headline")
+    parser.add_argument("--leg", default="headline",
+                        choices=("headline", "small", "topk", "ndcg10", "ndcg100", "sliced",
+                                 "config3", "config3_standalone", "curves"))
     parser.add_argument("--runs", type=int, default=0, help="timed runs after the profiled one")
     args = parser.parse_args()
     if not torch.cuda.is_available():

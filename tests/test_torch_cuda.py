@@ -707,3 +707,133 @@ def test_hist_at_the_small_batch_window_shape(dev):
     torch.cuda.synchronize()
     assert hist.launches == before + 1
     assert torch.equal(got, hist_plain(labels, 10))
+
+
+# ------------------------------- precision, recall, confusion and curves
+def test_confusion_matrix_at_1000_classes_equals_bincount(dev):
+    from torcheval_tpu_torch.metrics import MulticlassConfusionMatrix
+    from torcheval_tpu_torch.ops.confusion import confusion_matrix_counts
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = 1000
+    pred = torch.randint(0, c, (300_000,), generator=g, device=dev, dtype=torch.int32)
+    target = torch.randint(0, c, (300_000,), generator=g, device=dev, dtype=torch.int32)
+    pred[:7] = torch.tensor([-1, c, 5, 0, c + 3, -4, 9], device=dev, dtype=torch.int32)
+    want = torch.bincount(
+        (target.long() * c + pred.long())[(pred >= 0) & (pred < c)], minlength=c * c
+    ).reshape(c, c)
+    before = hist.launches
+    got = confusion_matrix_counts(pred, target, c)
+    torch.cuda.synchronize()
+    assert hist.launches == before + 1 and got.dtype == torch.int32
+    assert torch.equal(got.long(), want)
+    m = MulticlassConfusionMatrix(c, device=dev)
+    for i in range(3):
+        m.update(pred[i * 100_000:(i + 1) * 100_000], target[i * 100_000:(i + 1) * 100_000])
+    assert torch.equal(m.compute().long(), want)
+
+
+@pytest.mark.parametrize("spec", [11, [0.0, 0.0, 0.5, 0.5, 1.0]])
+def test_binned_curves_on_the_card_equal_the_cpu(dev, spec):
+    from torcheval_tpu_torch.metrics import (
+        BinaryBinnedPrecisionRecallCurve,
+        MulticlassBinnedPrecisionRecallCurve,
+    )
+
+    g = torch.Generator().manual_seed(4)
+    batches = []
+    for _ in range(4):  # a stacked window: the vmapped fold on the segment sum
+        x = (torch.randint(-1, 10, (2000, 7), generator=g) / 8).float()
+        x[0, 0], x[1, 1], x[2, 2], x[3, 3] = float("nan"), float("inf"), -0.0, float("-inf")
+        batches.append((x, torch.randint(0, 7, (2000,), generator=g)))
+
+    def binary(device):
+        m = BinaryBinnedPrecisionRecallCurve(threshold=spec, device=device)
+        for x, t in batches:
+            m.update(x[:, 0].contiguous().to(device), (t == 0).to(torch.int32).to(device))
+        return m.state_dict()
+
+    before = segment_sum.launches
+    mc_card = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device=dev)
+    mc_cpu = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device="cpu")
+    for x, t in batches:
+        mc_card.update(x.to(dev), t.to(dev))
+        mc_cpu.update(x, t)
+    card, cpu = mc_card.state_dict(), mc_cpu.state_dict()
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    for name in ("num_tp", "num_fp", "num_fn"):
+        assert torch.equal(card[name].cpu(), cpu[name])
+    card, cpu = binary(dev), binary("cpu")
+    for name in ("num_tp", "num_fp", "num_fn"):
+        assert torch.equal(card[name].cpu(), cpu[name])
+    one = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device=dev)
+    h = hist.launches
+    one.update(batches[0][0].to(dev), batches[0][1].to(dev)).compute()
+    assert hist.launches == h + 1  # one batch: one histogram over 2 * C * (T + 1) bins
+
+
+def test_multiclass_compaction_kernel_route_is_bit_equal_to_the_two_sort(dev):
+    from torcheval_tpu_torch.ops.summary import compact_count_rows, compact_count_rows_fast
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    c, m = 64, 4096
+    s = (torch.randint(0, 300, (c, m), generator=g, device=dev) / 256).float()
+    s[:, -100:] = float("nan")
+    s[0, 5] = float("nan")
+    s[1, :] = 0.5
+    s[2, -1] = 0.5
+    tp = torch.randint(0, 3, (c, m), generator=g, device=dev, dtype=torch.int32)
+    fp = torch.randint(0, 3, (c, m), generator=g, device=dev, dtype=torch.int32)
+    tp[:, -100:] = 0
+    fp[:, -100:] = 0
+    before = stream_compact.launches
+    a = compact_count_rows(s, tp, fp)
+    b = compact_count_rows_fast(s, tp, fp)
+    torch.cuda.synchronize()
+    assert stream_compact.launches == before + 1
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("threshold", [None, 3000])
+def test_multiclass_auroc_on_the_card_equals_the_cpu(dev, threshold):
+    from torcheval_tpu_torch.metrics import MulticlassAUPRC, MulticlassAUROC
+
+    g = torch.Generator().manual_seed(6)
+    batches = [
+        ((torch.randint(0, 500, (2000, 10), generator=g) / 500).float(), torch.randint(0, 10, (2000,), generator=g))
+        for _ in range(4)
+    ]
+    for cls in (MulticlassAUROC, MulticlassAUPRC):
+        card = cls(num_classes=10, average=None, compaction_threshold=threshold, device=dev)
+        cpu = cls(num_classes=10, average=None, compaction_threshold=threshold, device="cpu")
+        before = stream_compact.launches
+        for x, t in batches:
+            card.update(x.to(dev), t.to(dev))
+            cpu.update(x, t)
+        got, want = card.compute(), cpu.compute()
+        torch.cuda.synchronize()
+        assert stream_compact.launches == before + (0 if threshold is None else 2)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-8)
+
+
+def test_precision_recall_and_exact_curve_on_the_card_equal_the_cpu(dev):
+    from torcheval_tpu_torch.metrics import MulticlassPrecision, MulticlassRecall
+    from torcheval_tpu_torch.metrics.functional import multiclass_precision_recall_curve
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(3000, 6, generator=g)
+    t = torch.randint(0, 6, (3000,), generator=g)
+    for cls in (MulticlassPrecision, MulticlassRecall):
+        for average in ("micro", "macro", "weighted", None):
+            card = cls(num_classes=6, average=average, device=dev).update(x.to(dev), t.to(dev))
+            cpu = cls(num_classes=6, average=average, device="cpu").update(x, t)
+            np.testing.assert_allclose(card.compute().cpu().numpy(), cpu.compute().numpy(), rtol=1e-5, atol=1e-8)
+    got = multiclass_precision_recall_curve((x * 64).floor().to(dev) / 64, t.to(dev))
+    want = multiclass_precision_recall_curve((x * 64).floor() / 64, t)
+    for gs, ws in zip(got, want):
+        for a, b in zip(gs, ws):
+            assert a.device.type == "cuda" and a.shape == b.shape
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-8)

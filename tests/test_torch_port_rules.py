@@ -390,3 +390,134 @@ def test_host_sync_rule_sees_a_sync(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import numpy as np\n\ndef f(x):\n    return x.sum().item()\n")
     assert _host_syncs(probe) == [("<module>", 1), ("f", 4)]
+
+
+# ------------------------------- precision, recall, confusion and curves
+CLASSIFICATION_SLICE_MODULES = [
+    "torcheval_tpu_torch.metrics.classification.binned_precision_recall_curve",
+    "torcheval_tpu_torch.metrics.classification.confusion_matrix",
+    "torcheval_tpu_torch.metrics.classification.precision",
+    "torcheval_tpu_torch.metrics.classification.precision_recall_curve",
+    "torcheval_tpu_torch.metrics.classification.recall",
+    "torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve",
+    "torcheval_tpu_torch.metrics.functional.classification.confusion_matrix",
+    "torcheval_tpu_torch.metrics.functional.classification.precision",
+    "torcheval_tpu_torch.metrics.functional.classification.precision_recall_curve",
+    "torcheval_tpu_torch.metrics.functional.classification.recall",
+]
+
+
+@pytest.mark.parametrize("name", CLASSIFICATION_SLICE_MODULES)
+def test_classification_slice_modules_are_checked(name):
+    # each is one of the modules the no-JAX and counterpart rules above walk
+    assert name in _modules()
+    path = PACKAGE.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
+# the fold functions of the new metrics and everything they call: a window
+# step runs them, and it makes no host sync (see above)
+_FOLD_FUNCTIONS = {
+    "metrics/classification/confusion_matrix.py": {"_cm_fold", "_bincm_fold"},
+    "metrics/classification/precision.py": {"_prec_fold", "_binprec_fold"},
+    "metrics/classification/recall.py": {"_rec_fold", "_binrec_fold"},
+    "metrics/classification/binned_precision_recall_curve.py": {
+        "_binary_binned_fold", "_multiclass_binned_fold", "_binary_binned_deferred_compute",
+    },
+    "metrics/functional/classification/confusion_matrix.py": {"_binary_prediction"},
+    "metrics/functional/classification/precision.py": {
+        "_precision_update", "_binary_precision_update", "_precision_compute",
+    },
+    "metrics/functional/classification/recall.py": {
+        "_recall_update", "_binary_recall_update", "_recall_compute", "_binary_recall_compute",
+    },
+    "metrics/functional/classification/binned_precision_recall_curve.py": {
+        "_buckets", "_above", "_binary_binned_update", "_binary_binned_compute",
+        "_multiclass_binned_update",
+    },
+    "metrics/functional/classification/f1_score.py": {"_f1_score_update", "_f1_score_compute"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(_FOLD_FUNCTIONS))
+def test_fold_functions_make_no_host_sync(rel):
+    names = _FOLD_FUNCTIONS[rel]
+    tree = ast.parse((PACKAGE / rel).read_text())
+    defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert names <= defined, f"{rel}: {sorted(names - defined)} not found"
+    bad = [(f, line) for f, line in _host_syncs(PACKAGE / rel) if f in names]
+    assert not bad, f"{rel}: host syncs in fold functions: {bad}"
+
+
+def test_confusion_ops_make_no_host_sync():
+    assert not _host_syncs(PACKAGE / "ops" / "confusion.py")
+
+
+def _new_metrics():
+    from torcheval_tpu_torch.metrics import (
+        BinaryBinnedPrecisionRecallCurve,
+        BinaryConfusionMatrix,
+        BinaryPrecision,
+        BinaryPrecisionRecallCurve,
+        BinaryRecall,
+        MulticlassAUPRC,
+        MulticlassAUROC,
+        MulticlassBinnedPrecisionRecallCurve,
+        MulticlassConfusionMatrix,
+        MulticlassPrecision,
+        MulticlassPrecisionRecallCurve,
+        MulticlassRecall,
+    )
+
+    return [
+        lambda **kw: MulticlassConfusionMatrix(3, **kw),
+        lambda **kw: BinaryConfusionMatrix(**kw),
+        lambda **kw: MulticlassPrecision(num_classes=3, average="macro", **kw),
+        lambda **kw: BinaryPrecision(**kw),
+        lambda **kw: MulticlassRecall(num_classes=3, average="macro", **kw),
+        lambda **kw: BinaryRecall(**kw),
+        lambda **kw: BinaryBinnedPrecisionRecallCurve(threshold=5, **kw),
+        lambda **kw: MulticlassBinnedPrecisionRecallCurve(3, threshold=5, **kw),
+        lambda **kw: BinaryPrecisionRecallCurve(**kw),
+        lambda **kw: MulticlassPrecisionRecallCurve(num_classes=3, **kw),
+        lambda **kw: MulticlassAUROC(num_classes=3, **kw),
+        lambda **kw: MulticlassAUPRC(num_classes=3, **kw),
+    ]
+
+
+@pytest.mark.parametrize("i", range(12))
+def test_classification_slice_metrics_default_to_cuda(monkeypatch, i):
+    make = _new_metrics()[i]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_classification_slice_raises_instead_of_falling_back(no_library):
+    from torcheval_tpu_torch.metrics import (
+        MulticlassAUROC,
+        MulticlassBinnedPrecisionRecallCurve,
+        MulticlassConfusionMatrix,
+        MulticlassPrecision,
+    )
+
+    before = (hist.launches, segment_sum.launches, stream_compact.launches)
+    labels = torch.tensor([0, 1, 1, 2])
+    scores = torch.rand(4, 3)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MulticlassConfusionMatrix(3, device="cpu").update(labels, labels).compute()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MulticlassPrecision(num_classes=3, average=None, device="cpu").update(scores, labels).compute()
+    # one batch folds on the histogram, a stacked window on the segment sum
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MulticlassBinnedPrecisionRecallCurve(3, threshold=5, device="cpu").update(scores, labels).compute()
+    binned = MulticlassBinnedPrecisionRecallCurve(3, threshold=5, device="cpu")
+    binned.update(scores, labels).update(torch.rand(4, 3), labels)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        binned.compute()
+    # the per-class compaction reaches the compaction kernel
+    with pytest.raises(RuntimeError, match="nvcc"):
+        MulticlassAUROC(num_classes=3, compaction_threshold=4, device="cpu").update(scores, labels)
+    assert (hist.launches, segment_sum.launches, stream_compact.launches) == before

@@ -5,9 +5,21 @@ from torcheval_tpu_torch.metrics.classification import (
     BinaryAccuracy,
     BinaryAUPRC,
     BinaryAUROC,
+    BinaryBinnedPrecisionRecallCurve,
+    BinaryConfusionMatrix,
     BinaryF1Score,
+    BinaryPrecision,
+    BinaryPrecisionRecallCurve,
+    BinaryRecall,
     MulticlassAccuracy,
+    MulticlassAUPRC,
+    MulticlassAUROC,
+    MulticlassBinnedPrecisionRecallCurve,
+    MulticlassConfusionMatrix,
     MulticlassF1Score,
+    MulticlassPrecision,
+    MulticlassPrecisionRecallCurve,
+    MulticlassRecall,
     MultilabelAccuracy,
     TopKMultilabelAccuracy,
 )
@@ -28,7 +40,12 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAUPRC",
     "BinaryAUROC",
+    "BinaryBinnedPrecisionRecallCurve",
+    "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryPrecision",
+    "BinaryPrecisionRecallCurve",
+    "BinaryRecall",
     "HitRate",
     "MAP",
     "Max",
@@ -38,7 +55,14 @@ __all__ = [
     "MetricCollection",
     "Min",
     "MulticlassAccuracy",
+    "MulticlassAUPRC",
+    "MulticlassAUROC",
+    "MulticlassBinnedPrecisionRecallCurve",
+    "MulticlassConfusionMatrix",
     "MulticlassF1Score",
+    "MulticlassPrecision",
+    "MulticlassPrecisionRecallCurve",
+    "MulticlassRecall",
     "MultilabelAccuracy",
     "NDCG",
     "RecallAtK",

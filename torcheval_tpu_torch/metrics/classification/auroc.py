@@ -1,8 +1,10 @@
-"""BinaryAUROC / BinaryAUPRC metrics, exact mode.
+"""AUROC / AUPRC metrics, binary and one-vs-all multiclass, exact mode.
 
 JAX counterpart: ``torcheval_tpu/metrics/classification/auroc.py``
 (``_CompactingCacheLifecycle``, ``_BinaryCurveMetric``, ``BinaryAUROC``,
-``BinaryAUPRC``). Update appends the batch to a sample cache. With
+``BinaryAUPRC``, the multiclass summary helpers ``_mc_*``,
+``_MulticlassCurveMetric``, ``MulticlassAUROC``, ``MulticlassAUPRC``).
+Update appends the batch to a sample cache. With
 ``compaction_threshold`` set, once the raw cache holds that many samples it
 is folded into a bounded, exact summary of (score, tp, fp) rows per unique
 threshold (``ops/summary.py``), so memory follows the stream's score
@@ -10,8 +12,15 @@ cardinality and not its sample count, and results equal the all-samples
 sort. The fold is one sort plus the stream-compaction kernel
 (``csrc/stream_compact.cu``) on the card.
 
-Not in this slice: the ``approx=`` sketch mode, the sharded and distributed
-curve paths, and the multiclass curve metrics.
+The multiclass metrics keep one such summary per class, as ``(K, C)``
+columns (a row per threshold entry, so that a merge concatenates on axis
+0). Their fold sorts the ``(C, M)`` one-vs-all columns in one batched sort
+and compacts the flattened ``C * M`` rows in one launch of the compaction
+kernel; the per-class counts of kept rows place each class's rows back
+into its column (``ops/summary.py::compact_count_rows_fast``).
+
+Not ported yet: the ``approx=`` sketch mode and the sharded and
+distributed curve paths.
 """
 
 from __future__ import annotations
@@ -22,6 +31,11 @@ import torch
 
 from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     _auroc_update_input_check,
+    _mc_average,
+    _mc_curve_param_check,
+)
+from torcheval_tpu_torch.metrics.functional.classification.precision_recall_curve import (
+    _multiclass_precision_recall_curve_update_input_check,
 )
 from torcheval_tpu_torch.metrics.sample_cache import SampleCacheMetric
 from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
@@ -32,8 +46,17 @@ from torcheval_tpu_torch.ops.curves import (
     binary_auroc_counts_kernel,
     binary_auroc_counts_presorted_kernel,
     binary_auroc_kernel,
+    class_onehot_rows,
+    multiclass_auprc_kernel,
+    multiclass_auroc_kernel,
 )
-from torcheval_tpu_torch.ops.summary import PAD_SCORE, compact_counts, compact_counts_fast
+from torcheval_tpu_torch.ops.summary import (
+    PAD_SCORE,
+    compact_count_rows,
+    compact_count_rows_fast,
+    compact_counts,
+    compact_counts_fast,
+)
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 
@@ -111,12 +134,83 @@ def _compact_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int, fast:
     return s, tp, fp, n_unique, nan_acc + nan_dropped
 
 
+# ----------------------------------------------- multiclass summary helpers
+def _mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes):
+    """Raw ``(N, C)`` caches and ``(K, C)`` per-class summaries as ``(C, M)``
+    one-vs-all count columns, scores as float32 (see
+    :func:`_combined_counts`)."""
+    parts_s, parts_tp, parts_fp = [], [], []
+    if raw_s:
+        x = torch.cat(raw_s, dim=0).to(torch.float32)  # (N, C)
+        onehot = class_onehot_rows(torch.cat(raw_t), num_classes).to(torch.int32)  # (C, N)
+        parts_s.append(x.T)
+        parts_tp.append(onehot)
+        parts_fp.append(1 - onehot)
+    if sum_s:
+        parts_s.append(torch.cat(sum_s, dim=0).T)  # (C, K)
+        parts_tp.append(torch.cat(sum_tp, dim=0).T)
+        parts_fp.append(torch.cat(sum_fp, dim=0).T)
+    return torch.cat(parts_s, dim=1), torch.cat(parts_tp, dim=1), torch.cat(parts_fp, dim=1)
+
+
+def _mc_compact_parts(
+    raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int, num_classes: int, fast: bool
+):
+    """Per-class compaction: the binary :func:`_compact_parts` on every
+    class row, the JAX package's ``jax.vmap(compact_counts)``. Returns
+    ``(K, C)`` summary columns, the largest per-class unique count (for the
+    adaptive trim) and the accumulated NaN entry count. ``fast`` compacts
+    with one stream compaction over all rows (the kernel on the card), else
+    with a second batched sort."""
+    s, tp, fp = _mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes)
+    n = s.shape[1]
+    if cap > n:
+        pad = (num_classes, cap - n)
+        s = torch.cat([s, s.new_full(pad, PAD_SCORE)], dim=1)
+        tp = torch.cat([tp, tp.new_zeros(pad)], dim=1)
+        fp = torch.cat([fp, fp.new_zeros(pad)], dim=1)
+    compact = compact_count_rows_fast if fast else compact_count_rows
+    s2, tp2, fp2, n_unique, nan_dropped = compact(s, tp, fp)
+    return s2.T, tp2.T, fp2.T, n_unique.max(), nan_acc + nan_dropped
+
+
+def _mc_auroc_from_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes):
+    if not sum_s:
+        return multiclass_auroc_kernel(torch.cat(raw_s, dim=0), torch.cat(raw_t))
+    return binary_auroc_counts_kernel(
+        *_mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes)
+    )
+
+
+def _mc_auprc_from_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes):
+    if not sum_s:
+        return multiclass_auprc_kernel(torch.cat(raw_s, dim=0), torch.cat(raw_t))
+    return binary_auprc_counts_kernel(
+        *_mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes)
+    )
+
+
+def _mc_auroc_presorted(s, tp, fp):
+    """Per-class AUROC over ``(K, C)`` summary columns already sorted and
+    unique per class (every compaction's output): cumsums and the
+    trapezoid, no sort."""
+    return binary_auroc_counts_presorted_kernel(s.T, tp.T, fp.T)
+
+
+def _mc_auprc_presorted(s, tp, fp):
+    return binary_auprc_counts_presorted_kernel(s.T, tp.T, fp.T)
+
+
 class _CompactingCacheLifecycle:
     """Compaction lifecycle of the sample-cache curve metrics: the threshold,
     the cache-row counter every state mutation keeps true, the device-side
     NaN-sample flag, and the merge/reset/load hooks. Subclasses implement
     :meth:`_compact` and register their states via :meth:`_init_compaction`.
     """
+
+    # what one unit of the NaN counter is, for the compute-time error: the
+    # binary metrics count samples, the multiclass ones per-class entries
+    _NAN_FLAG_NOUN = "sample(s)"
 
     def _init_compaction(self, compaction_threshold: Optional[int]) -> None:
         if compaction_threshold is not None and compaction_threshold <= 0:
@@ -190,7 +284,7 @@ class _CompactingCacheLifecycle:
         self._nan_checked = dropped == 0
         if dropped:
             raise ValueError(
-                f"{dropped} sample(s) with NaN scores reached "
+                f"{dropped} {self._NAN_FLAG_NOUN} with NaN scores reached "
                 "compaction; "
                 "NaN is the summary padding sentinel and such samples cannot "
                 "be represented (the uncompacted metric would count them). "
@@ -346,3 +440,104 @@ class BinaryAUPRC(_BinaryCurveMetric):
         return self._value(
             0.0, binary_auprc_counts_presorted_kernel, _auprc_from_parts
         )
+
+
+class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tensor]):
+    """Cache and compaction machinery of the one-vs-all multiclass curve
+    metrics: the raw ``(N, C)`` score and ``(N,)`` label caches, and with
+    ``compaction_threshold`` set, per-class exact unique-threshold summaries
+    as ``(K, C)`` columns (12 * C bytes a row, K the largest per-class score
+    cardinality of the stream, not its sample count)."""
+
+    # one (N, C) row with NaN scores adds one entry per NaN-scored class
+    _NAN_FLAG_NOUN = "per-class score entry(ies)"
+
+    def __init__(
+        self,
+        *,
+        num_classes: Optional[int] = None,
+        average: Optional[str] = "macro",
+        compaction_threshold: Optional[int] = None,
+        device: DeviceLike = None,
+    ) -> None:
+        super().__init__(device=device)
+        _mc_curve_param_check(num_classes, average)
+        self.num_classes = num_classes
+        self.average = average
+        self._init_compaction(compaction_threshold)
+
+    def update(self, input, target):
+        input, target = self._input(input), self._input(target)
+        _multiclass_precision_recall_curve_update_input_check(input, target, self.num_classes)
+        self.inputs.append(input)
+        self.targets.append(target)
+        self._count_cached_update(input.shape[0])
+        return self
+
+    def _compact(self) -> None:
+        """Fold the raw cache and the per-class summaries into one padded
+        ``(K, C)`` summary set (one host read, for the adaptive trim)."""
+        n = sum(int(a.shape[0]) for a in self.inputs) + sum(
+            int(a.shape[0]) for a in self.summary_scores
+        )
+        if n == 0:
+            return
+        self._install_compacted(
+            *_mc_compact_parts(
+                self.inputs,
+                self.targets,
+                self.summary_scores,
+                self.summary_tp,
+                self.summary_fp,
+                self.summary_nan_dropped,
+                _pad_cap(n),
+                self.num_classes,
+                STREAM_COMPACTION != "off",
+            )
+        )
+
+    def _mc_presorted(self):
+        """``(K, C)`` summary columns when the state is one buffer known to
+        be sorted and unique per class, else None (raw leftovers included:
+        see :meth:`_BinaryCurveMetric._presorted_summary`)."""
+        if self._compaction_threshold is None:
+            return None
+        if not self._summary_sorted or self.inputs or len(self.summary_scores) != 1:
+            return None
+        return self.summary_scores[0], self.summary_tp[0], self.summary_fp[0]
+
+    def _value(self, empty: float, presorted_fn, from_parts):
+        if not (self.inputs or self.summary_scores):
+            if self.average == "macro":
+                return torch.tensor(empty, device=self._device)
+            return torch.full((self.num_classes,), empty, device=self._device)
+        presorted = self._mc_presorted()
+        if presorted is not None:
+            per_class = presorted_fn(*presorted)
+        else:
+            per_class = from_parts(
+                self.inputs,
+                self.targets,
+                self.summary_scores,
+                self.summary_tp,
+                self.summary_fp,
+                self.num_classes,
+            )
+        self._check_nan_flag()
+        return _mc_average(per_class, self.average)
+
+
+class MulticlassAUROC(_MulticlassCurveMetric):
+    """Streaming one-vs-all multiclass AUROC (``average`` "macro", or
+    "none"/None for the per-class vector); 0.5 with no data."""
+
+    def compute(self) -> torch.Tensor:
+        return self._value(0.5, _mc_auroc_presorted, _mc_auroc_from_parts)
+
+
+class MulticlassAUPRC(_MulticlassCurveMetric):
+    """Streaming one-vs-all multiclass average precision; 0.0 with no
+    data."""
+
+    def compute(self) -> torch.Tensor:
+        return self._value(0.0, _mc_auprc_presorted, _mc_auprc_from_parts)

@@ -1,12 +1,15 @@
 """Class counts: the histogram behind per-class accuracy.
 
-JAX counterpart: ``torcheval_tpu/ops/confusion.py`` (``class_counts`` and
-``match_triple_counts``; the confusion matrix comes with the rest of
-classification). The JAX package picks one of four lowerings by size and
-backend. Here there is one route per case: an unweighted count is the
-histogram kernel (``ops/hist.py``: the CUDA kernel on the card, its plain
-version on the CPU), and a weighted count is a plain ``index_add_``, which
-the JAX package also left to XLA outside any Pallas kernel.
+JAX counterpart: ``torcheval_tpu/ops/confusion.py`` (``class_counts``,
+``match_triple_counts``, ``confusion_matrix_counts`` and
+``normalize_confusion_matrix``; ``topk_onehot`` has no caller here). The JAX
+package picks one of four lowerings by size and backend. Here there is one
+route per case: an unweighted count is the histogram kernel
+(``ops/hist.py``: the CUDA kernel on the card, its plain version on the
+CPU), and a weighted count is a plain out-of-place ``torch.index_add``,
+which the JAX package also left to XLA outside any Pallas kernel, and which
+batches under ``torch.func.vmap`` (the in-place ``index_add_`` into a fresh
+buffer does not).
 
 The unweighted count has a ``torch.func.vmap`` rule, so that the sliced
 collection can run per-class folds per sample, as the JAX package does with
@@ -84,8 +87,7 @@ def class_counts(
     valid = (labels >= 0) & (labels < num_classes)
     idx = torch.where(valid, labels, num_classes)
     out = torch.zeros(num_classes + 1, dtype=weights.dtype, device=weights.device)
-    out.index_add_(0, idx, weights)
-    return out[:num_classes]
+    return torch.index_add(out, 0, idx, weights)[:num_classes]
 
 
 def match_triple_counts(pred: torch.Tensor, target: torch.Tensor, num_classes: int):
@@ -104,3 +106,49 @@ def match_triple_counts(pred: torch.Tensor, target: torch.Tensor, num_classes: i
     num_tp = bins[1::2]
     num_label = bins[0::2] + num_tp
     return num_tp, num_label, class_counts(p, num_classes)
+
+
+def confusion_matrix_counts(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int,
+    *,
+    normalize: Optional[str] = None,
+) -> torch.Tensor:
+    """``out[t, p] = #{i : target[i] == t and pred[i] == p}``, int32
+    ``(num_classes, num_classes)``: rows are true classes, columns predicted.
+
+    One unweighted count over the joint key ``t * C + p`` into ``C * C``
+    bins (the histogram kernel on the card). A pair with either coordinate
+    out of range becomes key -1 and drops, as the JAX package's masked
+    scatter and its one-hot matmul drop it. The key stays int32 where both
+    labels are int32 and ``C * C`` fits, which halves the bytes the kernel
+    reads. ``normalize`` as in :func:`normalize_confusion_matrix`."""
+    p, t = _as_index(pred), _as_index(target)
+    c = num_classes
+    key_dtype = (
+        torch.int32
+        if p.dtype == t.dtype == torch.int32 and c * c <= torch.iinfo(torch.int32).max
+        else torch.int64
+    )
+    p, t = p.to(key_dtype), t.to(key_dtype)
+    valid = (p >= 0) & (p < c) & (t >= 0) & (t < c)
+    key = torch.where(valid, t * c + p, -1)
+    mat = class_counts(key, c * c).reshape(c, c)
+    return normalize_confusion_matrix(mat, normalize)
+
+
+def normalize_confusion_matrix(mat: torch.Tensor, normalize: Optional[str]) -> torch.Tensor:
+    """sklearn's normalisations of a ``(C, C)`` count matrix, in float32:
+    None (the counts), ``"all"``, ``"pred"`` (by column) or ``"true"`` (by
+    row); an empty row, column or matrix divides by 1."""
+    if normalize is None:
+        return mat
+    m = mat.to(torch.float32)
+    if normalize == "all":
+        return m / m.sum().clamp(min=1.0)
+    if normalize == "pred":
+        return m / m.sum(dim=0, keepdim=True).clamp(min=1.0)
+    if normalize == "true":
+        return m / m.sum(dim=1, keepdim=True).clamp(min=1.0)
+    raise ValueError(f"normalize must be None, 'all', 'pred' or 'true', got {normalize!r}.")
