@@ -21,11 +21,30 @@ failed check. Phases:
    over 10^7 binned keys into 202,000 bins, the segment sum over the binned
    curve's stacked window (5 * 10^7 keys into 1,010,000 segments), and the
    per-class compaction bit for bit against the batched two-sort at the
-   curve leg's two fold widths;
+   curve leg's two fold widths; the segment sum bit for bit at the sketch
+   folds' shapes: (2^24,) int32 ones into 10^6 x 33 segments (the sliced
+   window's 4-bit sketch), (2^24, 2) int32 lanes into 2^16 buckets (a binary
+   ``approx=True`` fold of a headline chunk), (2^26,) int32 ones into 4 x
+   2^16 buckets (``Quantile``'s stacked value fold of four headline chunks)
+   and (10^7, 2) into 1000 x 4096 (a multiclass fold of an ImageNet-val
+   batch); ``bucket_index`` on the card against the CPU over +-0,
+   +-subnormals, +-tiny, +-inf, NaN and bfloat16 and float16 inputs; and the
+   sliced sketch member at 4 and 10 bits over scores spread across every
+   bucket (sign times 2^e, e uniform over the normal range, targets
+   correlated with the score), its counts exactly against numpy, its AUROC
+   within rtol 1e-5 of the float64 trapezoid and, in every cohort, within
+   the sketch's error bound (itself well below the distance to 0.5) of the
+   exact Mann-Whitney value;
 3. headline leg: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
    count, plus a small stream checked against float64 numpy references;
+   approximate headline leg (phase 4, on phase 3's data):
+   ``BinaryAUROC(approx=True)``, ``BinaryAUPRC(approx=True)`` and
+   ``Quantile(q=(0.5, 0.9, 0.99))`` over the same binary logits, the
+   sketch's counts summing to 2^28, AUROC and AUPRC within the sketch's own
+   error bounds of phase 3's exact AUROC and of the exact average precision,
+   the quantiles within 2^-7 of the order statistics of a sort on the card;
 4. macro leg: ``MulticlassAccuracy(average="macro", num_classes=1000)`` over
    8 chunks of 2^22 rows, checked against the plain histogram;
    small-batch leg (BASELINE config 1, ``bench.py:498-553``, with distinct
@@ -47,7 +66,9 @@ failed check. Phases:
    batches of (10,000, 1000) softmax scores, per class within rtol 1e-5 of
    float64 numpy, the binned counts exactly against numpy's, and
    ``multiclass_precision_recall_curve`` on the first batch against the
-   CPU;
+   CPU; and its approximate twin, ``MulticlassAUROC(1000, approx=True)`` and
+   ``MulticlassAUPRC(1000, approx=True)`` (2^12 buckets), each class within
+   its error bound of the exact value;
    top-k leg: ``TopKMultilabelAccuracy(k=5, criteria="contain")`` over 4
    batches of (8192, 10000) scores, every criterion's counts checked
    against the plain top-k and the first 64 rows against a float64 numpy
@@ -56,9 +77,12 @@ failed check. Phases:
    (64, 1,000,000) scores, checked against the dense (sorting) route;
    sliced leg: ``SlicedMetricCollection`` over 1,000,000 cohorts with
    power-law traffic, one registration batch and 16 batches of 1,048,576
-   rows, ``{"acc": BinaryAccuracy()}`` and ``{"mean": Mean(), "max": Max()}``,
-   checked per cohort against numpy (counts and maxima exactly, means within
-   rtol 1e-5);
+   rows, ``{"acc": BinaryAccuracy(), "auroc": BinaryAUROC(approx=1024)}``
+   with ``curve_bucket_bits=4`` (bench.py's ``config11_sliced`` whole) and
+   ``{"mean": Mean(), "max": Max()}``, checked per cohort against numpy
+   (counts, sketch counts and maxima exactly, means and the sketch's AUROC
+   within rtol 1e-5, and 64 cohorts' AUROC within the sketch's error bound
+   of the exact Mann-Whitney value);
    data-parallel leg: two ranks on the one card (processes this script
    spawns, joined over gloo, since NCCL refuses two ranks on one GPU), each
    feeding its 4 of 8 chunks of 2^24 predictions to a ``ShardedEvaluator``
@@ -78,7 +102,8 @@ failed check. Phases:
    the binned curve's; ``hist_c2``, the histogram at config 3's 10^6 bins
    (with the segment sum's time on the same keys), and
    ``stream_compact_rows``, the compaction over the curve leg's flattened
-   per-class fold.
+   per-class fold; and the segment sum at the four sketch-fold shapes
+   (``segment_sum_sketch_*``), with the sketch launches counted by leg.
 
 Every leg prints its fold cadence: the window steps and the solo folds of
 ``metrics/deferred.py`` that it ran, and the batches each folded.
@@ -111,9 +136,18 @@ TOPK_ROWS, TOPK_LABELS, TOPK_K, TOPK_BATCHES = 8192, 10_000, 5, 4
 RETRIEVAL_ROWS, RETRIEVAL_LABELS, RETRIEVAL_BATCHES = 64, 1_000_000, 4
 RETRIEVAL_KS = (10, 100)
 # bench.py::config11_sliced (bench.py:2008-2117): a million cohorts, power-law
-# traffic; its BinaryAUROC(approx=1024) member needs the unported sketch mode
+# traffic, accuracy and a 4-bit AUROC sketch a cohort
 SLICED_COHORTS, SLICED_ROWS, SLICED_BATCHES = 1_000_000, 1 << 20, 16
 SLICED_ZIPF = 1.3
+SLICED_BITS = 4
+SLICED_PLANES = 2 * (1 << SLICED_BITS) + 1
+SLICED_SAMPLE_COHORTS = 64
+# the sketches' bucket counts: the binary and multiclass defaults
+SKETCH_BITS, MC_SKETCH_BITS = 16, 12
+QUANTILES = (0.5, 0.9, 0.99)
+# Quantile's deferred batches of headline logits fold stacked: the 256 MiB
+# byte valve holds four 64 MiB batches, so one launch folds (4, 2^24) values
+QUANTILE_STACK = 4
 # the data-parallel leg: the headline's data, 8 chunks over 2 ranks
 DP_RANKS, DP_CHUNKS = 2, 8
 DP_THRESHOLD = 3 * HEADLINE_CHUNK
@@ -177,6 +211,55 @@ def cadence_text(c: dict) -> str:
     return (f"window steps {c['window_steps']} ({c['windows']} folding "
             f"{c['window_batches']} batches), solo/group folds {c['folds']} "
             f"({c['fold_batches']} batches): {per} batches per fold")
+
+
+class record_sketch_folds:
+    """Context manager: every segment-sum launch of the sketch folds
+    (``sketch/histogram.py`` and ``sketch/cache.py``) while it is open, as
+    ``(N, D, segments)``. A call is recorded only where the wrapper's own
+    ``segment_sum.launches`` rose across it: a call that ran the plain
+    version or returned early is no launch."""
+
+    def __enter__(self):
+        from torcheval_tpu_torch.sketch import cache, histogram
+
+        self.mods = (cache, histogram)
+        self.saved = [m.segment_sum for m in self.mods]
+        self.shapes = []
+        real = self.saved[0]
+
+        def counted(vals, rows, num_segments):
+            before = real.launches
+            out = real(vals, rows, num_segments)
+            if real.launches > before:
+                d = 1 if vals.ndim == 1 else int(np.prod(vals.shape[1:]))
+                self.shapes.append((int(vals.shape[0]), d, int(num_segments)))
+            return out
+
+        for m in self.mods:
+            m.segment_sum = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in zip(self.mods, self.saved):
+            m.segment_sum = f
+        return False
+
+    def count(self, n=None, d=None, segments=None) -> int:
+        return sum(1 for sh in self.shapes
+                   if (n is None or sh[0] == n) and (d is None or sh[1] == d)
+                   and (segments is None or sh[2] == segments))
+
+
+def _np_bucket_index(x: np.ndarray, bits: int) -> np.ndarray:
+    """The float-prefix bucket of every float32 value, in numpy: the sign-
+    aware order key of the bits (subnormals and -0.0 flushed to +0.0, NaN to
+    the top key), its top ``bits`` bits."""
+    x = np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0.0), x.astype(np.float32))
+    b = x.view(np.uint32).astype(np.int64)
+    key = np.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b | (1 << 31))
+    key = np.where(np.isnan(x), 0xFFFFFFFF, key)
+    return key >> (32 - bits)
 
 
 class Timer:
@@ -549,6 +632,95 @@ def check_segment_sum(dev):
     return worst
 
 
+def sketch_gen(dev):
+    return torch.Generator(device=dev).manual_seed(SEED + 9)
+
+
+def sketch_fold_inputs(dev, gen):
+    """The segment sum's operands at the four sketch-fold shapes, made as
+    the folds make them: the sliced window's 4-bit keys ``row * 33 + plane``
+    (power-law rows over 10^6 cohorts, uniform scores) with int32 ones; a
+    headline chunk's ``[t, 1 - t]`` lanes by 16-bit bucket; ``Quantile``'s
+    stacked value fold of four headline chunks, int32 ones by ``r * 2^16 +
+    bucket``; and an ImageNet-val batch's one-vs-all lanes by ``c * 4096 +
+    bucket``."""
+    from torcheval_tpu_torch.sketch import bucket_index
+
+    rng = np.random.default_rng(SEED + 9)
+    n = SLICED_BATCHES * SLICED_ROWS
+    rows = torch.from_numpy(_zipf_rows(rng, n, SLICED_COHORTS)).to(dev, torch.int32)
+    scores = torch.rand(n, generator=gen, device=dev)
+    t = (torch.rand(n, generator=gen, device=dev) < 0.4).to(torch.int32)
+    plane = 2 * bucket_index(scores, SLICED_BITS) + (1 - t)
+    out = {"sliced": (torch.ones(n, dtype=torch.int32, device=dev), rows * SLICED_PLANES + plane,
+                      SLICED_COHORTS * SLICED_PLANES,
+                      f"({n},) int32 ones by row * {SLICED_PLANES} + plane into "
+                      f"{SLICED_COHORTS} x {SLICED_PLANES} segments: the sliced window's "
+                      f"{SLICED_BITS}-bit sketch fold")}
+    logits = torch.rand(HEADLINE_CHUNK, generator=gen, device=dev)
+    t = (torch.rand(HEADLINE_CHUNK, generator=gen, device=dev) < 0.2).to(torch.int32)
+    out["binary"] = (torch.stack([t, 1 - t], dim=-1), bucket_index(logits, SKETCH_BITS),
+                     1 << SKETCH_BITS,
+                     f"({HEADLINE_CHUNK}, 2) int32 [t, 1 - t] by {SKETCH_BITS}-bit bucket into "
+                     f"{1 << SKETCH_BITS} segments: a binary approx=True fold of a headline chunk")
+    del logits, t
+    n = QUANTILE_STACK * HEADLINE_CHUNK
+    logits = torch.rand((QUANTILE_STACK, HEADLINE_CHUNK), generator=gen, device=dev)
+    keys = (bucket_index(logits, SKETCH_BITS)
+            + torch.arange(QUANTILE_STACK, dtype=torch.int32, device=dev)[:, None] * (1 << SKETCH_BITS))
+    out["quantile"] = (torch.ones(n, dtype=torch.int32, device=dev), keys.reshape(-1),
+                       QUANTILE_STACK << SKETCH_BITS,
+                       f"({n},) int32 ones by r * {1 << SKETCH_BITS} + bucket into "
+                       f"{QUANTILE_STACK} x {1 << SKETCH_BITS} segments: Quantile's stacked value "
+                       f"fold of {QUANTILE_STACK} headline chunks")
+    del logits, keys
+    scores = torch.softmax(torch.randn((CURVE_ROWS, CURVE_CLASSES), generator=gen, device=dev) * 3, dim=1)
+    labels = torch.randint(0, CURVE_CLASSES, (CURVE_ROWS,), generator=gen, device=dev)
+    onehot = (labels[None, :] == torch.arange(CURVE_CLASSES, device=dev)[:, None]).to(torch.int32)
+    b = 1 << MC_SKETCH_BITS
+    keys = (bucket_index(scores.T, MC_SKETCH_BITS)
+            + torch.arange(CURVE_CLASSES, dtype=torch.int32, device=dev)[:, None] * b)
+    out["multiclass"] = (torch.stack([onehot, 1 - onehot], dim=-1).reshape(-1, 2), keys.reshape(-1),
+                         CURVE_CLASSES * b,
+                         f"({CURVE_ROWS * CURVE_CLASSES}, 2) int32 one-vs-all lanes by c * {b} + "
+                         f"bucket into {CURVE_CLASSES} x {b} segments: a multiclass approx=True fold "
+                         f"of an ImageNet-val batch")
+    return out
+
+
+def check_sketch_folds(dev, inputs):
+    """The segment sum at the sketch folds' shapes against its plain version,
+    bit for bit; ``bucket_index`` on the card against the CPU over the
+    special values and random ones, as float32, bfloat16 and float16.
+    Returns the largest |kernel - plain| (0)."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+    from torcheval_tpu_torch.sketch import bucket_index
+
+    for name, (vals, rows, segments, what) in inputs.items():
+        got = segment_sum(vals, rows, segments)
+        want = segment_sum_plain(vals, rows, segments)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, want), f"segment_sum at the {name} sketch shape")
+        print(f"  segment_sum {what}: exact")
+    tiny = float(np.finfo(np.float32).tiny)
+    special = [0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45, float(np.nextafter(np.float32(tiny), 0)),
+               -float(np.nextafter(np.float32(tiny), 0)), tiny, -tiny, float("inf"), float("-inf"),
+               float("nan"), 3.4e38, -3.4e38, 0.5, -0.5, 1.0]
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.cat([torch.tensor(special, dtype=torch.float32),
+                   torch.randn(1 << 20, generator=g) * 1e3, torch.rand(1 << 20, generator=g)])
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xs = x.to(dtype)
+        for bits in (SLICED_BITS, 10, MC_SKETCH_BITS, SKETCH_BITS, 20):
+            _require(torch.equal(bucket_index(xs.to(dev), bits).cpu(), bucket_index(xs, bits)),
+                     f"bucket_index on the card, {dtype} at {bits} bits")
+            cases += 1
+    print(f"  bucket_index on the card equals the CPU's over {len(special)} special values and "
+          f"2^21 random ones, float32, bfloat16 and float16, at 5 widths ({cases} cases)")
+    return 0.0
+
+
 # ------------------------------------------------------------------ phase 3
 def headline_data(dev, gen):
     chunks = []
@@ -640,6 +812,135 @@ def small_reference_check(dev):
     for name, (got, want) in checks.items():
         _require(np.isfinite(got) and _close(got, want), f"small {name}: {got} vs {want}")
         print(f"  small stream {name}: {got:.8f} vs float64 numpy {want:.8f}")
+
+
+# ------------------------------------------------ phase 4, approximate legs
+def approx_headline_leg(dev, chunks):
+    """``BinaryAUROC(approx=True)``, ``BinaryAUPRC(approx=True)`` and
+    ``Quantile(q=(0.5, 0.9, 0.99))`` over the headline's binary logits, from
+    the first ``update()`` to the three ``compute()`` results. The peak
+    memory comes as (peak, peak above what was allocated at the start: the
+    leg's own)."""
+    from torcheval_tpu_torch.metrics import BinaryAUPRC, BinaryAUROC, Quantile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    auroc = BinaryAUROC(approx=True, device=dev)
+    auprc = BinaryAUPRC(approx=True, device=dev)
+    quantile = Quantile(q=QUANTILES, device=dev)
+    for _, _, logits, binary in chunks:
+        auroc.update(logits, binary)
+        auprc.update(logits, binary)
+        quantile.update(logits)
+    out = auroc.compute(), auprc.compute(), quantile.compute()
+    end.record()
+    end.synchronize()
+    host_seconds = time.perf_counter() - t0
+    values = (float(out[0]), float(out[1]), out[2].tolist())
+    peak = torch.cuda.max_memory_allocated(dev)
+    return ((auroc, auprc, quantile), values, start.elapsed_time(end) / 1e3, host_seconds,
+            (peak, peak - base))
+
+
+def _average_precision_on_card(x, t):
+    """``_average_precision``'s formula in float64 on the card (the stream
+    is 2^28 samples): unique descending thresholds, per-threshold counts,
+    ``sum(tp * precision) / P``."""
+    uniq, inv = torch.unique(-x, return_inverse=True)
+    tp = torch.bincount(inv, weights=t.double(), minlength=uniq.numel())
+    fp = torch.bincount(inv, weights=(1 - t).double(), minlength=uniq.numel())
+    ctp, cfp = torch.cumsum(tp, 0), torch.cumsum(fp, 0)
+    return float(torch.sum(tp * ctp / (ctp + cfp)) / t.double().sum())
+
+
+def check_approx_headline(chunks, metrics, values, exact_auroc):
+    """The sketch's counts sum to the stream; AUROC within the sketch's
+    ``auroc_error_bound`` of phase 3's exact AUROC, AUPRC within its
+    ``auprc_error_bound`` of the exact average precision; each quantile
+    within ``relative_error(16)`` of the inverted-CDF order statistic of a
+    ``torch.sort`` on the card. Returns the errors and bounds."""
+    from torcheval_tpu_torch.sketch import auprc_error_bound, auroc_error_bound, relative_error
+
+    auroc, auprc, quantile = metrics
+    auroc._compact()
+    auprc._compact()
+    total = HEADLINE_CHUNKS * HEADLINE_CHUNK
+    for name, m in (("AUROC", auroc), ("AUPRC", auprc)):
+        got = int(m.sketch_tp.sum(dtype=torch.int64)) + int(m.sketch_fp.sum(dtype=torch.int64))
+        _require(got == total and int(m.sketch_nan_dropped) == 0, f"{name} sketch counts {got} sum to {total}")
+    _require(int(quantile.bucket_counts.sum(dtype=torch.int64)) == total, "Quantile counts sum to 2^28")
+    x = torch.cat([c[2] for c in chunks])
+    t = torch.cat([c[3] for c in chunks])
+    out = {"auroc_bound": auroc_error_bound(auroc.sketch_tp, auroc.sketch_fp),
+           "auprc_bound": auprc_error_bound(auprc.sketch_tp, auprc.sketch_fp),
+           "auroc_err": abs(values[0] - exact_auroc)}
+    ap = _average_precision_on_card(x, t)
+    out["auprc_exact"] = ap
+    out["auprc_err"] = abs(values[1] - ap)
+    # 1e-6: the float32 rounding of the two computes, as the JAX tests allow
+    _require(out["auroc_err"] <= out["auroc_bound"] + 1e-6,
+             f"approx AUROC {values[0]} vs exact {exact_auroc}: bound {out['auroc_bound']}")
+    _require(out["auprc_err"] <= out["auprc_bound"] + 1e-6,
+             f"approx AUPRC {values[1]} vs exact {ap}: bound {out['auprc_bound']}")
+    ordered = torch.sort(x).values
+    out["quantile_rel_err"] = []
+    for q, got in zip(QUANTILES, values[2]):
+        true = float(ordered[max(int(np.ceil(q * total)) - 1, 0)])
+        rel = abs(got - true) / abs(true) if true else abs(got)
+        _require(abs(got - true) <= relative_error(SKETCH_BITS) * abs(true) + 1.2e-38,
+                 f"quantile {q}: {got} vs order statistic {true}")
+        out["quantile_rel_err"].append(rel)
+    del ordered, x, t
+    return out
+
+
+def approx_curve_leg(dev, batches):
+    """``MulticlassAUROC(1000, approx=True)`` and ``MulticlassAUPRC(1000,
+    approx=True)`` (2^12 buckets, one staged fold a batch), from the first
+    ``update()`` to both ``compute()`` results; the peak memory as in
+    :func:`approx_headline_leg`."""
+    from torcheval_tpu_torch.metrics import MulticlassAUPRC, MulticlassAUROC
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = tuple(cls(num_classes=CURVE_CLASSES, average=None, approx=True,
+                        compaction_threshold=CURVE_ROWS, device=dev)
+                    for cls in (MulticlassAUROC, MulticlassAUPRC))
+    for scores, labels in batches:
+        for m in metrics:
+            m.update(scores, labels)
+    out = tuple(m.compute() for m in metrics)
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    return metrics, out, start.elapsed_time(end) / 1e3, (peak, peak - base)
+
+
+def check_approx_curve(metrics, out, exact):
+    """Every class within its sketch's error bound of the exact per-class
+    AUROC and AUPRC the curve leg computed. Returns the largest error and
+    the largest bound of each."""
+    from torcheval_tpu_torch.sketch import auprc_error_bound, auroc_error_bound
+
+    worst = {}
+    for name, m, got, want, bound_fn in (("auroc", metrics[0], out[0], exact[0], auroc_error_bound),
+                                         ("auprc", metrics[1], out[1], exact[1], auprc_error_bound)):
+        tp, fp = m.sketch_tp.cpu().numpy(), m.sketch_fp.cpu().numpy()
+        got, want = got.cpu().numpy().astype(np.float64), want.cpu().numpy().astype(np.float64)
+        errs, bounds = np.abs(got - want), np.array([bound_fn(tp[c], fp[c]) for c in range(CURVE_CLASSES)])
+        bad = np.nonzero(errs > bounds + 1e-6)[0]
+        _require(bad.size == 0, f"approx {name} of class {bad[:1]} outside its bound")
+        worst[name] = (float(errs.max()), float(bounds.max()))
+    return worst
 
 
 # ------------------------------------------------------------------ phase 4
@@ -871,10 +1172,22 @@ def _sliced_batch(data, i):
 
 
 def sliced_setup(dev, data):
-    """Both collections, with every cohort registered by batch 0."""
-    from torcheval_tpu_torch.metrics import BinaryAccuracy, Max, Mean, SlicedMetricCollection
+    """Both collections, with every cohort registered by batch 0: bench.py's
+    ``config11_sliced`` pair (accuracy and a 4-bit AUROC sketch a cohort)
+    and the ``Mean``/``Max`` pair beside it."""
+    from torcheval_tpu_torch.metrics import (
+        BinaryAccuracy,
+        BinaryAUROC,
+        Max,
+        Mean,
+        SlicedMetricCollection,
+    )
 
-    acc = SlicedMetricCollection({"acc": BinaryAccuracy(device=dev)}, capacity=SLICED_COHORTS)
+    acc = SlicedMetricCollection(
+        {"acc": BinaryAccuracy(device=dev), "auroc": BinaryAUROC(approx=1024, device=dev)},
+        capacity=SLICED_COHORTS,
+        curve_bucket_bits=SLICED_BITS,
+    )
     agg = SlicedMetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)},
                                  capacity=SLICED_COHORTS)
     ids, s, t = _sliced_batch(data, 0)
@@ -916,9 +1229,10 @@ def interning_seconds(table, data):
 def unsliced_leg(dev, data):
     """The same 16 batches through plain ``MetricCollection``s (no cohort
     axis), for the ratio only."""
-    from torcheval_tpu_torch.metrics import BinaryAccuracy, Max, Mean, MetricCollection
+    from torcheval_tpu_torch.metrics import BinaryAccuracy, BinaryAUROC, Max, Mean, MetricCollection
 
-    acc = MetricCollection({"acc": BinaryAccuracy(device=dev)})
+    acc = MetricCollection({"acc": BinaryAccuracy(device=dev),
+                            "auroc": BinaryAUROC(approx=1024, device=dev)})
     agg = MetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)})
     _, s, t = _sliced_batch(data, 0)
     acc.update(s, t)
@@ -937,19 +1251,24 @@ def unsliced_leg(dev, data):
     return start.elapsed_time(end) / 1e3
 
 
+def _first_seen_rows(ids):
+    """Each sample's cohort row in first-seen order, the unique ids in that
+    order, and the cohort count."""
+    uniq, first, inv = np.unique(ids, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    row_of = np.empty(uniq.shape[0], np.int64)
+    row_of[order] = np.arange(uniq.shape[0])
+    return row_of[inv.reshape(-1)], uniq[order], uniq.shape[0]
+
+
 def check_sliced_leg(data, acc, agg, results):
     """Per cohort, against numpy over all 17 batches: the slice ids in
     first-seen order, num_correct and num_total exactly, the maxima exactly,
     the means within rtol 1e-5 of float64."""
     ids, scores, targets = data
     s, t = scores.cpu().numpy(), targets.cpu().numpy()
-    uniq, first, inv = np.unique(ids, return_index=True, return_inverse=True)
-    order = np.argsort(first, kind="stable")
-    row_of = np.empty(uniq.shape[0], np.int64)
-    row_of[order] = np.arange(uniq.shape[0])
-    rows = row_of[inv.reshape(-1)]
-    n = uniq.shape[0]
-    _require(np.array_equal(results["acc"].slice_ids, uniq[order]), "slice ids in first-seen order")
+    rows, first_seen, n = _first_seen_rows(ids)
+    _require(np.array_equal(results["acc"].slice_ids, first_seen), "slice ids in first-seen order")
     correct = ((s >= 0.5).astype(np.float32) == t)
     want_correct = np.bincount(rows, weights=correct, minlength=n).astype(np.int64)
     want_total = np.bincount(rows, minlength=n).astype(np.int64)
@@ -969,6 +1288,128 @@ def check_sliced_leg(data, acc, agg, results):
     acc_v = results["acc"]["values"].cpu().numpy()
     _require(bool(np.all(np.isfinite(acc_v))) and acc_v.shape == (n,), "accuracy values finite")
     return float(rel.max())
+
+
+def _sliced_sketch_against_numpy(rows, n, s, t, member, got, bits, pick):
+    """One sliced AUROC sketch member against numpy: ``sketch_tp``,
+    ``sketch_fp`` and the NaN count equal to ``np.bincount(rows * (2B + 1) +
+    plane)`` exactly, with ``plane = 2 * bucket + (1 - target)``; each
+    cohort's AUROC ``got`` within rtol 1e-5 of a float64 trapezoid over
+    those counts; and for the cohorts ``pick`` (row numbers; None: 64 with
+    both classes, drawn with the seed), |sketch - exact Mann-Whitney AUROC|
+    within the sketch's ``auroc_error_bound``. Returns the largest trapezoid
+    error, the picked cohorts' largest error and bound, the smallest
+    distance of their exact AUROC from 0.5, and the count of occupied
+    buckets over all cohorts."""
+    from torcheval_tpu_torch.sketch import auroc_error_bound
+
+    b = 1 << bits
+    planes = 2 * b + 1
+    plane = np.where(np.isnan(s), 2 * b, 2 * _np_bucket_index(s, bits) + (1 - t.astype(np.int64)))
+    counts = np.bincount(rows * planes + plane, minlength=n * planes).reshape(n, planes)
+    tp, fp = counts[:, 0:2 * b:2], counts[:, 1:2 * b:2]
+    _require(np.array_equal(member.sketch_tp[:n].cpu().numpy(), tp)
+             and np.array_equal(member.sketch_fp[:n].cpu().numpy(), fp)
+             and np.array_equal(member.sketch_nan_dropped[:n].cpu().numpy(), counts[:, 2 * b]),
+             f"per-cohort {bits}-bit sketch counts equal np.bincount(rows * {planes} + plane)")
+    ctp = np.cumsum(tp[:, ::-1], 1, dtype=np.float64)
+    cfp = np.cumsum(fp[:, ::-1], 1, dtype=np.float64)
+    zero = np.zeros((n, 1))
+    x, y = np.hstack([zero, cfp]), np.hstack([zero, ctp])
+    area = np.sum((x[:, 1:] - x[:, :-1]) * (y[:, 1:] + y[:, :-1]) / 2, 1)
+    pn = ctp[:, -1] * cfp[:, -1]
+    want = np.where(pn == 0, 0.5, area / np.maximum(pn, 1))
+    err = np.abs(got - want)
+    _require(bool(np.all(err <= ATOL + RTOL * np.abs(want))),
+             f"per-cohort {bits}-bit sketch AUROC vs float64 trapezoid (largest error {err.max():.3e})")
+    if pick is None:
+        eligible = np.nonzero(pn > 0)[0]
+        pick = np.random.default_rng(SEED).choice(eligible, min(SLICED_SAMPLE_COHORTS, eligible.size),
+                                                  replace=False)
+    order = np.argsort(rows, kind="stable")
+    starts = np.searchsorted(rows[order], pick)
+    ends = np.searchsorted(rows[order], pick, side="right")
+    worst_err = worst_bound = 0.0
+    least_margin = 0.5
+    for c, lo, hi in zip(pick, starts, ends):
+        idx = order[lo:hi]
+        exact = _mann_whitney_auc(s[idx].astype(np.float64), t[idx])
+        bound = auroc_error_bound(tp[c], fp[c])
+        _require(abs(got[c] - exact) <= bound + 1e-6,
+                 f"cohort row {c}: {bits}-bit sketch AUROC {got[c]} vs exact {exact}, bound {bound}")
+        worst_err, worst_bound = max(worst_err, abs(got[c] - exact)), max(worst_bound, bound)
+        least_margin = min(least_margin, abs(exact - 0.5))
+    return float(err.max()), worst_err, worst_bound, least_margin, int(np.count_nonzero(tp + fp))
+
+
+def check_sliced_sketch(data, acc, results):
+    """The AUROC sketch member per cohort, against numpy over all 17
+    batches (:func:`_sliced_sketch_against_numpy`, 64 sampled cohorts).
+    Returns the largest trapezoid error, the sampled cohorts' largest error
+    and bound, and the count of occupied buckets over all cohorts."""
+    ids, scores, targets = data
+    s, t = scores.cpu().numpy(), targets.cpu().numpy()
+    rows, first_seen, n = _first_seen_rows(ids)
+    _require(np.array_equal(results["auroc"].slice_ids, first_seen), "sketch slice ids in first-seen order")
+    got = results["auroc"]["values"].cpu().numpy().astype(np.float64)
+    trap_err, worst_err, worst_bound, _, occupied = _sliced_sketch_against_numpy(
+        rows, n, s, t, acc.metrics["auroc"], got, SLICED_BITS, None)
+    return trap_err, worst_err, worst_bound, occupied
+
+
+def spread_sketch_data(n_rows, n_cohorts, seed):
+    """Sparse cohort ids, scores that cover every bucket of a float-prefix
+    sketch (``sign(u) * 2^(250 |u| - 125)``, u uniform on (-1, 1): the score
+    rises with u through every normal exponent of both signs) and targets
+    drawn with probability ``(1 + u) / 2``, so each cohort's AUROC stands
+    well away from 0.5."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, n_cohorts, n_rows).astype(np.int64) * 7919 + 3
+    u = rng.uniform(-1.0, 1.0, n_rows)
+    s = (np.sign(u) * np.exp2(250.0 * np.abs(u) - 125.0)).astype(np.float32)
+    t = (rng.random(n_rows) < (1.0 + u) / 2.0).astype(np.float32)
+    return ids, s, t
+
+
+# the spread check's largest sketch error bound a cohort may show, per
+# width, and the least distance of its exact AUROCs (about 0.82) from 0.5
+SPREAD_BOUNDS = {4: 0.05, 10: 0.001}
+SPREAD_MARGIN = 0.25
+
+
+def check_sliced_sketch_spread(dev):
+    """The sliced AUROC sketch member over :func:`spread_sketch_data` (2^20
+    rows over 256 cohorts, four batches) at 4 and 10 bits, every cohort
+    against numpy (:func:`_sliced_sketch_against_numpy`). The error bounds
+    must be well below the exact AUROC's distance from 0.5, so a flipped,
+    reordered or misplaced curve cannot pass. Returns, per width, the
+    largest trapezoid error, largest error and bound against Mann-Whitney,
+    and the occupied buckets."""
+    from torcheval_tpu_torch.metrics import BinaryAUROC, SlicedMetricCollection
+
+    ids, s, t = spread_sketch_data(1 << 20, 256, SEED + 11)
+    rows, first_seen, n = _first_seen_rows(ids)
+    out = {}
+    for bits in (4, 10):
+        col = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=dev)},
+                                     capacity=1024, curve_bucket_bits=bits)
+        for part in np.array_split(np.arange(ids.size), 4):
+            col.update(ids[part], torch.from_numpy(s[part]).to(dev), torch.from_numpy(t[part]).to(dev))
+        res = col.compute()["auroc"]
+        _require(np.array_equal(res.slice_ids, first_seen), f"{bits}-bit spread slice ids in first-seen order")
+        got = res["values"].cpu().numpy().astype(np.float64)
+        trap_err, worst_err, worst_bound, margin, occupied = _sliced_sketch_against_numpy(
+            rows, n, s, t, col.metrics["auroc"], got, bits, np.arange(n))
+        _require(worst_bound <= SPREAD_BOUNDS[bits] and margin > SPREAD_MARGIN,
+                 f"{bits}-bit spread: bound {worst_bound} <= {SPREAD_BOUNDS[bits]}, "
+                 f"exact AUROC {margin} from 0.5")
+        out[bits] = (trap_err, worst_err, worst_bound, occupied)
+        print(f"  sliced {bits}-bit AUROC sketch over spread scores ({ids.size} rows, {n} cohorts, "
+              f"{occupied} occupied (cohort, bucket) pairs): counts equal numpy, AUROC within "
+              f"{trap_err:.3e} of the float64 trapezoid, every cohort within its bound of the exact "
+              f"Mann-Whitney value (largest error {worst_err:.3e}, largest bound {worst_bound:.3e}, "
+              f"exact values at least {margin:.3f} from 0.5)")
+    return out
 
 
 # ------------------------------------------------ phase 4, config-3 leg
@@ -1509,6 +1950,40 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
     return row
 
 
+def sketch_rows(timer, inputs, launches_at, err):
+    """The segment sum at the four sketch-fold shapes (phase 2's operands),
+    beside its plain version and ``index_add_`` into a zeroed output (the
+    library); ``launches_at[name]``: the main path's launches at that
+    shape."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    rows = []
+    for name, (vals, keys, segments, what) in inputs.items():
+        n = keys.numel()
+        d = 1 if vals.ndim == 1 else vals.shape[1]
+
+        def library(vals=vals, keys=keys, segments=segments):
+            return torch.zeros((segments,) + vals.shape[1:], dtype=vals.dtype,
+                               device=vals.device).index_add_(0, keys, vals)
+
+        rows.append({
+            "name": f"segment_sum_sketch_{name}",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/csrc/scatter.cu",
+            "replaces": "torcheval_tpu/ops/scatter.py:95",
+            "launches": launches_at[name],
+            "max_abs_err": err,
+            "ms": timer.ms(lambda: segment_sum(vals, keys, segments)),
+            "plain_ms": timer.ms(lambda: segment_sum_plain(vals, keys, segments)),
+            # values and keys read once, the (segments, D) int32 output written once
+            "bound_ms": (n * d * 4 + n * keys.element_size() + segments * d * 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": timer.ms(library),
+            "shape": what,
+        })
+    return rows
+
+
 def topk_row(dev, gen, timer, launches, err):
     from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
 
@@ -1675,6 +2150,9 @@ def main() -> int:
     print("phase 2 kernels against their plain versions")
     errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen),
             "topk": check_topk(dev, gen), "segment_sum": check_segment_sum(dev)}
+    # made again from the same seed in phase 5: not resident through the legs
+    errs["segment_sum_sketch"] = check_sketch_folds(dev, sketch_fold_inputs(dev, sketch_gen(dev)))
+    check_sliced_sketch_spread(dev)
     check_compact_counts(dev, gen, fold_scores, fold_t)
     check_classification_shapes(dev, gen)
     del fold_scores, fold_t
@@ -1701,7 +2179,38 @@ def main() -> int:
           f"AUROC {auroc_v:.8f} (uncompacted {auroc_ref:.8f}); launches {headline_launches}")
     print(f"  fold cadence: {cadence_text(headline_cadence)}")
     small_reference_check(dev)
-    del chunks, acc
+    del acc
+
+    print("phase 4 approximate headline leg (phase 3's data)")
+    approx_headline_leg(dev, chunks[:1])  # warm-up: the first use of each PyTorch kernel
+    segment_sum.launches = 0
+    with record_sketch_folds() as rec:
+        metrics, values, ah_s, ah_host, ah_peak = approx_headline_leg(dev, chunks)
+    approx_headline_launches = segment_sum.launches
+    sketch_launches = {"binary": rec.count(n=HEADLINE_CHUNK, d=2, segments=1 << SKETCH_BITS),
+                       "quantile": rec.count(n=QUANTILE_STACK * HEADLINE_CHUNK, d=1,
+                                             segments=QUANTILE_STACK << SKETCH_BITS)}
+    _require(approx_headline_launches > 0 and sketch_launches["binary"] > 0
+             and sketch_launches["quantile"] > 0,
+             "segment_sum launched on the approximate headline leg, binary and Quantile folds")
+    _require(sketch_launches["binary"] + sketch_launches["quantile"] == len(rec.shapes),
+             f"every sketch fold of the approximate headline leg at a checked shape: {rec.shapes}")
+    ah = check_approx_headline(chunks, metrics, values, auroc_v)
+    print(f"  {total} predictions in {ah_s:.4f} s (CUDA events): {total / ah_s:.1f} preds/s "
+          f"({ah_host:.4f} s on the host clock); peak memory {ah_peak[0] / 2**30:.2f} GiB "
+          f"(incl. {HEADLINE_CHUNKS} resident input chunks; the leg's own {ah_peak[1] / 2**30:.2f} "
+          f"GiB above what was allocated at its start); the exact headline: "
+          f"{total / seconds:.1f} preds/s, {peak / 2**30:.2f} GiB")
+    print(f"  approx AUROC {values[0]:.8f} vs exact {auroc_v:.8f}: |error| {ah['auroc_err']:.3e} "
+          f"within the sketch's bound {ah['auroc_bound']:.3e}; approx AUPRC {values[1]:.8f} vs exact "
+          f"average precision {ah['auprc_exact']:.8f}: |error| {ah['auprc_err']:.3e} within "
+          f"{ah['auprc_bound']:.3e}; counts sum to {total}")
+    print(f"  quantiles {QUANTILES}: {values[2]} within {max(ah['quantile_rel_err']):.3e} (relative) "
+          f"of the order statistics of a sort on the card (bound 2^-7)")
+    print(f"  segment_sum launches {approx_headline_launches} ({sketch_launches['binary']} binary folds "
+          f"of (2^24, 2), {sketch_launches['quantile']} Quantile stacked value folds of "
+          f"({QUANTILE_STACK} * 2^24,))")
+    del chunks, metrics
     torch.cuda.empty_cache()
 
     print("phase 4 macro leg")
@@ -1796,7 +2305,27 @@ def main() -> int:
     print(f"  multiclass_precision_recall_curve on the first {CURVE_ROWS} rows equals the CPU's "
           f"({points} thresholds over {CURVE_CLASSES} classes)")
     curve_fold = curve_fold_inputs(batches)
-    del batches, binned, curve_out
+
+    print("phase 4 ImageNet-val curve leg, approximate twin (2^12 buckets)")
+    approx_curve_leg(dev, batches[:1])  # warm-up
+    segment_sum.launches = 0
+    with record_sketch_folds() as rec:
+        ac_metrics, ac_out, ac_s, ac_peak = approx_curve_leg(dev, batches)
+    approx_curve_launches = segment_sum.launches
+    sketch_launches["multiclass"] = rec.count(n=CURVE_ROWS * CURVE_CLASSES, d=2,
+                                              segments=CURVE_CLASSES << MC_SKETCH_BITS)
+    _require(sketch_launches["multiclass"] == 2 * CURVE_BATCHES,
+             f"one multiclass sketch fold a batch a metric: {rec.shapes}")
+    ac = check_approx_curve(ac_metrics, ac_out, curve_out[:2])
+    print(f"  MulticlassAUROC and MulticlassAUPRC (approx=True) over {curve_total} rows in {ac_s:.4f} s "
+          f"(CUDA events): {curve_total / ac_s:.1f} rows/s; peak memory {ac_peak[0] / 2**30:.2f} GiB "
+          f"(incl. {CURVE_BATCHES} resident batches; the leg's own {ac_peak[1] / 2**30:.3f} GiB above "
+          f"what was allocated at its start); the exact metrics with the binned curve: "
+          f"{curve_total / curve_s:.1f} rows/s, {curve_peak / 2**30:.2f} GiB")
+    print(f"  every class within its error bound of the exact value: AUROC largest |error| "
+          f"{ac['auroc'][0]:.3e} (largest bound {ac['auroc'][1]:.3e}), AUPRC {ac['auprc'][0]:.3e} "
+          f"({ac['auprc'][1]:.3e}); segment_sum launches {approx_curve_launches}")
+    del batches, binned, curve_out, ac_metrics, ac_out
     torch.cuda.empty_cache()
 
     print("phase 4 top-k leg (BASELINE config 4)")
@@ -1841,18 +2370,22 @@ def main() -> int:
     del batches
     torch.cuda.empty_cache()
 
-    print("phase 4 sliced leg (bench.py config11_sliced, without its AUROC sketch member)")
+    print("phase 4 sliced leg (bench.py config11_sliced whole, with Mean and Max beside it)")
     data = sliced_leg_data(dev, gen)
     n_rows = SLICED_BATCHES * SLICED_ROWS
     sliced_epoch(dev, data, *sliced_setup(dev, data))  # warm-up: first use of each kernel
     acc, agg = sliced_setup(dev, data)
     segment_sum.launches = 0
     folds0 = fold_counts()
-    results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
+    with record_sketch_folds() as rec:
+        results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
     sliced_launches = segment_sum.launches
     sliced_cadence = cadence(folds0)
-    _require(sliced_launches > 0, "segment_sum launched on the sliced leg")
+    sketch_launches["sliced"] = rec.count(n=n_rows, segments=SLICED_COHORTS * SLICED_PLANES)
+    _require(sliced_launches > 0 and sketch_launches["sliced"] == 1,
+             f"segment_sum launched on the sliced leg, one sketch fold: {rec.shapes}")
     worst_mean = check_sliced_leg(data, acc, agg, results)
+    trap_err, mw_err, mw_bound, occupied = check_sliced_sketch(data, acc, results)
     intern_s = interning_seconds(acc.slice_table, data)
     plain_s = unsliced_leg(dev, data)
     print(f"  {n_rows} rows into {SLICED_COHORTS} cohorts in {sliced_s:.4f} s (CUDA events; "
@@ -1864,8 +2397,13 @@ def main() -> int:
           f"{sliced_launches}")
     print(f"  per-cohort num_correct/num_total and max equal numpy exactly; means within "
           f"{worst_mean:.3e} of float64; slice ids in first-seen order")
+    print(f"  per-cohort AUROC sketch counts equal np.bincount(rows * {SLICED_PLANES} + plane) "
+          f"({occupied} occupied (cohort, bucket) pairs); AUROC within {trap_err:.3e} of the float64 "
+          f"trapezoid; {SLICED_SAMPLE_COHORTS} sampled cohorts within their bounds of the exact "
+          f"Mann-Whitney AUROC (largest |error| {mw_err:.3e}, largest bound {mw_bound:.3e})")
     print(f"  unsliced MetricCollections on identical rows: {plain_s:.4f} s "
-          f"({n_rows / plain_s:.1f} rows/s); config11_sliced_ratio {plain_s / sliced_s:.4f}")
+          f"({n_rows / plain_s:.1f} rows/s); config11_sliced_ratio {plain_s / sliced_s:.4f} "
+          f"(information; bench.py's target >= 0.5)")
     leg_rows = torch.from_numpy(acc.slice_table.lookup_rows(_sliced_batch(data, 1)[0])).to(dev)
     _, leg_scores, leg_targets = _sliced_batch(data, 1)
     window = slice(SLICED_ROWS, (SLICED_BATCHES + 1) * SLICED_ROWS)
@@ -1924,11 +2462,16 @@ def main() -> int:
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
-    rows.append(segment_sum_row(dev, timer, sliced_launches + curve_launches["segment_sum"],
+    by_leg = {"sliced": sliced_launches, "curves": curve_launches["segment_sum"],
+              "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches}
+    rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
+    rows[-1]["launches_by_leg"] = by_leg
     del window_inputs
     rows.append(hist_c2_row(dev, timer, cm_launches, cm_keys))
     rows.append(compact_rows_row(timer, curve_launches["stream_compact"], curve_fold))
+    rows.extend(sketch_rows(timer, sketch_fold_inputs(dev, sketch_gen(dev)), sketch_launches,
+                            errs["segment_sum_sketch"]))
     del cm_keys, curve_fold
     torch.cuda.synchronize()
     for r in rows:
@@ -1973,6 +2516,7 @@ def main() -> int:
     fold_t = rows[5]["fold"]
     print(f"  per-class fold at {rows[5]['shape']}: compact_count_rows_fast {fold_t['fast_ms']:.4f} ms, "
           f"the batched two-sort {fold_t['two_sort_ms']:.4f} ms")
+    print(f"  segment_sum launches by leg: {by_leg}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,24 +3,29 @@
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py [--leg headline|small|topk|ndcg10|ndcg100|sliced|config3|config3_standalone|curves]
+    python3 scripts/profile_headline_torch.py [--leg headline|approx|small|topk|ndcg10|ndcg100|sliced|config3|config3_standalone|curves|curves_approx]
 
 It builds one leg of ``chip_smoke.py`` with its data made on the card from
 a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
 BinaryAUROC with compaction_threshold = 6 * 2^24, 16 chunks of 2^24
-predictions), ``small`` (MulticlassAccuracy and macro MulticlassF1Score over
+predictions), ``approx`` (BinaryAUROC and BinaryAUPRC with ``approx=True`` and
+Quantile(q=(0.5, 0.9, 0.99)) over the headline's binary logits), ``small``
+(MulticlassAccuracy and macro MulticlassF1Score over
 5 classes in one MetricCollection, 200 batches of 8192 rows: BASELINE
 config 1's shapes), ``topk`` (TopKMultilabelAccuracy, k = 5, over 4 batches of
 (8192, 10000) scores), ``ndcg10`` / ``ndcg100`` (NDCG at k = 10 or 100
 over 4 batches of (64, 1,000,000) scores), ``sliced`` (the two sliced
-collections over 1,000,000 cohorts, 16 batches of 1,048,576 rows after a
+collections, BinaryAccuracy with a 4-bit BinaryAUROC sketch and Mean with
+Max, over 1,000,000 cohorts, 16 batches of 1,048,576 rows after a
 registration batch that is not profiled), ``config3`` /
 ``config3_standalone`` (MulticlassConfusionMatrix(1000) and macro
 MulticlassF1Score over 13 batches of 100,000 int32 predictions, in one
 MetricCollection or standalone: BASELINE config 3) or ``curves``
 (MulticlassAUROC and MulticlassAUPRC compacting every 20,000 rows and
 MulticlassBinnedPrecisionRecallCurve over 5 batches of (10,000, 1000)
-softmax scores: the ImageNet-1k validation set's size). It runs the leg once to warm up,
+softmax scores: the ImageNet-1k validation set's size) or ``curves_approx``
+(MulticlassAUROC and MulticlassAUPRC with ``approx=True``, 2^12 buckets, on
+the same batches). It runs the leg once to warm up,
 then once under ``torch.profiler``, and prints the wall time of both runs,
 the device's busy time (the union of the intervals in which a kernel, copy
 or memset ran) and idle share over the profiled run, and the device time by
@@ -85,6 +90,22 @@ def _plain_leg(cs, name, dev, gen):
             return seconds, (acc_v, auroc_v)
 
         return run, cs.HEADLINE_CHUNKS * cs.HEADLINE_CHUNK, "preds"
+    if name == "approx":
+        chunks = cs.headline_data(dev, gen)
+
+        def run():
+            _, values, seconds, _, _ = cs.approx_headline_leg(dev, chunks)
+            return seconds, values[:2]
+
+        return run, cs.HEADLINE_CHUNKS * cs.HEADLINE_CHUNK, "preds"
+    if name == "curves_approx":
+        batches = cs.curve_leg_data(dev, gen)
+
+        def run():
+            _, out, seconds, _ = cs.approx_curve_leg(dev, batches)
+            return seconds, (float(out[0].mean()), float(out[1].mean()))
+
+        return run, cs.CURVE_BATCHES * cs.CURVE_ROWS, "rows"
     if name == "small":
         batches = cs.small_batch_data(dev, gen)
 
@@ -130,8 +151,9 @@ def _plain_leg(cs, name, dev, gen):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--leg", default="headline",
-                        choices=("headline", "small", "topk", "ndcg10", "ndcg100", "sliced",
-                                 "config3", "config3_standalone", "curves"))
+                        choices=("headline", "approx", "small", "topk", "ndcg10", "ndcg100",
+                                 "sliced", "config3", "config3_standalone", "curves",
+                                 "curves_approx"))
     parser.add_argument("--runs", type=int, default=0, help="timed runs after the profiled one")
     args = parser.parse_args()
     if not torch.cuda.is_available():

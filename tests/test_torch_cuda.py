@@ -837,3 +837,109 @@ def test_precision_recall_and_exact_curve_on_the_card_equal_the_cpu(dev):
         for a, b in zip(gs, ws):
             assert a.device.type == "cuda" and a.shape == b.shape
             np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-8)
+
+
+# ------------------------------------------------------------ the sketches
+# the segment sum at the sketch folds' shapes (integer results bit-equal)
+@pytest.mark.parametrize(
+    "n,d,segments,what",
+    [
+        (1 << 24, 1, 1_000_000 * 33, "sliced window, 4-bit sketch over 10^6 cohorts"),
+        (1 << 24, 2, 1 << 16, "binary approx=True fold of a headline chunk"),
+        (1 << 26, 1, 4 << 16, "Quantile's stacked value fold of four headline chunks"),
+        (10_000_000, 2, 1000 * 4096, "multiclass approx=True fold of an ImageNet-val batch"),
+    ],
+    ids=["sliced", "binary", "quantile", "multiclass"],
+)
+def test_segment_sum_at_the_sketch_fold_shapes(dev, n, d, segments, what):
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    rows = torch.randint(-1, segments, (n,), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randint(0, 2, (n, d), generator=g, device=dev, dtype=torch.int32)
+    vals = vals[:, 0] if d == 1 else vals
+    before = segment_sum.launches
+    got = segment_sum(vals, rows, segments)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1, what
+    assert torch.equal(got, segment_sum_plain(vals, rows, segments)), what
+
+
+def test_bucket_index_on_the_card_equals_the_cpu(dev):
+    from torcheval_tpu_torch.sketch import bucket_index
+
+    tiny = float(np.finfo(np.float32).tiny)
+    special = torch.tensor(
+        [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40, 1e-45, -1e-45,
+         tiny, -tiny, 3.4e38, -3.4e38, 0.5, -0.5, 1.0], dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    x = torch.cat([special, torch.randn(100_000, generator=g) * 1e3,
+                   torch.rand(100_000, generator=g)])
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xs = x.to(dtype)
+        for bits in (4, 10, 12, 16, 20):
+            assert torch.equal(bucket_index(xs.to(dev), bits).cpu(), bucket_index(xs, bits)), (dtype, bits)
+
+
+@pytest.mark.parametrize("cls", ["BinaryAUROC", "BinaryAUPRC"])
+def test_binary_sketch_on_the_card_equals_the_cpu(dev, cls):
+    import torcheval_tpu_torch.metrics as TM
+
+    g = torch.Generator().manual_seed(1)
+    s = torch.randn(300_000, generator=g)
+    t = (torch.rand(300_000, generator=g) < 0.4).float()
+    on, off = (getattr(TM, cls)(approx=True, device=d) for d in (dev, "cpu"))
+    before = segment_sum.launches
+    for a, b in zip(s.split(100_000), t.split(100_000)):
+        on.update(a, b)
+        off.update(a, b)
+    got, want = on.compute(), off.compute()
+    on._compact()
+    off._compact()
+    assert segment_sum.launches > before
+    assert torch.equal(on.sketch_tp.cpu(), off.sketch_tp) and torch.equal(on.sketch_fp.cpu(), off.sketch_fp)
+    assert float(got) == pytest.approx(float(want), rel=1e-5, abs=1e-8)
+
+
+def test_multiclass_sketch_quantile_and_cat_on_the_card_equal_the_cpu(dev):
+    import torcheval_tpu_torch.metrics as TM
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.softmax(torch.randn(20_000, 50, generator=g), 1)
+    lbl = torch.randint(0, 50, (20_000,), generator=g)
+    on = TM.MulticlassAUROC(num_classes=50, average=None, approx=True, device=dev).update(x, lbl)
+    off = TM.MulticlassAUROC(num_classes=50, average=None, approx=True, device="cpu").update(x, lbl)
+    torch.testing.assert_close(on.compute().cpu(), off.compute(), rtol=1e-5, atol=1e-8)
+    v = torch.randn(500_000, generator=g).exp()
+    q_on = TM.Quantile((0.01, 0.5, 0.99), device=dev)
+    q_off = TM.Quantile((0.01, 0.5, 0.99), device="cpu")
+    for chunk in v.split(100_000):
+        q_on.update(chunk)
+        q_off.update(chunk)
+    assert torch.equal(q_on.compute().cpu(), q_off.compute())
+    assert torch.equal(q_on.bucket_counts.cpu(), q_off.bucket_counts)
+    c_on = TM.Cat(approx=True, device=dev).update(v)
+    c_off = TM.Cat(approx=True, device="cpu").update(v)
+    for a, b in zip(c_on.compute(), c_off.compute()):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("bits", [4, 10])
+def test_sliced_sketch_member_on_the_card_equals_the_cpu(dev, bits):
+    import torcheval_tpu_torch.metrics as TM
+
+    # scores through every normal exponent of both signs, so every bucket
+    # fills; targets drawn with probability (1 + u) / 2 keep each cohort's
+    # AUROC far from 0.5
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 5000, 200_000).astype(np.int64) * 7 + 1
+    u = rng.uniform(-1.0, 1.0, 200_000)
+    s = torch.from_numpy((np.sign(u) * np.exp2(250.0 * np.abs(u) - 125.0)).astype(np.float32))
+    t = torch.from_numpy((rng.random(200_000) < (1.0 + u) / 2.0).astype(np.float32))
+    cols = [TM.SlicedMetricCollection({"auroc": TM.BinaryAUROC(approx=1024, device=d)},
+                                      capacity=1024, curve_bucket_bits=bits) for d in (dev, "cpu")]
+    cols[0].update(ids, s.to(dev), t.to(dev))
+    cols[1].update(ids, s, t)
+    got, want = (c.compute()["auroc"] for c in cols)
+    np.testing.assert_array_equal(got.slice_ids, want.slice_ids)
+    torch.testing.assert_close(got["values"].cpu(), want["values"], rtol=1e-5, atol=1e-8)
+    assert float(want["values"].mean()) > 0.7
+    assert torch.equal(cols[0].metrics["auroc"].sketch_tp.cpu(), cols[1].metrics["auroc"].sketch_tp)

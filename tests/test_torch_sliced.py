@@ -1,7 +1,9 @@
 """The port's sliced collection against the JAX package's, on the CPU.
 
-Mirrors every case of ``tests/metrics/test_sliced.py`` that needs neither
-the sketch member (``approx=`` curves) nor sharding. The same numpy
+Mirrors every case of ``tests/metrics/test_sliced.py`` that needs no
+sharding, the sketch member of ``approx=`` binary curves included (its
+per-slice counts equal the JAX member's exactly, its per-slice values equal
+the port's standalone ``approx=`` metric's on each slice bit for bit). The same numpy
 streams, made from a seed, go through ``torcheval_tpu``'s
 ``SlicedMetricCollection`` and the port's (templates on ``device="cpu"``,
 where the segment sum runs its plain version). Slice ids must match
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 import torcheval_tpu.metrics as J
+import torcheval_tpu_torch.metrics as TM
 from torcheval_tpu.metrics.sliced import SliceTable as JaxSliceTable
 from torcheval_tpu_torch.metrics import (
     MAP,
@@ -538,3 +541,149 @@ def test_plain_collection_state_carries_both_ways():
     back.load_state_dicts(numpy_state_dicts(tcol))
     for key, value in back.compute().items():
         np.testing.assert_allclose(np.asarray(value), np.asarray(want[key]), rtol=RTOL)
+
+
+# ------------------------------------------------------------ sketch member
+def _sketch_col(pkg, capacity=2, bits=None, **kw):
+    return pkg.SlicedMetricCollection(
+        {"acc": pkg.BinaryAccuracy(**kw), "auroc": pkg.BinaryAUROC(approx=1024, **kw)},
+        capacity=capacity, curve_bucket_bits=bits)
+
+
+@pytest.mark.parametrize("bits", [None, 4, 6])
+def test_sketch_member_counts_equal_jax_and_values_match(bits):
+    batches = _batches(seed=11)
+    col, ref = _sketch_col(TM, bits=bits, device=CPU), _sketch_col(J, bits=bits)
+    for b in batches:
+        col.update(*b)
+        ref.update(*b)
+    got, want = col.compute(), ref.compute()
+    for member in ("acc", "auroc"):
+        np.testing.assert_array_equal(got[member].slice_ids, np.asarray(want[member].slice_ids))
+        np.testing.assert_allclose(_values(got[member]), np.asarray(want[member]["values"]),
+                                   rtol=RTOL, atol=1e-8)
+    ours = col.metrics["auroc"].state_dict()
+    theirs = ref.metrics["auroc"].state_dict()
+    for name in ("sketch_tp", "sketch_fp", "sketch_nan_dropped"):
+        np.testing.assert_array_equal(ours[name].numpy(), np.asarray(theirs[name]))
+
+
+def test_sketch_member_bit_equal_to_standalone_metric_per_slice():
+    batches = _batches(seed=12, pool=9)
+    col = _sketch_col(TM, device=CPU)
+    for b in batches:
+        col.update(*b)
+    res = col.compute()["auroc"]
+    ids = np.concatenate([b[0] for b in batches])
+    s = np.concatenate([b[1] for b in batches])
+    t = np.concatenate([b[2] for b in batches])
+    vals = _values(res)
+    for n, sid in enumerate(res.slice_ids):
+        m = ids == sid
+        alone = BinaryAUROC(approx=1024, device=CPU).update(s[m], t[m])
+        assert float(alone.compute()) == float(vals[n]), sid
+
+
+def test_sketch_member_within_its_bound_of_exact():
+    from torcheval_tpu_torch.sketch import auroc_error_bound
+
+    batches = _batches(seed=21, pool=7)
+    col = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=4)
+    for b in batches:
+        col.update(*b)
+    res = col.compute()["auroc"]
+    member = col.metrics["auroc"]
+    tp, fp = member.sketch_tp, member.sketch_fp
+    ids = np.concatenate([b[0] for b in batches])
+    s = np.concatenate([b[1] for b in batches])
+    t = np.concatenate([b[2] for b in batches])
+    for n, sid in enumerate(res.slice_ids):
+        m = ids == sid
+        exact = float(BinaryAUROC(device=CPU).update(s[m], t[m]).compute())
+        assert abs(float(_values(res)[n]) - exact) <= auroc_error_bound(tp[n], fp[n]) + 1e-6
+
+
+def test_sketch_member_merge_nan_and_idempotent_compute():
+    batches = _batches(seed=23, n_batches=4, pool=17)
+    a = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2)
+    b = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2)
+    whole = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2)
+    for i, bt in enumerate(batches):
+        (a if i < 2 else b).update(*bt)
+        whole.update(*bt)
+    a.merge_collections([b])
+    got, want = a.compute()["auroc"], whole.compute()["auroc"]
+    order_g, order_w = np.argsort(got.slice_ids), np.argsort(want.slice_ids)
+    np.testing.assert_array_equal(got.slice_ids[order_g], want.slice_ids[order_w])
+    np.testing.assert_array_equal(_values(got)[order_g], _values(want)[order_w])
+    again = a.compute()["auroc"]
+    np.testing.assert_array_equal(_values(again), _values(got))
+    bad = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2)
+    bad.update(np.asarray([1, 2], np.int64), np.asarray([np.nan, 0.5], np.float32),
+               np.asarray([1.0, 0.0], np.float32))
+    with pytest.raises(ValueError, match="NaN"):
+        bad.compute()
+
+
+def test_sketch_extent_fails_closed_before_int32_index_wrap():
+    from torcheval_tpu_torch.sketch.cache import check_sliced_sketch_extent
+
+    planes = 2 * 1024 + 1
+    at_bound = (2**31 - 1) // planes
+    check_sliced_sketch_extent(10, at_bound)
+    with pytest.raises(ValueError, match="int32 segment-index"):
+        check_sliced_sketch_extent(10, at_bound + 1)
+    # construction rejects before any histogram is allocated: 16-bit
+    # buckets cap out near 16,000 cohorts
+    with pytest.raises(ValueError, match="int32 segment-index"):
+        SlicedMetricCollection({"auroc": BinaryAUROC(approx=True, device=CPU)}, capacity=20_000)
+    col = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=4,
+                                 curve_bucket_bits=10)
+    col.update(np.asarray([1, 2], np.int64), np.asarray([0.5, 0.5], np.float32),
+               np.asarray([1.0, 0.0], np.float32))
+    col.slice_table.replace(col.slice_table.registered_ids(), at_bound + 1)
+    with pytest.raises(ValueError, match="int32 segment-index"):
+        col._grow_members()
+    assert int(col.metrics["auroc"].sketch_tp.shape[0]) == 4
+    for bad_bits in (3, 21):
+        with pytest.raises(ValueError, match="curve_bucket_bits"):
+            SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)},
+                                   curve_bucket_bits=bad_bits)
+
+
+def test_check_sliceable_accepts_binary_sketches_and_rejects_the_rest():
+    from torcheval_tpu.metrics.sliced import check_sliceable as jax_check_sliceable
+
+    check_sliceable(BinaryAUROC(approx=1024, device=CPU))
+    check_sliceable(TM.BinaryAUPRC(approx=1024, device=CPU))
+    check_sliceable(BinaryAUROC(device=CPU), approx=1024)  # the knob will switch it
+    cases = [
+        (lambda pkg, **kw: pkg.BinaryAUROC(**kw), {}, "must run approx"),
+        (lambda pkg, **kw: pkg.BinaryAUROC(**kw), {"approx": None}, "must run approx"),
+        (lambda pkg, **kw: pkg.MulticlassAUROC(num_classes=3, approx=True, **kw), {},
+         "multiclass sketch"),
+        (lambda pkg, **kw: pkg.BinaryAUROC(approx=1024, **kw).update(
+            np.asarray([0.5], np.float32), np.asarray([1.0], np.float32)), {}, "streamed"),
+        (lambda pkg, **kw: pkg.Cat(**kw), {}, "cannot be sliced"),
+    ]
+    for make, kw, match in cases:
+        with pytest.raises(ValueError, match=match):
+            check_sliceable(make(TM, device=CPU), **kw)
+        with pytest.raises(ValueError, match=match):
+            jax_check_sliceable(make(J), **kw)
+
+
+def test_sketch_member_state_round_trip_and_schema():
+    batches = _batches(seed=31)
+    col = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2,
+                                 curve_bucket_bits=8)
+    for b in batches:
+        col.update(*b)
+    want = _values(col.compute()["auroc"])
+    fresh = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)}, capacity=2,
+                                   curve_bucket_bits=8)
+    fresh.load_state_dicts(col.state_dicts())
+    np.testing.assert_array_equal(_values(fresh.compute()["auroc"]), want)
+    other = SlicedMetricCollection({"auroc": BinaryAUROC(approx=1024, device=CPU)},
+                                   curve_bucket_bits=9)
+    assert col.metrics["auroc"]._sync_schema_extra != other.metrics["auroc"]._sync_schema_extra

@@ -1,6 +1,6 @@
 """Streaming metrics. JAX counterpart: ``torcheval_tpu/metrics/__init__.py``."""
 
-from torcheval_tpu_torch.metrics.aggregation import Max, Mean, Min, Sum
+from torcheval_tpu_torch.metrics.aggregation import Cat, Max, Mean, Min, Quantile, Sum
 from torcheval_tpu_torch.metrics.classification import (
     BinaryAccuracy,
     BinaryAUPRC,
@@ -46,6 +46,7 @@ __all__ = [
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",
+    "Cat",
     "HitRate",
     "MAP",
     "Max",
@@ -65,6 +66,7 @@ __all__ = [
     "MulticlassRecall",
     "MultilabelAccuracy",
     "NDCG",
+    "Quantile",
     "RecallAtK",
     "ReciprocalRank",
     "Reduction",

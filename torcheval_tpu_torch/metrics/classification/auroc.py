@@ -19,8 +19,20 @@ and compacts the flattened ``C * M`` rows in one launch of the compaction
 kernel; the per-class counts of kept rows place each class's rows back
 into its column (``ops/summary.py::compact_count_rows_fast``).
 
-Not ported yet: the ``approx=`` sketch mode and the sharded and
-distributed curve paths.
+With ``approx=`` (``True`` for the family's default bucket count, an int
+for a bucket count, or the ``TORCHEVAL_TPU_APPROX`` environment variable),
+the summary gives way to a resident, fixed-size score sketch:
+``sketch_tp``/``sketch_fp`` int32 bucket histograms (``sketch/``), O(buckets)
+memory for any stream length, merged by addition, with an error bound
+computable from the sketch itself (``sketch.auroc_error_bound``,
+``sketch.auprc_error_bound``). ``compaction_threshold`` then sets how many
+staged rows fold at once (default ``sketch.SKETCH_FOLD_ROWS``); each fold is
+one launch of the segment-sum kernel (``csrc/scatter.cu``). A
+``compute()`` folds leftover staged rows into a temporary histogram and
+leaves the state as it was.
+
+Not ported yet: the sharded and distributed curve paths (the sharded
+sketch fold among them).
 """
 
 from __future__ import annotations
@@ -56,6 +68,20 @@ from torcheval_tpu_torch.ops.summary import (
     compact_count_rows_fast,
     compact_counts,
     compact_counts_fast,
+)
+from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_BUCKET_BITS
+from torcheval_tpu_torch.sketch.cache import (
+    SKETCH_FOLD_ROWS,
+    fold_staged_scores,
+    merge_score_sketch_states,
+    raise_sketch_nan,
+    raise_sketch_overflow,
+    register_score_sketch_states,
+    resolve_approx,
+    sketch_auprc_from_parts,
+    sketch_auroc_from_parts,
+    sketch_mc_auprc_from_parts,
+    sketch_mc_auroc_from_parts,
 )
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
@@ -212,12 +238,27 @@ class _CompactingCacheLifecycle:
     # binary metrics count samples, the multiclass ones per-class entries
     _NAN_FLAG_NOUN = "sample(s)"
 
-    def _init_compaction(self, compaction_threshold: Optional[int]) -> None:
+    # bucket_bits of the resident score sketch in approx= mode, else None.
+    # In approx mode compaction_threshold is the staging-fold cadence and
+    # _compact folds into fixed-size histograms instead of summaries.
+    _sketch_bits: Optional[int] = None
+
+    def _init_compaction(
+        self,
+        compaction_threshold: Optional[int],
+        *,
+        approx_bits: Optional[int] = None,
+        sketch_classes: Optional[int] = None,
+    ) -> None:
         if compaction_threshold is not None and compaction_threshold <= 0:
             raise ValueError(
                 f"compaction_threshold must be positive or None, got "
                 f"{compaction_threshold}."
             )
+        self._sketch_bits = approx_bits
+        self._sketch_classes = sketch_classes
+        if approx_bits is not None and compaction_threshold is None:
+            compaction_threshold = SKETCH_FOLD_ROWS
         self._compaction_threshold = compaction_threshold
         self._cached_samples = 0
         self._nan_checked = True  # no compactions yet -> nothing to check
@@ -228,6 +269,10 @@ class _CompactingCacheLifecycle:
         self._summary_sorted = True
         self._add_cache_state("inputs")
         self._add_cache_state("targets")
+        if approx_bits is not None:
+            # the resident sketch: SUM is the exact merge (adding buckets)
+            register_score_sketch_states(self, approx_bits, sketch_classes)
+            return
         self._add_cache_state("summary_scores")
         self._add_cache_state("summary_tp")
         self._add_cache_state("summary_fp")
@@ -236,6 +281,32 @@ class _CompactingCacheLifecycle:
             zeros_state((), dtype=torch.int32),
             reduction=Reduction.SUM,
         )
+
+    def _sketch_enabled(self) -> bool:
+        return self._sketch_bits is not None
+
+    def _sketch_compact(self) -> None:
+        """Approx-mode ``_compact``: fold the staged raw cache into the
+        resident histograms."""
+        fold_staged_scores(self)
+        self._cached_samples = 0
+
+    def _sketch_value(self, from_parts, *extra):
+        """An approx-mode compute over the staged leftovers and the resident
+        sketch (state untouched, so ``compute()`` stays idempotent), then
+        the overflow and NaN checks, one host read each."""
+        *value, nan_total, overflow = from_parts(
+            list(self.inputs),
+            list(self.targets),
+            self.sketch_tp,
+            self.sketch_fp,
+            self.sketch_nan_dropped,
+            self._sketch_bits,
+            *extra,
+        )
+        raise_sketch_overflow(overflow)
+        raise_sketch_nan(nan_total, self._NAN_FLAG_NOUN)
+        return value[0] if len(value) == 1 else tuple(value)
 
     def _compact(self) -> None:
         raise NotImplementedError
@@ -252,7 +323,7 @@ class _CompactingCacheLifecycle:
         # any installed state may carry a nonzero NaN flag or an unsorted
         # summary from another replica
         super()._set_states(values)
-        if "summary_nan_dropped" in values:
+        if "summary_nan_dropped" in values or "sketch_nan_dropped" in values:
             self._nan_checked = False
         if any(k.startswith("summary_") for k in values):
             self._summary_sorted = False
@@ -305,6 +376,12 @@ class _CompactingCacheLifecycle:
         self._cached_samples = sum(int(a.shape[0]) for a in self.inputs)
         if self._compaction_threshold is None:
             return
+        if self._sketch_bits is not None:
+            # the raw cache is a staging buffer; the resident sketch's size
+            # is fixed and never re-triggers a fold
+            if self._cached_samples >= self._compaction_threshold:
+                self._compact()
+            return
         # compact when raw rows exceed the threshold, OR when merges have
         # fragmented the summary into several buffers past the threshold; a
         # single summary buffer never re-triggers, so this cannot loop
@@ -318,11 +395,16 @@ class _CompactingCacheLifecycle:
         metrics = list(metrics)
         self._summary_sorted = False  # concatenated segments may overlap
         super().merge_state(metrics)
-        for metric in metrics:
-            # the NaN flag is additive across replicas
-            self.summary_nan_dropped = self.summary_nan_dropped + (
-                metric.summary_nan_dropped.to(self._device)
-            )
+        if self._sketch_bits is not None:
+            # the cache base merges only the list states; adding the
+            # replicas' buckets is the exact sketch merge
+            merge_score_sketch_states(self, metrics)
+        else:
+            for metric in metrics:
+                # the NaN flag is additive across replicas
+                self.summary_nan_dropped = self.summary_nan_dropped + (
+                    metric.summary_nan_dropped.to(self._device)
+                )
         self._nan_checked = False
         self._recount_cache()
         return self
@@ -354,13 +436,24 @@ class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tens
     Batches are cached as given (a tensor already on the metric's device is
     not copied), as in the reference torcheval: do not write into a tensor
     after passing it to ``update()``.
+
+    With ``approx=`` the summary states give way to the resident
+    ``sketch_tp``/``sketch_fp`` histograms and ``sketch_nan_dropped``
+    (module doc), 2^16 buckets by default.
     """
 
     def __init__(
-        self, *, compaction_threshold: Optional[int] = None, device: DeviceLike = None
+        self,
+        *,
+        compaction_threshold: Optional[int] = None,
+        approx=None,
+        device: DeviceLike = None,
     ) -> None:
         super().__init__(device=device)
-        self._init_compaction(compaction_threshold)
+        self._init_compaction(
+            compaction_threshold,
+            approx_bits=resolve_approx(approx, default_bits=DEFAULT_BUCKET_BITS),
+        )
 
     def update(self, input, target) -> "_BinaryCurveMetric":
         input, target = self._input(input), self._input(target)
@@ -372,7 +465,10 @@ class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tens
 
     def _compact(self) -> None:
         """Fold raw cache + summary into one padded unique-threshold summary,
-        padded to a 4M-row granule (a power of two below that)."""
+        padded to a 4M-row granule (a power of two below that); in approx
+        mode, fold the staged rows into the sketch."""
+        if self._sketch_bits is not None:
+            return self._sketch_compact()
         n = sum(int(a.shape[0]) for a in self.inputs) + sum(
             int(a.shape[0]) for a in self.summary_scores
         )
@@ -428,6 +524,8 @@ class BinaryAUROC(_BinaryCurveMetric):
     summary."""
 
     def compute(self) -> torch.Tensor:
+        if self._sketch_bits is not None:
+            return self._sketch_value(sketch_auroc_from_parts)
         return self._value(
             0.5, binary_auroc_counts_presorted_kernel, _auroc_from_parts
         )
@@ -437,6 +535,8 @@ class BinaryAUPRC(_BinaryCurveMetric):
     """Streaming area under the PR curve (average precision)."""
 
     def compute(self) -> torch.Tensor:
+        if self._sketch_bits is not None:
+            return self._sketch_value(sketch_auprc_from_parts)
         return self._value(
             0.0, binary_auprc_counts_presorted_kernel, _auprc_from_parts
         )
@@ -458,13 +558,18 @@ class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.
         num_classes: Optional[int] = None,
         average: Optional[str] = "macro",
         compaction_threshold: Optional[int] = None,
+        approx=None,
         device: DeviceLike = None,
     ) -> None:
         super().__init__(device=device)
         _mc_curve_param_check(num_classes, average)
         self.num_classes = num_classes
         self.average = average
-        self._init_compaction(compaction_threshold)
+        self._init_compaction(
+            compaction_threshold,
+            approx_bits=resolve_approx(approx, default_bits=DEFAULT_MC_BUCKET_BITS),
+            sketch_classes=num_classes,
+        )
 
     def update(self, input, target):
         input, target = self._input(input), self._input(target)
@@ -476,7 +581,10 @@ class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.
 
     def _compact(self) -> None:
         """Fold the raw cache and the per-class summaries into one padded
-        ``(K, C)`` summary set (one host read, for the adaptive trim)."""
+        ``(K, C)`` summary set (one host read, for the adaptive trim); in
+        approx mode, fold the staged rows into the ``(C, B)`` sketch."""
+        if self._sketch_bits is not None:
+            return self._sketch_compact()
         n = sum(int(a.shape[0]) for a in self.inputs) + sum(
             int(a.shape[0]) for a in self.summary_scores
         )
@@ -532,6 +640,9 @@ class MulticlassAUROC(_MulticlassCurveMetric):
     "none"/None for the per-class vector); 0.5 with no data."""
 
     def compute(self) -> torch.Tensor:
+        if self._sketch_bits is not None:
+            per_class = self._sketch_value(sketch_mc_auroc_from_parts, self.num_classes)
+            return _mc_average(per_class, self.average)
         return self._value(0.5, _mc_auroc_presorted, _mc_auroc_from_parts)
 
 
@@ -540,4 +651,7 @@ class MulticlassAUPRC(_MulticlassCurveMetric):
     data."""
 
     def compute(self) -> torch.Tensor:
+        if self._sketch_bits is not None:
+            per_class = self._sketch_value(sketch_mc_auprc_from_parts, self.num_classes)
+            return _mc_average(per_class, self.average)
         return self._value(0.0, _mc_auprc_presorted, _mc_auprc_from_parts)

@@ -1,9 +1,7 @@
 """``SlicedMetricCollection``: the same metrics across many cohorts.
 
 JAX counterpart: ``torcheval_tpu/metrics/sliced.py`` without its sharded
-route (``mesh``/``mesh_axis``, ``update_placed``) and without the sketch
-member for ``approx=`` curve metrics (``_SlicedScoreSketchMember``), which
-need the sketch mode that is not ported yet.
+route (``mesh``/``mesh_axis``, ``update_placed``).
 
 * **Dense slice axis.** Every member's state grows a leading
   ``[capacity]`` axis: ``state[r]`` is slice ``r``'s state, with exactly the
@@ -23,6 +21,16 @@ need the sketch mode that is not ported yet.
   standalone metric's on each slice's samples; ``max``/``min`` groups are
   ``scatter_reduce_``. Compute runs the template's ``_compute_fn`` under
   ``torch.func.vmap`` over the slice axis.
+* **Sketch member.** An ``approx=`` binary curve template (``BinaryAUROC``,
+  ``BinaryAUPRC``) expands into per-cohort ``(B,)`` score sketches
+  (``_SlicedScoreSketchMember``): one segment sum of int32 ones by
+  ``row * (2B + 1) + plane`` folds a window into every cohort's ``(tp,
+  fp)`` histogram and NaN count, and the compute is the standalone
+  sketch's presorted counts function along the last axis, so a cohort's
+  value equals the standalone ``approx=`` metric's on that cohort's rows.
+  ``curve_bucket_bits`` may set a coarser width than the standalone floor
+  (down to 4 bits); the int32 combined index is checked at registration
+  and at every capacity growth (``sketch.cache.check_sliced_sketch_extent``).
 * **Ids on the wire.** Each member carries the id table as
   ``slice_ids_hi``/``slice_ids_lo`` int32 lanes and a ``slice_count``
   scalar, refreshed from the host table when state is read, so
@@ -51,7 +59,7 @@ kernel adds in float32 and rounds once (``ops/scatter.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,6 +69,14 @@ from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction
 from torcheval_tpu_torch.ops.scatter import segment_scatter
+from torcheval_tpu_torch.sketch.cache import (
+    check_sliced_bucket_bits,
+    check_sliced_sketch_extent,
+    raise_sketch_nan,
+    raise_sketch_overflow,
+    sliced_curve_compute,
+    sliced_score_hist_fold,
+)
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 __all__ = [
@@ -546,6 +562,72 @@ _FOLD_MEMBER_BY_KIND = {
 }
 
 
+class _SlicedScoreSketchMember(_SlicedMemberBase):
+    """Slice expansion of an ``approx=`` binary curve metric (``BinaryAUROC``
+    or ``BinaryAUPRC``): per-cohort ``(B,)`` bucket histograms folded by one
+    combined-index segment sum, computed by the standalone sketch's
+    presorted counts function along the last axis. A cohort's value equals
+    the standalone ``approx=`` metric's fed that cohort's rows (the same
+    counts, the same function)."""
+
+    _fold_fn = staticmethod(sliced_score_hist_fold)
+    _compute_fn = staticmethod(sliced_curve_compute)
+
+    def __init__(
+        self, template: Metric, table: SliceTable, *, curve_bucket_bits: Optional[int] = None
+    ) -> None:
+        super().__init__(table, device=template.device)
+        self._template_cls = type(template).__qualname__
+        self._kind = "auroc" if "AUROC" in self._template_cls else "auprc"
+        bits = curve_bucket_bits if curve_bucket_bits is not None else template._sketch_bits
+        self._bits = check_sliced_bucket_bits(int(bits))
+        # the extent check runs before any state exists: a capacity and width
+        # past the int32 index bound must not first allocate the histograms
+        self._check_capacity(table.capacity)
+        zero_hist = torch.zeros(1 << self._bits, dtype=torch.int32)
+        self._register_sliced_state("sketch_tp", zero_hist, Reduction.SUM)
+        self._register_sliced_state("sketch_fp", zero_hist, Reduction.SUM)
+        self._register_sliced_state(
+            "sketch_nan_dropped", torch.zeros((), dtype=torch.int32), Reduction.SUM
+        )
+        self._register_id_states()
+        self._refit_params()
+
+    def _check_capacity(self, capacity: int) -> None:
+        check_sliced_sketch_extent(self._bits, capacity)
+
+    def _refit_params(self) -> None:
+        # runs at construction, at every growth and at every adopted load:
+        # the bound holds for the member's life
+        self._check_capacity(self._table.capacity)
+        self._fold_params = (self._bits, self._table.capacity)
+        self._compute_params = (self._bits, self._kind)
+
+    @property
+    def _sync_schema_extra(self):
+        # replicas with another template or width cannot add their buckets
+        return (self._template_cls, self._bits)
+
+    def _update_check(self, rows, *args) -> None:
+        _check_rows_column(rows, args)
+        if len(args) != 2:
+            raise ValueError(
+                "sliced curve metrics take (slice_ids, scores, targets), "
+                f"got {len(args)} update columns after the id column."
+            )
+        if args[0].shape != args[1].shape or args[0].ndim != 1:
+            raise ValueError(
+                "scores and targets must be matching 1-D columns, got "
+                f"{tuple(args[0].shape)} vs {tuple(args[1].shape)}."
+            )
+
+    def _on_window_result(self, result):
+        values, overflow, nan_total = result
+        raise_sketch_overflow(overflow)
+        raise_sketch_nan(nan_total, "sample(s)")
+        return self._wrap_values(values)
+
+
 def _check_rows_column(rows: torch.Tensor, args) -> None:
     if rows.ndim != 1 or rows.dtype != torch.int32:
         raise ValueError(
@@ -561,21 +643,40 @@ def _check_rows_column(rows: torch.Tensor, args) -> None:
 
 
 # ------------------------------------------------------------- sliceability
-def check_sliceable(metric: Metric) -> None:
+def _is_sketch_curve(metric: Metric) -> bool:
+    return hasattr(metric, "_compaction_threshold") and hasattr(metric, "_compact")
+
+
+def check_sliceable(metric: Metric, *, approx: Any = None) -> None:
     """Raise ``ValueError`` when ``metric`` cannot expand over a slice axis.
 
-    Sliceable: a fresh ``DeferredFoldMixin`` metric whose fold runs under
-    ``torch.func.vmap`` (``_fold_vmap``), with a known reduce, a pure
-    ``_compute_fn`` and tensor states reduced by SUM, MAX or MIN. Curve
-    metrics need the ``approx=`` sketch mode, which is not ported yet, so
-    they reject with the JAX package's reason."""
+    Sliceable: (a) a fresh ``DeferredFoldMixin`` metric whose fold runs
+    under ``torch.func.vmap`` (``_fold_vmap``), with a known reduce, a pure
+    ``_compute_fn`` and tensor states reduced by SUM, MAX or MIN; (b) a
+    fresh binary ``approx=`` curve metric (``BinaryAUROC``, ``BinaryAUPRC``),
+    or an exact one that ``approx`` (when given) will switch. Exact curves
+    and multiclass sketches reject with the JAX package's reasons."""
     cls = type(metric)
-    if hasattr(metric, "_compaction_threshold") and hasattr(metric, "_compact"):
-        raise ValueError(
-            f"{cls.__qualname__} must run approx= to be sliced: a per-slice exact "
-            "sample cache is O(samples) per slice and cannot survive the slice "
-            "explosion (the approx= sketch mode is not ported yet)."
-        )
+    if _is_sketch_curve(metric):
+        if hasattr(metric, "num_classes"):
+            raise ValueError(
+                f"{cls.__qualname__} cannot be sliced: per-slice multiclass sketch "
+                "state would be (slices, classes, buckets); slice the binary "
+                "one-vs-all projections instead."
+            )
+        will_be_approx = metric._sketch_enabled() or (approx is not None and approx is not False)
+        if not will_be_approx:
+            raise ValueError(
+                f"{cls.__qualname__} must run approx= to be sliced: a per-slice exact "
+                "sample cache is O(samples) per slice and cannot survive the slice "
+                "explosion."
+            )
+        if bool(getattr(metric, "inputs", None)) or bool(getattr(metric, "_cached_samples", 0)):
+            raise ValueError(
+                "cannot slice a curve metric that already holds streamed "
+                "samples; construct it fresh."
+            )
+        return
     if not isinstance(metric, DeferredFoldMixin):
         raise ValueError(
             f"{cls.__qualname__} cannot be sliced: only array-state metrics with a "
@@ -615,8 +716,12 @@ def check_sliceable(metric: Metric) -> None:
             )
 
 
-def _build_member(template: Metric, table: SliceTable) -> _SlicedMemberBase:
+def _build_member(
+    template: Metric, table: SliceTable, *, curve_bucket_bits: Optional[int] = None
+) -> _SlicedMemberBase:
     check_sliceable(template)
+    if _is_sketch_curve(template):
+        return _SlicedScoreSketchMember(template, table, curve_bucket_bits=curve_bucket_bits)
     kind = _REDUCE_KINDS[type(template)._fold_reduce]
     return _FOLD_MEMBER_BY_KIND[kind](template, table)
 
@@ -627,7 +732,7 @@ class SlicedMetricCollection(MetricCollection):
 
     Example::
 
-        col = SlicedMetricCollection({"acc": BinaryAccuracy(), "mean": Mean()},
+        col = SlicedMetricCollection({"acc": BinaryAccuracy(), "auroc": BinaryAUROC(approx=1024)},
                                      capacity=4096)
         for slice_ids, scores, labels in stream:    # ids: any int64 cohorts
             col.update(slice_ids, scores, labels)
@@ -637,16 +742,23 @@ class SlicedMetricCollection(MetricCollection):
     ``metrics`` values are templates: each is expanded into an internal
     slice-axis member on the template's device, and the templates are left
     untouched. ``capacity`` seeds the dense row capacity, which grows
-    geometrically. Every member receives the same update columns, so build
+    geometrically. ``curve_bucket_bits`` sets the sketch members' width
+    (4 to 20 bits; default the template's own). Every member receives the same update columns, so build
     separate collections for metrics fed from different tensors.
     """
 
-    def __init__(self, metrics: Dict[str, Metric], *, capacity: int = _DEFAULT_CAPACITY) -> None:
+    def __init__(
+        self,
+        metrics: Dict[str, Metric],
+        *,
+        capacity: int = _DEFAULT_CAPACITY,
+        curve_bucket_bits: Optional[int] = None,
+    ) -> None:
         if isinstance(metrics, Metric):
             metrics = {"metric": metrics}
         self.slice_table = SliceTable(capacity)
         members = {
-            name: _build_member(template, self.slice_table)
+            name: _build_member(template, self.slice_table, curve_bucket_bits=curve_bucket_bits)
             for name, template in dict(metrics).items()
         }
         super().__init__(members)

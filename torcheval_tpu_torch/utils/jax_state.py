@@ -11,7 +11,12 @@ state in the numpy form the JAX side's ``load_state_dict`` takes.
 ``MetricCollection`` and a ``SlicedMetricCollection``: a sliced member's
 state carries its id table in the ``slice_ids_hi``/``slice_ids_lo`` and
 ``slice_count`` lanes, and loading it rebuilds the table and adopts the
-capacity on either side. None of these functions imports JAX.
+capacity on either side. The ``approx=`` sketch states
+(``sketch_tp``/``sketch_fp``/``sketch_nan_dropped``, ``sketch_counts``,
+``Quantile``'s ``bucket_counts``/``nan_dropped``, and the staged rows in the
+raw caches) and a sliced sketch member's per-cohort histograms carry the
+same way: loading recounts the staged rows, so the fold cadence continues
+where the other package left it. None of these functions imports JAX.
 """
 
 from __future__ import annotations

@@ -321,7 +321,9 @@ def run_scenarios(rank: int, world: int) -> dict:
     return res
 
 
-def main() -> None:
+def main(run=run_scenarios) -> None:
+    """Join the world named by the command line, run ``run(rank, world)``
+    and write its results (``sketch_sync_worker`` passes its own)."""
     rank, world, port, outdir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
     # join through the public bootstrap, fed torchrun-style variables
     os.environ.update(
@@ -331,7 +333,7 @@ def main() -> None:
 
     got = init_from_env(device="cpu")
     assert got == (rank, world), got
-    res = run_scenarios(rank, world)
+    res = run(rank, world)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     shutdown()
