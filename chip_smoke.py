@@ -34,7 +34,11 @@ failed check. Phases:
    correlated with the score), its counts exactly against numpy, its AUROC
    within rtol 1e-5 of the float64 trapezoid and, in every cohort, within
    the sketch's error bound (itself well below the distance to 0.5) of the
-   exact Mann-Whitney value;
+   exact Mann-Whitney value; and the shapes one rank of the sharded leg
+   gives the kernels: the top-k at a (64, 500,000) label tile (k = 100 and
+   10) and a (32, 10^6) row block, and the segment sum at the slice tile,
+   (2^24, 2) int32 with half the rows out of a 500,000-cohort tile, and at
+   the tile's sketch fold, (2^24,) ones into 500,000 x 33, half at -1;
 3. headline leg: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
@@ -95,6 +99,20 @@ failed check. Phases:
    the compaction kernel against its plain version at every fold size the
    ranks ran; then a world of one rank over NCCL, through ``init_from_env``, runs the
    sharded class counts (one histogram launch and one NCCL all_reduce);
+   sharded leg: two ranks on the card over gloo (``chip_smoke.py
+   --shard-rank R PORT DIR``), each with two 1-D ``DeviceMesh``es over the
+   pair: ``NDCG(k=10)`` and ``NDCG(k=100)`` with ``label_mesh=`` over the
+   retrieval leg's 4 batches, each rank holding its (64, 500,000) label
+   tiles, the merged top-k indices of every batch equal to the one-process
+   top-k's and the values within rtol 1e-5 of the retrieval leg's; the
+   row-sharded top-k over each rank's 32 rows of those batches; bench
+   ``config11_sliced`` with its ``Mean``/``Max`` pair through
+   ``SlicedMetricCollection(mesh=, mesh_axis=)``, each rank holding
+   500,000 cohorts, every cohort checked against numpy as in the sliced
+   leg and its values equal to the sliced leg's (means within rtol 1e-5);
+   and the sharded segment sum over each rank's half of the sliced window
+   (one launch and one all_reduce), equal to the plain sum of the whole
+   window; each rank prints its seconds, collective bytes and launches;
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
@@ -102,8 +120,11 @@ failed check. Phases:
    the binned curve's; ``hist_c2``, the histogram at config 3's 10^6 bins
    (with the segment sum's time on the same keys), and
    ``stream_compact_rows``, the compaction over the curve leg's flattened
-   per-class fold; and the segment sum at the four sketch-fold shapes
-   (``segment_sum_sketch_*``), with the sketch launches counted by leg.
+   per-class fold; the segment sum at the four sketch-fold shapes
+   (``segment_sum_sketch_*``), with the sketch launches counted by leg; and
+   the sharded leg's shapes (``topk_label_tile``, ``topk_row_block``,
+   ``segment_sum_slice_tile``, ``segment_sum_sketch_slice_tile``,
+   ``sharded_segment_sum``).
 
 Every leg prints its fold cadence: the window steps and the solo folds of
 ``metrics/deferred.py`` that it ran, and the batches each folded.
@@ -118,6 +139,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -152,6 +174,12 @@ QUANTILE_STACK = 4
 DP_RANKS, DP_CHUNKS = 2, 8
 DP_THRESHOLD = 3 * HEADLINE_CHUNK
 DP_TIMEOUT_S = 600
+# the sharded leg: two ranks on the card, each holding half of the retrieval
+# leg's label axis and of the sliced leg's cohorts
+SHARD_RANKS = 2
+SHARD_LABELS = RETRIEVAL_LABELS // SHARD_RANKS
+SHARD_COHORTS = SLICED_COHORTS // SHARD_RANKS
+SHARD_TIMEOUT_S = 600
 # BASELINE config 1 (bench.py:498-553): 200 batches of (8192, 5) scores
 SMALL_ROWS, SMALL_CLASSES, SMALL_BATCHES = 8192, 5, 200
 # BASELINE config 3 (bench.py:639-733): 13 batches of 100,000 int32
@@ -471,6 +499,11 @@ def _topk_cases(dev, gen):
         ("random 64x1000000 k=10", rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS), 10),
         ("ideal ranking 64x1000000 k=100", (rand(RETRIEVAL_ROWS, RETRIEVAL_LABELS) < TARGET_DENSITY).float(), 100),
         ("all equal 64x1000000 k=100", torch.full((RETRIEVAL_ROWS, RETRIEVAL_LABELS), 0.5, device=dev), 100),
+        ("label tile 64x500000 k=100", rand(RETRIEVAL_ROWS, SHARD_LABELS), 100),
+        ("label tile 64x500000 k=10", rand(RETRIEVAL_ROWS, SHARD_LABELS), 10),
+        ("ideal ranking, label tile 64x500000 k=100",
+         (rand(RETRIEVAL_ROWS, SHARD_LABELS) < TARGET_DENSITY).float(), 100),
+        ("row block 32x1000000 k=100", rand(RETRIEVAL_ROWS // SHARD_RANKS, RETRIEVAL_LABELS), 100),
         ("all equal", torch.full((256, 10_000), 0.5, device=dev), 128),
         ("heavy ties", ties(1024, 10_000), 128),
         ("+-inf, +-0.0, +-NaN", special, 64),
@@ -630,6 +663,46 @@ def check_segment_sum(dev):
               f"|kernel - plain| <= {diff:.3e}")
         del ref, mag, count, bound
     return worst
+
+
+def slice_tile_inputs(dev):
+    """The segment sum's operands at the sharded sliced leg's tile shapes,
+    as rank 1 of 2 sees them: (2^24, 2) int32 accuracy deltas with uniform
+    cohort rows over 10^6, localised to the tile [500,000, 10^6) (so half
+    are out of it, negative), into 500,000 segments; and the 4-bit sketch
+    fold's (2^24,) int32 ones at ``local * 33 + plane``, -1 out of the
+    tile, into 500,000 x 33. ``{name: (vals, rows, segments, what)}``."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    n = SLICED_BATCHES * SLICED_ROWS
+    local = torch.randint(0, SLICED_COHORTS, (n,), generator=g, device=dev,
+                          dtype=torch.int32) - SHARD_COHORTS
+    deltas = torch.randint(0, 2, (n, 2), generator=g, device=dev, dtype=torch.int32)
+    deltas[:, 1] = 1
+    plane = torch.randint(0, SLICED_PLANES, (n,), generator=g, device=dev, dtype=torch.int32)
+    ok = (local >= 0) & (local < SHARD_COHORTS)
+    idx = torch.where(ok, local * SLICED_PLANES + plane, -1)
+    return {
+        "slice_tile": (deltas, local, SHARD_COHORTS,
+                       f"({n}, 2) int32 deltas, uniform rows localised to a tile of "
+                       f"{SHARD_COHORTS} cohorts (half out of it)"),
+        "sketch_slice_tile": (torch.ones(n, dtype=torch.int32, device=dev), idx,
+                              SHARD_COHORTS * SLICED_PLANES,
+                              f"({n},) int32 ones into {SHARD_COHORTS} x {SLICED_PLANES} "
+                              "(the tile's 4-bit sketch fold, half at -1)"),
+    }
+
+
+def check_slice_tiles(inputs):
+    """The segment sum bit for bit against its plain version at the tile
+    shapes (integers: exact). Returns the largest |kernel - plain|."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    for name, (vals, rows, segments, what) in inputs.items():
+        got = segment_sum(vals, rows, segments)
+        _require(torch.equal(got, segment_sum_plain(vals, rows, segments)), f"segment_sum at {what}")
+        torch.cuda.synchronize()
+        print(f"  segment_sum at {what}: exact")
+    return 0.0
 
 
 def sketch_gen(dev):
@@ -1126,7 +1199,10 @@ def check_topk_leg(dev, batches):
               f"first 64 rows {got:.8f} vs float64 numpy {want:.8f}")
 
 
-def retrieval_leg_data(dev, gen):
+def retrieval_leg_data(dev):
+    """The retrieval leg's batches, from their own seed: the sharded leg's
+    ranks make the same ones."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     shape = (RETRIEVAL_ROWS, RETRIEVAL_LABELS)
     return [
         (torch.rand(shape, generator=gen, device=dev),
@@ -1151,10 +1227,12 @@ def retrieval_leg(dev, batches, k, topk_method="auto"):
     return ndcg, value, start.elapsed_time(end) / 1e3
 
 
-def sliced_leg_data(dev, gen):
+def sliced_leg_data(dev):
     """``bench.py:2039-2047``, seeded: every cohort once (registration), then
     power-law traffic, ids made sparse by ``id * 7919 + 13``; scores and
-    targets on the card, ids on the host (interning needs host bytes)."""
+    targets on the card, ids on the host (interning needs host bytes). From
+    their own seeds: the sharded leg's ranks make the same rows."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     rng = np.random.default_rng(SEED)
     total = SLICED_ROWS * (SLICED_BATCHES + 1)
     zipf = _zipf_rows(rng, total, SLICED_COHORTS)
@@ -1171,10 +1249,12 @@ def _sliced_batch(data, i):
     return ids[sl], scores[sl], targets[sl]
 
 
-def sliced_setup(dev, data):
+def sliced_setup(dev, data, **mesh_kw):
     """Both collections, with every cohort registered by batch 0: bench.py's
     ``config11_sliced`` pair (accuracy and a 4-bit AUROC sketch a cohort)
-    and the ``Mean``/``Max`` pair beside it."""
+    and the ``Mean``/``Max`` pair beside it; ``mesh_kw`` (``mesh``,
+    ``mesh_axis``) shards their slice axis. The registration batch folds
+    before the function returns (no collective: each member folds alone)."""
     from torcheval_tpu_torch.metrics import (
         BinaryAccuracy,
         BinaryAUROC,
@@ -1187,13 +1267,16 @@ def sliced_setup(dev, data):
         {"acc": BinaryAccuracy(device=dev), "auroc": BinaryAUROC(approx=1024, device=dev)},
         capacity=SLICED_COHORTS,
         curve_bucket_bits=SLICED_BITS,
+        **mesh_kw,
     )
     agg = SlicedMetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)},
-                                 capacity=SLICED_COHORTS)
+                                 capacity=SLICED_COHORTS, **mesh_kw)
     ids, s, t = _sliced_batch(data, 0)
     acc.update(ids, s, t)
     agg.update(ids, s)
-    acc.state_dicts(), agg.state_dicts()  # the registration batch folds here
+    for col in (acc, agg):
+        for m in col.metrics.values():
+            m._fold_now()
     torch.cuda.synchronize()
     return acc, agg
 
@@ -1261,10 +1344,11 @@ def _first_seen_rows(ids):
     return row_of[inv.reshape(-1)], uniq[order], uniq.shape[0]
 
 
-def check_sliced_leg(data, acc, agg, results):
+def check_sliced_leg(data, member, results):
     """Per cohort, against numpy over all 17 batches: the slice ids in
-    first-seen order, num_correct and num_total exactly, the maxima exactly,
-    the means within rtol 1e-5 of float64."""
+    first-seen order, the accuracy ``member``'s num_correct and num_total
+    (attributes in the unsharded layout) exactly, the maxima exactly, the
+    means within rtol 1e-5 of float64."""
     ids, scores, targets = data
     s, t = scores.cpu().numpy(), targets.cpu().numpy()
     rows, first_seen, n = _first_seen_rows(ids)
@@ -1272,7 +1356,6 @@ def check_sliced_leg(data, acc, agg, results):
     correct = ((s >= 0.5).astype(np.float32) == t)
     want_correct = np.bincount(rows, weights=correct, minlength=n).astype(np.int64)
     want_total = np.bincount(rows, minlength=n).astype(np.int64)
-    member = acc.metrics["acc"]
     _require(np.array_equal(member.num_correct[:n].cpu().numpy(), want_correct), "per-cohort num_correct")
     _require(np.array_equal(member.num_total[:n].cpu().numpy(), want_total), "per-cohort num_total")
     want_max = np.full(n, -np.inf, np.float32)
@@ -1342,9 +1425,10 @@ def _sliced_sketch_against_numpy(rows, n, s, t, member, got, bits, pick):
     return float(err.max()), worst_err, worst_bound, least_margin, int(np.count_nonzero(tp + fp))
 
 
-def check_sliced_sketch(data, acc, results):
-    """The AUROC sketch member per cohort, against numpy over all 17
-    batches (:func:`_sliced_sketch_against_numpy`, 64 sampled cohorts).
+def check_sliced_sketch(data, member, results):
+    """The AUROC sketch ``member`` (its states as attributes, in the
+    unsharded layout) per cohort, against numpy over all 17 batches
+    (:func:`_sliced_sketch_against_numpy`, 64 sampled cohorts).
     Returns the largest trapezoid error, the sampled cohorts' largest error
     and bound, and the count of occupied buckets over all cohorts."""
     ids, scores, targets = data
@@ -1353,7 +1437,7 @@ def check_sliced_sketch(data, acc, results):
     _require(np.array_equal(results["auroc"].slice_ids, first_seen), "sketch slice ids in first-seen order")
     got = results["auroc"]["values"].cpu().numpy().astype(np.float64)
     trap_err, worst_err, worst_bound, _, occupied = _sliced_sketch_against_numpy(
-        rows, n, s, t, acc.metrics["auroc"], got, SLICED_BITS, None)
+        rows, n, s, t, member, got, SLICED_BITS, None)
     return trap_err, worst_err, worst_bound, occupied
 
 
@@ -1716,22 +1800,23 @@ def dp_worker(rank: int, port: str) -> int:
     return 0
 
 
-def dp_leg():
-    """Spawn the ranks, wait for them (killing all at the time limit) and
-    return each rank's result; any rank's failure fails the leg."""
+def spawn_ranks(flag, ranks, tag, timeout_s, *extra):
+    """Spawn ``chip_smoke.py <flag> R PORT *extra`` for each rank R, wait
+    for them (killing all at the time limit) and return each rank's
+    ``<tag> {json}`` line; any rank's failure fails the leg."""
     port = str(_free_port())
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
     procs = [
-        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), port],
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), port, *extra],
                          cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(DP_RANKS)
+        for r in range(ranks)
     ]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+            outs.append(p.communicate(timeout=timeout_s))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1741,11 +1826,16 @@ def dp_leg():
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
             print(err[-6000:], file=sys.stderr)
-            raise RuntimeError(f"check failed: data-parallel rank {r} exited {p.returncode}")
-        lines = [ln for ln in out.splitlines() if ln.startswith("DP_RESULT ")]
-        _require(len(lines) == 1, f"data-parallel rank {r} printed its result")
-        results.append(json.loads(lines[0][len("DP_RESULT "):]))
+            raise RuntimeError(f"check failed: {flag} rank {r} exited {p.returncode}")
+        lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+        _require(len(lines) == 1, f"{flag} rank {r} printed its result")
+        results.append(json.loads(lines[0][len(tag) + 1:]))
     return results
+
+
+def dp_leg():
+    """The data-parallel ranks' results."""
+    return spawn_ranks("--dp-rank", DP_RANKS, "DP_RESULT", DP_TIMEOUT_S)
 
 
 def dp_reference(dev):
@@ -1776,6 +1866,195 @@ def dp_reference(dev):
     }
     f1 = _f1_score_compute(tp.to(torch.int32), label.to(torch.int32), pred.to(torch.int32), "macro")
     return counts, correct / total, float(f1), float(auroc.compute())
+
+
+# ---------------------------------------------------- phase 4, sharded leg
+def _collectives():
+    """The gloo bytes this rank has sent so far, and the collective count."""
+    from torcheval_tpu_torch.utils import dist as tdist
+
+    return (tdist.all_gather_stacked.bytes + tdist.all_reduce_sum.bytes,
+            tdist.all_gather_stacked.calls + tdist.all_reduce_sum.calls)
+
+
+def _since(mark):
+    now = _collectives()
+    return {"collective_bytes": now[0] - mark[0], "collectives": now[1] - mark[1]}
+
+
+def shard_worker(rank: int, port: str, outdir: str) -> int:
+    """One rank of the sharded leg (``chip_smoke.py --shard-rank R PORT
+    OUTDIR``), on ``cuda:0`` over gloo: the retrieval leg's batches with the
+    label axis split over the ranks (``NDCG(label_mesh=)``), the row-sharded
+    top-k over each rank's rows of them, bench's ``config11_sliced`` with
+    the cohorts split over the ranks (``SlicedMetricCollection(mesh=,
+    mesh_axis=)``), and the sharded segment sum over each rank's half of the
+    sliced window. Every path's launches and collective bytes are counted
+    from zero around it; the checks' launches are not. Prints one
+    ``SHARD_RESULT`` JSON line and writes its per-cohort values to
+    ``OUTDIR/rank<R>_sliced.npz``."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torcheval_tpu_torch.metrics import NDCG
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain, sharded_segment_sum
+    from torcheval_tpu_torch.ops.topk import sharded_label_topk, sharded_topk_kernel, topk_kernel
+    from torcheval_tpu_torch.parallel import (
+        block_bounds,
+        data_parallel_mesh,
+        init_from_env,
+        label_tile,
+        shard_batch,
+        shutdown,
+    )
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(SHARD_RANKS),
+                      RANK=str(rank), LOCAL_RANK="0")
+    _require(init_from_env(backend="gloo") == (rank, SHARD_RANKS), "sharded rank joined")
+    dev = torch.device("cuda", 0)
+    label_mesh = init_device_mesh("cuda", (SHARD_RANKS,), mesh_dim_names=("label",))
+    slice_mesh = init_device_mesh("cuda", (SHARD_RANKS,), mesh_dim_names=("slice",))
+    out = {"rank": rank, "retrieval": {}}
+
+    # --- the retrieval leg's batches, each rank keeping its label tile (and
+    # its block of rows for the row-sharded top-k), with the one-process
+    # top-k of every batch to hold the merged indices against
+    batches = retrieval_leg_data(dev)
+    want = {k: [topk_kernel(s, k)[1] for s, _ in batches] for k in RETRIEVAL_KS}
+    blocks = [shard_batch(data_parallel_mesh(), s) for s, _ in batches]
+    tiles = [(label_tile(s, label_mesh, "label"), label_tile(t, label_mesh, "label"))
+             for s, t in batches]
+    del batches
+    torch.cuda.empty_cache()
+    _require(all(ts.shape == (RETRIEVAL_ROWS, SHARD_LABELS) for ts, _ in tiles), "label tiles")
+    lm = (label_mesh, "label")
+    NDCG(k=RETRIEVAL_KS[0], label_mesh=lm, device=dev).update(*tiles[0]).compute()  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    for k in RETRIEVAL_KS:
+        topk_kernel.launches = 0
+        mark = _collectives()
+        folds0 = fold_counts()
+        t0 = time.perf_counter()
+        ndcg = NDCG(k=k, label_mesh=lm, device=dev)
+        for ts, tt in tiles:
+            ndcg.update(ts, tt)
+        value = float(ndcg.compute())
+        seconds = time.perf_counter() - t0
+        out["retrieval"][str(k)] = {"value": value, "num_valid": int(ndcg.num_valid),
+                                    "seconds": seconds, "topk_launches": topk_kernel.launches,
+                                    "cadence": cadence(folds0), **_since(mark)}
+    for k in RETRIEVAL_KS:
+        for b, (ts, _) in enumerate(tiles):
+            _, idx = sharded_label_topk(ts, k, mesh=label_mesh, label_axis="label")
+            _require(torch.equal(idx, want[k][b]),
+                     f"rank {rank}: merged top-{k} indices of batch {b} equal the one-process top-k")
+    # --- the row-sharded top-k: this rank's rows of each batch, no collective
+    lo, hi = block_bounds(RETRIEVAL_ROWS, SHARD_RANKS, rank)
+    topk_kernel.launches = 0
+    mark = _collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [sharded_topk_kernel(blk, RETRIEVAL_KS[-1])[1] for blk in blocks]
+    torch.cuda.synchronize()
+    out["row_topk"] = {"seconds": time.perf_counter() - t0, "topk_launches": topk_kernel.launches,
+                       **_since(mark)}
+    for b, idx in enumerate(got):
+        _require(torch.equal(idx, want[RETRIEVAL_KS[-1]][b][lo:hi]),
+                 f"rank {rank}: row-sharded top-k of batch {b} equals the one-process rows")
+    del tiles, blocks, want, got
+    torch.cuda.empty_cache()
+
+    # --- config11 with the cohorts split over the ranks
+    data = sliced_leg_data(dev)
+    mesh_kw = {"mesh": slice_mesh, "mesh_axis": "slice"}
+    sliced_epoch(dev, data, *sliced_setup(dev, data, **mesh_kw))  # warm-up
+    acc, agg = sliced_setup(dev, data, **mesh_kw)
+    dist.barrier()
+    segment_sum.launches = 0
+    mark = _collectives()
+    folds0 = fold_counts()
+    with record_sketch_folds() as rec:
+        results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
+    out["sliced"] = {"seconds": sliced_s, "wall_seconds": sliced_wall, "peak_bytes": sliced_peak,
+                     "segment_sum_launches": segment_sum.launches, "cadence": cadence(folds0),
+                     "sketch_folds": rec.count(n=SLICED_BATCHES * SLICED_ROWS,
+                                               segments=SHARD_COHORTS * SLICED_PLANES),
+                     **_since(mark)}
+    for col in (acc, agg):
+        for m in col.metrics.values():
+            rows = getattr(m, m._sliced_state_names[0]).shape[0]
+            _require(rows == SHARD_COHORTS, f"rank {rank}: a member holds {rows} cohort rows")
+    # the checks read the states in the unsharded layout (a gather each)
+    acc_state = SimpleNamespace(**acc.metrics["acc"].state_dict())
+    auroc_state = SimpleNamespace(**acc.metrics["auroc"].state_dict())
+    worst_mean = check_sliced_leg(data, acc_state, results)
+    trap_err, mw_err, mw_bound, occupied = check_sliced_sketch(data, auroc_state, results)
+    out["sliced"].update(worst_mean=worst_mean, trap_err=trap_err, mw_err=mw_err,
+                         mw_bound=mw_bound, occupied=occupied)
+    np.savez(os.path.join(outdir, f"rank{rank}_sliced.npz"), ids=results["acc"].slice_ids,
+             **{k: results[k]["values"].cpu().numpy() for k in ("acc", "auroc", "mean", "max")})
+
+    # --- the sharded segment sum: each rank sums its half of the sliced
+    # window's accuracy deltas, then one all_reduce
+    window = slice(SLICED_ROWS, (SLICED_BATCHES + 1) * SLICED_ROWS)
+    rows = torch.from_numpy(acc.slice_table.lookup_rows(data[0][window])).to(dev)
+    correct = ((data[1][window] >= 0.5).to(torch.float32) == data[2][window]).to(torch.int32)
+    deltas = torch.stack([correct, torch.ones_like(correct)], dim=-1)
+    lo, hi = block_bounds(rows.shape[0], SHARD_RANKS, rank)
+    segment_sum.launches = 0
+    mark = _collectives()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total = sharded_segment_sum(deltas[lo:hi], rows[lo:hi], SLICED_COHORTS)
+    torch.cuda.synchronize()
+    out["sharded_segment_sum"] = {"seconds": time.perf_counter() - t0,
+                                  "segment_sum_launches": segment_sum.launches, **_since(mark)}
+    _require(torch.equal(total, segment_sum_plain(deltas, rows, SLICED_COHORTS)),
+             f"rank {rank}: sharded segment sum equals the plain sum of the whole window")
+    shutdown()
+    print("SHARD_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def shard_leg(outdir):
+    """The sharded leg's ranks' results."""
+    return spawn_ranks("--shard-rank", SHARD_RANKS, "SHARD_RESULT", SHARD_TIMEOUT_S, outdir)
+
+
+def check_shard_leg(ranks, outdir, retrieval, sliced, sliced_launches):
+    """Each rank against the one-process legs: NDCG within rtol 1e-5 and
+    the same valid rows; every cohort's id, accuracy, AUROC and max equal,
+    its mean within rtol 1e-5; the launches of each path."""
+    for res in ranks:
+        r = res["rank"]
+        for k in RETRIEVAL_KS:
+            got = res["retrieval"][str(k)]
+            value, num_valid = retrieval[k]
+            _require(got["num_valid"] == num_valid and _close(got["value"], value),
+                     f"rank {r}: label-sharded NDCG@{k} {got['value']} vs one process {value}")
+            _require(got["topk_launches"] == 2 * RETRIEVAL_BATCHES,
+                     f"rank {r}: NDCG@{k} launched topk {got['topk_launches']} times (ranking and "
+                     "ideal a batch)")
+        _require(res["row_topk"]["topk_launches"] == RETRIEVAL_BATCHES
+                 and res["row_topk"]["collectives"] == 0,
+                 f"rank {r}: the row-sharded top-k launched once a batch, no collective")
+        _require(res["sliced"]["segment_sum_launches"] == sliced_launches
+                 and res["sliced"]["sketch_folds"] == 1,
+                 f"rank {r}: sliced segment_sum launches {res['sliced']['segment_sum_launches']} "
+                 f"vs the one-process leg's {sliced_launches}, one sketch fold on the tile")
+        _require(res["sharded_segment_sum"]["segment_sum_launches"] == 1
+                 and res["sharded_segment_sum"]["collectives"] == 1,
+                 f"rank {r}: sharded segment sum, one launch and one all_reduce")
+        with np.load(os.path.join(outdir, f"rank{r}_sliced.npz")) as f:
+            _require(np.array_equal(f["ids"], sliced["ids"]), f"rank {r}: cohort ids")
+            for key in ("acc", "auroc", "max"):
+                _require(np.array_equal(f[key], sliced[key]), f"rank {r}: per-cohort {key} equal")
+            err = np.abs(f["mean"].astype(np.float64) - sliced["mean"])
+            _require(bool(np.all(err <= ATOL + RTOL * np.abs(sliced["mean"]))),
+                     f"rank {r}: per-cohort mean (largest error {err.max():.3e})")
 
 
 def nccl_world_of_one(dev, gen):
@@ -1984,18 +2263,24 @@ def sketch_rows(timer, inputs, launches_at, err):
     return rows
 
 
-def topk_row(dev, gen, timer, launches, err):
+def _topk_times(dev, gen, timer, n, l, k):
     from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
 
+    x = torch.rand((n, l), generator=gen, device=dev)
+    # each score read once, each value (4 B) and int64 index (8 B) written once
+    return {
+        "ms": timer.ms(lambda: topk_kernel(x, k)),
+        "plain_ms": timer.ms(lambda: topk_kernel_plain(x, k)),
+        "bound_ms": (n * l * 4 + n * k * 12) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": timer.ms(lambda: torch.topk(x, k)),
+    }
+
+
+def topk_row(dev, gen, timer, launches, err):
+    from torcheval_tpu_torch.ops.topk import topk_kernel
+
     def times(n, l, k):
-        x = torch.rand((n, l), generator=gen, device=dev)
-        # each score read once, each value (4 B) and int64 index (8 B) written once
-        return {
-            "ms": timer.ms(lambda: topk_kernel(x, k)),
-            "plain_ms": timer.ms(lambda: topk_kernel_plain(x, k)),
-            "bound_ms": (n * l * 4 + n * k * 12) / HBM_BYTES_PER_S * 1e3,
-            "library_ms": timer.ms(lambda: torch.topk(x, k)),
-        }
+        return _topk_times(dev, gen, timer, n, l, k)
 
     row = {
         "name": "topk",
@@ -2018,6 +2303,86 @@ def topk_row(dev, gen, timer, launches, err):
         "library_ms": timer.ms(lambda: torch.topk(equal, 100)),
     }
     return row
+
+
+def shard_rows(dev, gen, timer, launches, errs, window):
+    """The sharded leg's kernels at the shapes one rank gives them: the
+    top-k at a (64, 500,000) label tile (k = 100, and 10 beside it) and at
+    a (32, 10^6) row block; the segment sum at the slice tile and at the
+    tile's sketch fold (``index_add_`` into a dead extra segment as the
+    library, its index remapped before the timing); and the sharded segment
+    sum's local launch over half of the sliced window (its all_reduce is
+    the ranks' to time)."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    rows = []
+    label = {"name": "topk_label_tile", "route": "cuda", "source": "torcheval_tpu_torch/csrc/topk.cu",
+             "replaces": "torcheval_tpu/ops/topk.py:520", "launches": launches["topk_label"],
+             "max_abs_err": errs["topk"],
+             **_topk_times(dev, gen, timer, RETRIEVAL_ROWS, SHARD_LABELS, 100), "bound_by": "bytes",
+             "shape": f"({RETRIEVAL_ROWS}, {SHARD_LABELS}) float32 label tile, k=100 (sharded_label_topk)"}
+    label["at_k10"] = _topk_times(dev, gen, timer, RETRIEVAL_ROWS, SHARD_LABELS, 10)
+    rows.append(label)
+    block = RETRIEVAL_ROWS // SHARD_RANKS
+    rows.append({"name": "topk_row_block", "route": "cuda", "source": "torcheval_tpu_torch/csrc/topk.cu",
+                 "replaces": "torcheval_tpu/ops/topk.py:354", "launches": launches["topk_row"],
+                 "max_abs_err": errs["topk"],
+                 **_topk_times(dev, gen, timer, block, RETRIEVAL_LABELS, 100), "bound_by": "bytes",
+                 "shape": f"({block}, {RETRIEVAL_LABELS}) float32 row block, k=100 (sharded_topk_kernel)"})
+    for name, (vals, keys, segments, what) in slice_tile_inputs(dev).items():
+        n = keys.numel()
+        d = 1 if vals.ndim == 1 else vals.shape[1]
+        dead = torch.where((keys >= 0) & (keys < segments), keys, segments)
+
+        def library(vals=vals, dead=dead, segments=segments):
+            return torch.zeros((segments + 1,) + vals.shape[1:], dtype=vals.dtype,
+                               device=vals.device).index_add_(0, dead, vals)
+
+        rows.append({
+            "name": f"segment_sum_{name}",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/csrc/scatter.cu",
+            "replaces": ("torcheval_tpu/ops/scatter.py:242" if name == "slice_tile"
+                         else "torcheval_tpu/sketch/cache.py:471"),
+            "launches": launches[f"segment_sum_{name}"],
+            "max_abs_err": errs["segment_sum_tile"],
+            "ms": timer.ms(lambda: segment_sum(vals, keys, segments)),
+            "plain_ms": timer.ms(lambda: segment_sum_plain(vals, keys, segments)),
+            # every sample's values and row read once, the tile written once
+            "bound_ms": (n * d * 4 + n * keys.element_size() + segments * d * 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": timer.ms(library),
+            "shape": what,
+        })
+        del dead
+    w_rows, w_scores, w_targets = window
+    half = w_rows.shape[0] // SHARD_RANKS
+    correct = ((w_scores[:half] >= 0.5).to(torch.float32) == w_targets[:half]).to(torch.int32)
+    deltas = torch.stack([correct, torch.ones_like(correct)], dim=-1)
+    r = w_rows[:half]
+    s = SLICED_COHORTS
+    _require(torch.equal(segment_sum(deltas, r, s), segment_sum_plain(deltas, r, s)),
+             "segment_sum at one rank's half of the sliced window")
+
+    def library():
+        return torch.zeros((s, 2), dtype=torch.int32, device=dev).index_add_(0, r, deltas)
+
+    rows.append({
+        "name": "sharded_segment_sum",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/scatter.cu",
+        "replaces": "torcheval_tpu/ops/scatter.py:370",
+        "launches": launches["sharded_segment_sum"],
+        "max_abs_err": 0.0,
+        "ms": timer.ms(lambda: segment_sum(deltas, r, s)),
+        "plain_ms": timer.ms(lambda: segment_sum_plain(deltas, r, s)),
+        "bound_ms": (half * 2 * 4 + half * 4 + s * 2 * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(library),
+        "shape": (f"one rank's local sum: ({half}, 2) int32 deltas, half of the sliced window, "
+                  f"into {s} cohorts (then one all_reduce of the (10^6, 2) sums)"),
+    })
+    return rows
 
 
 def hist_c2_row(dev, timer, launches, keys):
@@ -2152,6 +2517,7 @@ def main() -> int:
             "topk": check_topk(dev, gen), "segment_sum": check_segment_sum(dev)}
     # made again from the same seed in phase 5: not resident through the legs
     errs["segment_sum_sketch"] = check_sketch_folds(dev, sketch_fold_inputs(dev, sketch_gen(dev)))
+    errs["segment_sum_tile"] = check_slice_tiles(slice_tile_inputs(dev))
     check_sliced_sketch_spread(dev)
     check_compact_counts(dev, gen, fold_scores, fold_t)
     check_classification_shapes(dev, gen)
@@ -2348,8 +2714,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 4 retrieval leg (BASELINE config 6)")
-    batches = retrieval_leg_data(dev, gen)
+    batches = retrieval_leg_data(dev)
     retrieval_launches = 0
+    retrieval_values = {}
     for k in RETRIEVAL_KS:
         retrieval_leg(dev, batches, k)  # warm-up
         topk_kernel.launches = 0
@@ -2362,6 +2729,7 @@ def main() -> int:
         plain, plain_value, _ = retrieval_leg(dev, batches, k, topk_method="dense")
         _require(int(ndcg.num_valid) == int(plain.num_valid) and _close(value, plain_value),
                  f"NDCG@{k} {value} vs dense route {plain_value}")
+        retrieval_values[k] = (value, int(ndcg.num_valid))
         n_rows = RETRIEVAL_BATCHES * RETRIEVAL_ROWS
         print(f"  NDCG@{k} {value:.8f} (dense route {plain_value:.8f}) over {n_rows} rows of "
               f"{RETRIEVAL_LABELS} labels in {seconds:.4f} s (CUDA events): {n_rows / seconds:.1f} "
@@ -2371,7 +2739,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 4 sliced leg (bench.py config11_sliced whole, with Mean and Max beside it)")
-    data = sliced_leg_data(dev, gen)
+    data = sliced_leg_data(dev)
     n_rows = SLICED_BATCHES * SLICED_ROWS
     sliced_epoch(dev, data, *sliced_setup(dev, data))  # warm-up: first use of each kernel
     acc, agg = sliced_setup(dev, data)
@@ -2384,8 +2752,8 @@ def main() -> int:
     sketch_launches["sliced"] = rec.count(n=n_rows, segments=SLICED_COHORTS * SLICED_PLANES)
     _require(sliced_launches > 0 and sketch_launches["sliced"] == 1,
              f"segment_sum launched on the sliced leg, one sketch fold: {rec.shapes}")
-    worst_mean = check_sliced_leg(data, acc, agg, results)
-    trap_err, mw_err, mw_bound, occupied = check_sliced_sketch(data, acc, results)
+    worst_mean = check_sliced_leg(data, acc.metrics["acc"], results)
+    trap_err, mw_err, mw_bound, occupied = check_sliced_sketch(data, acc.metrics["auroc"], results)
     intern_s = interning_seconds(acc.slice_table, data)
     plain_s = unsliced_leg(dev, data)
     print(f"  {n_rows} rows into {SLICED_COHORTS} cohorts in {sliced_s:.4f} s (CUDA events; "
@@ -2409,8 +2777,57 @@ def main() -> int:
     window = slice(SLICED_ROWS, (SLICED_BATCHES + 1) * SLICED_ROWS)
     window_inputs = (torch.from_numpy(acc.slice_table.lookup_rows(data[0][window])).to(dev),
                      data[1][window], data[2][window])
+    sliced_values = {"ids": results["acc"].slice_ids,
+                     **{k: results[k]["values"].cpu().numpy() for k in ("acc", "auroc", "max")},
+                     "mean": results["mean"]["values"].cpu().numpy().astype(np.float64)}
     del acc, agg, results
     torch.cuda.empty_cache()
+
+    print(f"phase 4 sharded leg ({SHARD_RANKS} ranks on one card over gloo: the retrieval leg's "
+          f"label axis and the sliced leg's cohorts split over them)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as shard_dir:
+        shard_ranks = shard_leg(shard_dir)
+        check_shard_leg(shard_ranks, shard_dir, retrieval_values, sliced_values, sliced_launches)
+    for res in shard_ranks:
+        r = res["rank"]
+        for k in RETRIEVAL_KS:
+            g = res["retrieval"][str(k)]
+            print(f"  rank {r}: NDCG@{k} {g['value']:.8f} (one process {retrieval_values[k][0]:.8f}) "
+                  f"over {RETRIEVAL_BATCHES} x ({RETRIEVAL_ROWS}, {SHARD_LABELS}) label tiles in "
+                  f"{g['seconds']:.4f} s (host clock): "
+                  f"{RETRIEVAL_BATCHES * RETRIEVAL_ROWS / g['seconds']:.1f} rows/s; topk launches "
+                  f"{g['topk_launches']}; {g['collectives']} collectives, {g['collective_bytes']} "
+                  f"bytes sent; fold cadence: {cadence_text(g['cadence'])}")
+        g = res["row_topk"]
+        print(f"  rank {r}: row-sharded top-k (k={RETRIEVAL_KS[-1]}) over its "
+              f"{RETRIEVAL_ROWS // SHARD_RANKS} rows of each batch in {g['seconds']:.4f} s: topk "
+              f"launches {g['topk_launches']}, {g['collectives']} collectives")
+        g = res["sliced"]
+        print(f"  rank {r}: config11 over its {SHARD_COHORTS} cohorts of {SLICED_COHORTS}: "
+              f"{n_rows} rows in {g['seconds']:.4f} s (CUDA events; {g['wall_seconds']:.4f} s on "
+              f"the host clock): {n_rows / g['seconds']:.1f} rows/s; segment_sum launches "
+              f"{g['segment_sum_launches']}; {g['collectives']} collectives, "
+              f"{g['collective_bytes']} bytes sent; peak memory {g['peak_bytes'] / 2**30:.2f} GiB; "
+              f"fold cadence: {cadence_text(g['cadence'])}")
+        print(f"  rank {r}: per-cohort counts and max equal numpy, means within "
+              f"{g['worst_mean']:.3e}, sketch counts equal np.bincount ({g['occupied']} occupied "
+              f"pairs), AUROC within {g['trap_err']:.3e} of the trapezoid, sampled cohorts within "
+              f"their bounds (largest |error| {g['mw_err']:.3e}); values equal the one-process leg's")
+        g = res["sharded_segment_sum"]
+        print(f"  rank {r}: sharded segment sum over its half of the sliced window: "
+              f"{g['seconds']:.4f} s, segment_sum launches {g['segment_sum_launches']}, "
+              f"{g['collective_bytes']} bytes all-reduced")
+    shard_launches = {
+        "topk_label": sum(res["retrieval"][str(k)]["topk_launches"]
+                          for res in shard_ranks for k in RETRIEVAL_KS),
+        "topk_row": sum(res["row_topk"]["topk_launches"] for res in shard_ranks),
+        # each rank's epoch: the accuracy and Mean folds, and the sketch fold
+        "segment_sum_slice_tile": sum(res["sliced"]["segment_sum_launches"]
+                                      - res["sliced"]["sketch_folds"] for res in shard_ranks),
+        "segment_sum_sketch_slice_tile": sum(res["sliced"]["sketch_folds"] for res in shard_ranks),
+        "sharded_segment_sum": sum(res["sharded_segment_sum"]["segment_sum_launches"]
+                                   for res in shard_ranks),
+    }
 
     print(f"phase 4 data-parallel leg ({DP_RANKS} ranks on one card over gloo, "
           f"{DP_CHUNKS} chunks of {HEADLINE_CHUNK})")
@@ -2467,11 +2884,15 @@ def main() -> int:
     rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     rows[-1]["launches_by_leg"] = by_leg
+    shard = shard_rows(dev, gen, timer, shard_launches, errs, window_inputs)
+    shard[-1]["all_reduce_seconds_by_rank"] = [res["sharded_segment_sum"]["seconds"]
+                                               for res in shard_ranks]
     del window_inputs
     rows.append(hist_c2_row(dev, timer, cm_launches, cm_keys))
     rows.append(compact_rows_row(timer, curve_launches["stream_compact"], curve_fold))
     rows.extend(sketch_rows(timer, sketch_fold_inputs(dev, sketch_gen(dev)), sketch_launches,
                             errs["segment_sum_sketch"]))
+    rows.extend(shard)
     del cm_keys, curve_fold
     torch.cuda.synchronize()
     for r in rows:
@@ -2517,6 +2938,12 @@ def main() -> int:
     print(f"  per-class fold at {rows[5]['shape']}: compact_count_rows_fast {fold_t['fast_ms']:.4f} ms, "
           f"the batched two-sort {fold_t['two_sort_ms']:.4f} ms")
     print(f"  segment_sum launches by leg: {by_leg}")
+    t = shard[0]["at_k10"]
+    print(f"  topk_label_tile: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+          f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({RETRIEVAL_ROWS}, {SHARD_LABELS}) "
+          f"float32 label tile, k=10")
+    print(f"  sharded leg launches: {shard_launches}; sharded segment sum's all_reduce by rank "
+          f"(host clock, kernel included): {shard[-1]['all_reduce_seconds_by_rank']}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2527,4 +2954,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--shard-rank":
+        sys.exit(shard_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -66,7 +66,7 @@ def _leg(cs, name, dev, gen):
     outside the profiled region, ``run()`` drives the leg once and returns
     ``(seconds, values)``; ``count`` units make one run."""
     if name == "sliced":
-        data = cs.sliced_leg_data(dev, gen)
+        data = cs.sliced_leg_data(dev)
         cols = []
 
         def prepare():
@@ -139,7 +139,7 @@ def _plain_leg(cs, name, dev, gen):
 
         return run, cs.CURVE_BATCHES * cs.CURVE_ROWS, "rows"
     k = int(name[len("ndcg"):])
-    batches = cs.retrieval_leg_data(dev, gen)
+    batches = cs.retrieval_leg_data(dev)
 
     def run():
         _, value, seconds = cs.retrieval_leg(dev, batches, k)

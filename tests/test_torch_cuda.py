@@ -943,3 +943,113 @@ def test_sliced_sketch_member_on_the_card_equals_the_cpu(dev, bits):
     torch.testing.assert_close(got["values"].cpu(), want["values"], rtol=1e-5, atol=1e-8)
     assert float(want["values"].mean()) > 0.7
     assert torch.equal(cols[0].metrics["auroc"].sketch_tp.cpu(), cols[1].metrics["auroc"].sketch_tp)
+
+
+# ------------------------------------------ the sharded forms, a world of one
+@pytest.fixture
+def mesh_of_one(dev):
+    """A gloo world of one rank on the card and ``cuda`` meshes over it: a
+    label dim and a slice dim."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield (init_device_mesh("cuda", (1,), mesh_dim_names=("label",)),
+               init_device_mesh("cuda", (1,), mesh_dim_names=("slices",)))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_sharded_label_topk_at_world_of_one_launches_the_kernel(dev, mesh_of_one, k):
+    from torcheval_tpu_torch.ops.topk import sharded_label_topk
+
+    label, _ = mesh_of_one
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = torch.randint(0, 50, (16, 60_000), generator=g, device=dev).to(torch.float32)
+    t = torch.rand((16, 60_000), generator=g, device=dev)
+    before = topk_kernel.launches
+    v, i, c = sharded_label_topk(x, k, mesh=label, label_axis="label", gather=t)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches == before + 1
+    want_v, want_i = topk(x, k, method="dense")
+    assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(i, want_i) and torch.equal(c, torch.gather(t, 1, want_i))
+
+
+def test_row_sharded_topk_launches_the_kernel(dev):
+    from torcheval_tpu_torch.ops.topk import sharded_topk_kernel
+
+    x = torch.rand((32, 20_000), device=dev)
+    before = topk_kernel.launches
+    v, i = sharded_topk_kernel(x, 7)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches == before + 1 and v.device == x.device
+    assert torch.equal(i, topk(x, 7, method="dense")[1])
+
+
+@pytest.mark.parametrize("reduce", ["sum", "max"])
+def test_tile_segment_scatter_at_world_of_one(dev, mesh_of_one, reduce):
+    _, slices = mesh_of_one
+    g = torch.Generator(device=dev).manual_seed(1)
+    vals = torch.randint(0, 9, (100_000, 2), generator=g, device=dev, dtype=torch.int32)
+    rows = torch.randint(-5, 5005, (100_000,), generator=g, device=dev, dtype=torch.int32)
+    before = segment_sum.launches
+    got = segment_scatter(vals, rows, 5000, reduce=reduce, mesh=slices, axis="slices")
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + (reduce == "sum")
+    assert torch.equal(got.cpu(), segment_scatter(vals.cpu(), rows.cpu(), 5000, reduce=reduce))
+
+
+def test_sharded_segment_sum_at_world_of_one(dev, mesh_of_one):
+    from torcheval_tpu_torch.ops.scatter import sharded_segment_sum
+
+    vals = torch.randint(0, 9, (100_000, 2), device=dev, dtype=torch.int32)
+    rows = torch.randint(-5, 1005, (100_000,), device=dev)
+    before = segment_sum.launches
+    got = sharded_segment_sum(vals, rows, 1000)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1 and got.device == vals.device
+    assert torch.equal(got.cpu(), segment_sum_plain(vals.cpu(), rows.cpu(), 1000))
+
+
+def test_sharded_sliced_collection_at_world_of_one_equals_the_cpu(dev, mesh_of_one):
+    import torcheval_tpu_torch.metrics as TM
+
+    _, slices = mesh_of_one
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 3000, 100_000).astype(np.int64) * 5 + 3
+    s = torch.from_numpy(rng.random(100_000).astype(np.float32))
+    t = torch.from_numpy((rng.random(100_000) < 0.4).astype(np.float32))
+
+    def make(d, **kw):
+        return TM.SlicedMetricCollection(
+            {"acc": TM.BinaryAccuracy(device=d), "auroc": TM.BinaryAUROC(approx=1024, device=d)},
+            capacity=1024, curve_bucket_bits=6, **kw)
+
+    card = make(dev, mesh=slices, mesh_axis="slices")
+    before = segment_sum.launches
+    card.update(ids, s.to(dev), t.to(dev))
+    got = card.compute()
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 2
+    want = make("cpu").update(ids, s, t).compute()
+    for name in ("acc", "auroc"):
+        np.testing.assert_array_equal(got[name].slice_ids, want[name].slice_ids)
+        assert torch.equal(got[name]["values"].cpu(), want[name]["values"])
+
+
+def test_label_mesh_ndcg_on_the_card_equals_the_cpu(dev, mesh_of_one):
+    label, _ = mesh_of_one
+    g = torch.Generator(device=dev).manual_seed(2)
+    s = torch.rand((64, 50_000), generator=g, device=dev)
+    t = (torch.rand((64, 50_000), generator=g, device=dev) < 1e-3).to(torch.float32)
+    card = NDCG(k=10, label_mesh=(label, "label"), device=dev)
+    before = topk_kernel.launches
+    card.update(s[:32], t[:32]).update(s[32:], t[32:])
+    value = card.compute()
+    torch.cuda.synchronize()
+    assert topk_kernel.launches == before + 4  # the ranking and the ideal, per batch
+    cpu = NDCG(k=10, device="cpu").update(s.cpu()[:32], t.cpu()[:32]).update(s.cpu()[32:], t.cpu()[32:])
+    torch.testing.assert_close(value.cpu(), cpu.compute(), rtol=1e-5, atol=1e-8)

@@ -521,3 +521,108 @@ def test_classification_slice_raises_instead_of_falling_back(no_library):
     with pytest.raises(RuntimeError, match="nvcc"):
         MulticlassAUROC(num_classes=3, compaction_threshold=4, device="cpu").update(scores, labels)
     assert (hist.launches, segment_sum.launches, stream_compact.launches) == before
+
+
+# ------------------------------------------------------ the sharded forms
+SHARDED_SLICE_MODULES = [
+    "torcheval_tpu_torch.metrics.functional.ranking.retrieval",
+    "torcheval_tpu_torch.metrics.ranking._retrieval",
+    "torcheval_tpu_torch.metrics.sliced",
+    "torcheval_tpu_torch.ops.scatter",
+    "torcheval_tpu_torch.ops.topk",
+    "torcheval_tpu_torch.parallel.mesh",
+    "torcheval_tpu_torch.sketch.cache",
+    "torcheval_tpu_torch.utils.dist",
+    "torcheval_tpu_torch.utils.test_utils.sharded_worker",
+]
+
+
+@pytest.mark.parametrize("name", SHARDED_SLICE_MODULES)
+def test_sharded_slice_modules_are_checked(name):
+    # each is one of the modules the no-JAX and counterpart rules above walk
+    assert name in _modules()
+    path = PACKAGE.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
+@pytest.fixture
+def world_of_one():
+    """A gloo world of one rank in this process and a 1-D mesh over it,
+    with the dims ``label`` and, as a second mesh, ``slices``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield (init_device_mesh("cpu", (1,), mesh_dim_names=("label",)),
+               init_device_mesh("cpu", (1,), mesh_dim_names=("slices",)))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("make", [NDCG, MAP, RecallAtK])
+def test_label_mesh_metrics_default_to_cuda(monkeypatch, world_of_one, make):
+    label, _ = world_of_one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(k=3, label_mesh=(label, "label"))
+    assert make(k=3, label_mesh=(label, "label"), device="cpu").device == torch.device("cpu")
+
+
+def test_sharded_sliced_members_live_on_their_templates_device(monkeypatch, world_of_one):
+    _, slices = world_of_one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlicedMetricCollection({"acc": BinaryAccuracy()}, mesh=slices, mesh_axis="slices")
+    col = SlicedMetricCollection({"acc": BinaryAccuracy(device="cpu")}, mesh=slices, mesh_axis="slices")
+    assert col.metrics["acc"].device == torch.device("cpu")
+
+
+def test_sharded_forms_raise_instead_of_falling_back(no_library, world_of_one):
+    from torcheval_tpu_torch.ops.scatter import sharded_segment_sum
+    from torcheval_tpu_torch.ops.topk import sharded_label_topk, sharded_topk_kernel
+    from torcheval_tpu_torch.sketch.cache import sliced_score_hist_fold
+    from torcheval_tpu_torch.utils.dist import mesh_axis
+
+    label, slices = world_of_one
+    before = (topk_kernel.launches, segment_sum.launches)
+    x = torch.rand(4, 2000)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sharded_topk_kernel(x, 5)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sharded_label_topk(x, 5, mesh=label, label_axis="label", method="kernel")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        NDCG(k=5, topk_method="kernel", label_mesh=(label, "label"), device="cpu").update(
+            x, torch.rand(4, 2000)
+        ).compute()
+    vals = torch.ones(4, 2, dtype=torch.int32)
+    rows = torch.tensor([0, 1, 1, 5])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        segment_scatter(vals, rows, 4, mesh=slices, axis="slices")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sharded_segment_sum(vals, rows, 4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sliced_score_hist_fold(rows.to(torch.int32), torch.rand(4), torch.ones(4), 4, 8,
+                               shard=mesh_axis(slices, "slices"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        SlicedMetricCollection(
+            {"acc": BinaryAccuracy(device="cpu")}, mesh=slices, mesh_axis="slices"
+        ).update(torch.tensor([7, 8, 7, 9]), torch.rand(4), torch.ones(4)).compute()
+    assert (topk_kernel.launches, segment_sum.launches) == before
+
+
+def test_mesh_axis_names_are_checked(world_of_one):
+    from torcheval_tpu_torch.parallel import label_tile, mesh_axis, shard_tile_width, tile_bounds
+
+    label, _ = world_of_one
+    with pytest.raises(ValueError, match="'slices' is not a dim"):
+        mesh_axis(label, "slices")
+    with pytest.raises(ValueError, match="not a dim"):
+        mesh_axis(object(), "label")
+    ax = mesh_axis(label, "label")
+    assert (ax.size, ax.rank, ax.name) == (1, 0, "label")
+    assert label_tile(torch.arange(12).reshape(2, 6), label, "label").shape == (2, 6)
+    assert shard_tile_width(10, 4) == 3
+    assert [tile_bounds(10, 4, r) for r in range(4)] == [(0, 3), (3, 6), (6, 9), (9, 10)]
+    assert tile_bounds(2, 4, 3) == (2, 2)

@@ -7,16 +7,25 @@ lives only inside the top-k engine call of each fold, never in state. The
 classes defer their folds (``metrics/deferred.py``): the top-k kernel has no
 ``torch.func.vmap`` rule (``_fold_vmap = False``), so the batches of a window
 fold one by one, as the JAX ``lax.scan`` folds them.
+
+``label_mesh=(mesh, label_dim)`` folds each batch through the label-split
+engine (``functional/ranking/retrieval.py``): ``update()`` takes this
+rank's label tiles, and each fold runs the group's collectives, so every
+rank of the label group folds the same batches in the same order. After
+the merge every rank of the group holds the same state; sync such metrics
+over the data ranks only (the toolkit's ``processes=``, e.g. the ranks of
+the mesh's data dim), or each row counts once per label rank.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
 from torcheval_tpu_torch.metrics.functional.ranking.retrieval import (
+    _check_label_mesh,
     _retrieval_input_check,
 )
 from torcheval_tpu_torch.metrics.metric import Metric
@@ -25,10 +34,10 @@ from torcheval_tpu_torch.ops.topk import _METHODS as _TOPK_METHODS
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 
-def _retrieval_fold(input, target, kernel, k, topk_method):
+def _retrieval_fold(input, target, kernel, k, topk_method, label_mesh):
     """One batch's ``score_sum`` and ``num_valid`` deltas from the
     subclass's NaN-poisoned per-sample scores."""
-    per_sample = kernel(input, target, k, topk_method)
+    per_sample = kernel(input, target, k, topk_method, label_mesh)
     valid = ~torch.isnan(per_sample)
     return {
         "score_sum": torch.sum(torch.where(valid, per_sample, 0.0)),
@@ -61,6 +70,7 @@ class RetrievalMeanMetric(DeferredFoldMixin, Metric[torch.Tensor]):
         *,
         k: Optional[int] = None,
         topk_method: str = "auto",
+        label_mesh: Optional[Tuple] = None,
         device: DeviceLike = None,
     ) -> None:
         if k is not None and (type(k) is not int or k <= 0):
@@ -69,9 +79,11 @@ class RetrievalMeanMetric(DeferredFoldMixin, Metric[torch.Tensor]):
             raise ValueError(
                 f"topk_method must be one of {_TOPK_METHODS}, got {topk_method!r}."
             )
+        _check_label_mesh(label_mesh)
         super().__init__(device=device)
         self.k = k
         self.topk_method = topk_method
+        self.label_mesh = label_mesh
         self._add_state(
             "score_sum", zeros_state((), dtype=torch.float32), reduction=Reduction.SUM
         )
@@ -79,7 +91,7 @@ class RetrievalMeanMetric(DeferredFoldMixin, Metric[torch.Tensor]):
             "num_valid", zeros_state((), dtype=torch.int32), reduction=Reduction.SUM
         )
         self._init_deferred()
-        self._fold_params = (type(self)._kernel, k, topk_method)
+        self._fold_params = (type(self)._kernel, k, topk_method, label_mesh)
 
     def _update_check(self, input, target) -> None:
         _retrieval_input_check(input, target, self.k)

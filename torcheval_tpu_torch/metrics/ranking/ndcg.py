@@ -21,6 +21,10 @@ class NDCG(RetrievalMeanMetric):
         topk_method: the lowering of ``ops/topk.py`` for both the score
             ranking and, for NDCG, the ideal ranking; checked at
             construction.
+        label_mesh: ``(DeviceMesh, label_dim)`` to rank a label axis split
+            over that dim's ranks (``update()`` then takes this rank's
+            label tiles; ``ranking/_retrieval.py``); checked at
+            construction.
 
     State: ``score_sum`` (float32) and ``num_valid`` (int32), both SUM.
     """

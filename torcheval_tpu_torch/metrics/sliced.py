@@ -1,7 +1,6 @@
 """``SlicedMetricCollection``: the same metrics across many cohorts.
 
-JAX counterpart: ``torcheval_tpu/metrics/sliced.py`` without its sharded
-route (``mesh``/``mesh_axis``, ``update_placed``).
+JAX counterpart: ``torcheval_tpu/metrics/sliced.py``.
 
 * **Dense slice axis.** Every member's state grows a leading
   ``[capacity]`` axis: ``state[r]`` is slice ``r``'s state, with exactly the
@@ -44,6 +43,27 @@ Results come back keyed by the original ids: ``compute()`` returns
 The id column stays on the host (interning needs its bytes), and each
 batch's interned rows are copied to the members' device.
 
+**Sharded slice axis.** ``mesh=`` (a ``DeviceMesh``) with ``mesh_axis=``
+(one of its dim names) splits the slice axis of every member state over
+that dim's ``S`` ranks, one process per card: rank ``r`` holds the tile of
+rows ``[r*w, (r+1)*w)``, ``w = capacity / S``, and the capacity stays a
+multiple of ``S``. Every rank receives the same batches (ids and columns)
+and interns them the same way, so the :class:`SliceTable` and the id lanes
+are the same on every rank and no id crosses the wire. A fold runs no
+collective: each rank reduces the batch into its own tile
+(``ops/scatter.py``'s block-range route; the sketch member builds its
+combined index over its tile, so its int32 bound is per shard).
+Collectives over the dim's group, which every rank of it runs together:
+``compute()`` computes each rank's cohorts and gathers the per-cohort
+values (never the states); ``state_dict()`` gathers the tiles into the
+unsharded layout, so a state dict loads into a collection sharded any way
+or not at all, and into the JAX package's (``utils/jax_state.py``);
+``load_state_dict`` keeps this rank's tile; a capacity growth and a merge
+gather the tiles they re-cut. Results equal the unsharded collection's
+(integer lanes exactly; float sums within ``ops/scatter.py``'s bound).
+A sharded member does not pickle (its mesh holds process groups), and
+cross-replica sync of a sharded collection is not ported.
+
 **Windows.** The members ride the collection's window
 (``metrics/deferred.py``) as concat-fold members (``_fold_per_chunk =
 False``): ``update()`` appends ``(rows, *columns)`` to the window once, and
@@ -77,7 +97,9 @@ from torcheval_tpu_torch.sketch.cache import (
     sliced_curve_compute,
     sliced_score_hist_fold,
 )
+from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.devices import DeviceLike
+from torcheval_tpu_torch.utils.dist import MeshAxis
 
 __all__ = [
     "SliceTable",
@@ -126,25 +148,42 @@ class SliceTable:
     sorted shadow index, rebuilt only on batches that registered new ids.
     """
 
-    __slots__ = ("ids", "count", "capacity", "version", "_sorted_ids", "_sorted_rows")
+    __slots__ = (
+        "ids",
+        "count",
+        "capacity",
+        "granularity",
+        "version",
+        "_sorted_ids",
+        "_sorted_rows",
+    )
 
-    def __init__(self, capacity: int = _DEFAULT_CAPACITY) -> None:
+    def __init__(self, capacity: int = _DEFAULT_CAPACITY, *, granularity: int = 1) -> None:
         if not isinstance(capacity, int) or capacity < 1:
             raise ValueError(f"capacity must be an int >= 1, got {capacity!r}.")
-        self.capacity = capacity
+        # the capacity stays a multiple of the granularity through every
+        # growth: a sharded slice axis splits into equal tiles
+        self.granularity = max(int(granularity), 1)
+        self.capacity = self.round_capacity(capacity)
         self.count = 0
         self.ids = np.zeros(self.capacity, np.int64)
         self.version = 0  # bumped on every mutation: the id lanes' refresh key
         self._sorted_ids = np.empty(0, np.int64)
         self._sorted_rows = np.empty(0, np.int64)
 
+    def round_capacity(self, capacity: int) -> int:
+        """``capacity`` rounded up to a multiple of the granularity."""
+        g = self.granularity
+        return -(-int(capacity) // g) * g
+
     def predict_growth(self, need: int) -> int:
         """The capacity :meth:`intern` settles on for ``need`` rows: the one
-        definition of the growth schedule (doubling)."""
+        definition of the growth schedule (doubling, then the granularity's
+        round-up)."""
         cap = max(self.capacity, 1)
         while cap < int(need):
             cap *= 2
-        return cap
+        return self.round_capacity(cap)
 
     def _rebuild_index(self) -> None:
         order = np.argsort(self.ids[: self.count], kind="stable")
@@ -287,11 +326,13 @@ def _sliced_fold(*xs):
     sample under ``torch.func.vmap``, then one segment scatter into the
     slice axis for each group of deltas with the same trailing shape and
     type (a counter pair folds in one (N, 2) scatter). Trailing statics:
-    ``(base_fn, base_params, num_slices, reduce_kind)``; leading operands:
-    ``(rows, *update_columns)``."""
-    base_fn, base_params, num_slices, reduce_kind = xs[-4:]
+    ``(base_fn, base_params, num_slices, reduce_kind, shard)``, ``shard``
+    the slice axis's ``MeshAxis`` or None (then each scatter gives this
+    rank's tile); leading operands: ``(rows, *update_columns)``."""
+    base_fn, base_params, num_slices, reduce_kind, shard = xs[-5:]
     rows = xs[0]
-    cols = xs[1:-4]
+    cols = xs[1:-5]
+    mesh_kw = {} if shard is None else {"mesh": shard.mesh, "axis": shard.name}
     per_sample = torch.func.vmap(lambda *a: base_fn(*(c[None] for c in a), *base_params))(*cols)
     groups: Dict[Any, List[str]] = {}
     for name, delta in per_sample.items():
@@ -299,10 +340,12 @@ def _sliced_fold(*xs):
     out = {}
     for names in groups.values():
         if len(names) == 1:
-            out[names[0]] = segment_scatter(per_sample[names[0]], rows, num_slices, reduce=reduce_kind)
+            out[names[0]] = segment_scatter(
+                per_sample[names[0]], rows, num_slices, reduce=reduce_kind, **mesh_kw
+            )
             continue
         stacked = torch.stack([per_sample[n] for n in names], dim=-1)
-        folded = segment_scatter(stacked, rows, num_slices, reduce=reduce_kind)
+        folded = segment_scatter(stacked, rows, num_slices, reduce=reduce_kind, **mesh_kw)
         for i, name in enumerate(names):
             out[name] = folded[..., i]
     return out
@@ -325,11 +368,12 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
     """One template metric expanded over the slice axis.
 
     States: the template's, same names, types and reductions, shape
-    ``(capacity, *S)``; ``slice_ids_hi``/``slice_ids_lo`` int32
-    ``(capacity,)`` (the int64 id table in two halves) and the
-    ``slice_count`` int32 scalar. The authoritative table is the host-side
-    :class:`SliceTable` shared by every member of one collection; the id
-    lanes are refreshed from it when state is read.
+    ``(capacity, *S)`` (with ``shard``, this rank's ``(capacity / S, *S)``
+    tile); ``slice_ids_hi``/``slice_ids_lo`` int32 ``(capacity,)`` (the
+    int64 id table in two halves) and the ``slice_count`` int32 scalar. The
+    authoritative table is the host-side :class:`SliceTable` shared by
+    every member of one collection; the id lanes are refreshed from it when
+    state is read.
     """
 
     _fold_per_chunk = False  # concat: one segment scatter per window
@@ -337,20 +381,48 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
     # (align_sliced_gathered) and adopts the union table afterwards
     _sliced_sync = True
 
-    def __init__(self, table: SliceTable, device: DeviceLike = None) -> None:
+    def __init__(
+        self, table: SliceTable, device: DeviceLike = None, shard: Optional[MeshAxis] = None
+    ) -> None:
         super().__init__(device=device)
         self._init_deferred()
         self._table = table
+        self._shard = shard
+        self._shards = shard.size if shard is not None else 1
         self._table_version = -1
         self._row_defaults: Dict[str, torch.Tensor] = {}
         self._sliced_state_names: Tuple[str, ...] = ()
+
+    # ------------------------------------------------------------ the tiles
+    def _tile_rows(self, capacity: int) -> int:
+        """Rows of each sliced state this rank holds at ``capacity``."""
+        return capacity // self._shards
+
+    def _tile_of(self, full: torch.Tensor, capacity: int) -> torch.Tensor:
+        """This rank's tile of a sliced state in the unsharded layout."""
+        w = self._tile_rows(capacity)
+        start = self._shard.rank * w if self._shard is not None else 0
+        return full[start : start + w]
+
+    def _gather_rows(self, tile: torch.Tensor) -> torch.Tensor:
+        """The unsharded layout of a per-rank tile (a sliced state, or a
+        compute's per-cohort values): one all_gather over the slice group,
+        on ``tile``'s device. Identity when unsharded."""
+        if self._shard is None:
+            return tile
+        got = _dist.all_gather_stacked(tile, self._shard.group).to(tile.device)
+        return got.reshape((-1,) + tuple(tile.shape[1:]))
+
+    def _mesh_kw(self) -> Dict[str, Any]:
+        return {} if self._shard is None else {"mesh": self._shard.mesh, "axis": self._shard.name}
 
     # -------------------------------------------------------- registration
     def _register_sliced_state(
         self, name: str, row_default: torch.Tensor, reduction: Reduction
     ) -> None:
         row_default = torch.as_tensor(row_default).cpu()
-        default = row_default.expand((self._table.capacity,) + row_default.shape).clone()
+        rows = self._tile_rows(self._table.capacity)
+        default = row_default.expand((rows,) + row_default.shape).clone()
         self._add_state(name, default, reduction=reduction)
         self._row_defaults[name] = row_default
         self._sliced_state_names = self._sliced_state_names + (name,)
@@ -372,24 +444,28 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         member before any member's state pads, so a failed growth never
         leaves the collection half grown. Generic members have no bound."""
 
-    def _set_default(self, name: str, row_default: torch.Tensor, capacity: int) -> None:
-        self._state_name_to_default[name] = row_default.expand(
-            (capacity,) + row_default.shape
-        ).clone()
+    def _set_default(self, name: str, row_default: torch.Tensor, rows: int) -> None:
+        self._state_name_to_default[name] = row_default.expand((rows,) + row_default.shape).clone()
 
     def _grow_to(self, capacity: int) -> None:
         """Pad every sliced state and id lane to ``capacity`` rows with its
-        default (rows never move: interning is append-only)."""
+        default (rows never move: interning is append-only). A sharded
+        state's tiles change width, so it is gathered, padded and cut again
+        (growth doubles, so this is rare)."""
         for name in self._sliced_state_names + ("slice_ids_hi", "slice_ids_lo"):
+            sliced = name in self._sliced_state_names
+            rows = self._tile_rows(capacity) if sliced else capacity
             cur = getattr(self, name)
-            if cur.shape[0] >= capacity:
+            if cur.shape[0] >= rows:
                 continue
             row_default = self._row_defaults.get(name, torch.zeros((), dtype=torch.int32))
-            fill = row_default.to(cur.device, cur.dtype).expand(
-                (capacity - cur.shape[0],) + row_default.shape
+            full = self._gather_rows(cur) if sliced else cur
+            fill = row_default.to(full.device, full.dtype).expand(
+                (capacity - full.shape[0],) + row_default.shape
             )
-            setattr(self, name, torch.cat([cur, fill]))
-            self._set_default(name, row_default, capacity)
+            grown = torch.cat([full, fill])
+            setattr(self, name, self._tile_of(grown, capacity).clone() if sliced else grown)
+            self._set_default(name, row_default, rows)
         self._refit_params()
 
     # ------------------------------------------------------- id-lane sync
@@ -414,15 +490,16 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         lo = _to_numpy(self.slice_ids_lo)
         count = int(_to_numpy(self.slice_count))
         capacity = int(hi.shape[0])
+        rows = self._tile_rows(capacity)
         for name in self._sliced_state_names:
-            if getattr(self, name).shape[0] != capacity:
+            if getattr(self, name).shape[0] != rows or rows * self._shards != capacity:
                 raise ValueError(
                     f"state {name!r} has {getattr(self, name).shape[0]} rows but the id "
-                    f"lanes hold {capacity}."
+                    f"lanes hold {capacity} over {self._shards} shard(s)."
                 )
         self._table.replace(_unpack_ids(hi, lo)[:count], capacity)
         for name in self._sliced_state_names:
-            self._set_default(name, self._row_defaults[name], capacity)
+            self._set_default(name, self._row_defaults[name], rows)
         for name in ("slice_ids_hi", "slice_ids_lo"):
             self._state_name_to_default[name] = torch.zeros(capacity, dtype=torch.int32)
         self._table_version = self._table.version
@@ -430,8 +507,33 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
 
     # ----------------------------------------------------- protocol plumbing
     def state_dict(self):
+        """The state in the unsharded layout (a sharded member gathers its
+        tiles: a collective over the slice group)."""
         self._refresh_id_states()
-        return super().state_dict()
+        out = super().state_dict()
+        if self._shard is not None:
+            for name in self._sliced_state_names:
+                out[name] = self._gather_rows(out[name])
+        return out
+
+    def _tiles_of(self, state_dict: Dict[str, Any]) -> Dict[str, Any]:
+        """A state dict in the unsharded layout cut to this rank's tiles,
+        its capacity first padded up to a multiple of the shard count (with
+        each state's default; a checkpoint of any capacity loads)."""
+        sd = dict(state_dict)
+        hi = sd.get("slice_ids_hi")
+        capacity = int(hi.shape[0]) if hi is not None else self._table.capacity
+        padded = self._table.round_capacity(capacity)
+        for name in ("slice_ids_hi", "slice_ids_lo") + self._sliced_state_names:
+            if name not in sd:
+                continue
+            v = torch.as_tensor(sd[name])
+            if padded != capacity:
+                default = self._row_defaults.get(name, torch.zeros((), dtype=v.dtype))
+                fill = default.to(v.device, v.dtype).expand((padded - capacity,) + tuple(v.shape[1:]))
+                v = torch.cat([v, fill])
+            sd[name] = self._tile_of(v, padded) if name in self._sliced_state_names else v
+        return sd
 
     def _prepare_for_merge_state(self) -> None:
         super()._prepare_for_merge_state()
@@ -441,6 +543,8 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         # a partial load (strict=False) keeps the current id lanes: bring
         # them up to date with the table first
         self._refresh_id_states()
+        if self._shard is not None:
+            state_dict = self._tiles_of(state_dict)
         super().load_state_dict(state_dict, strict)
         self._adopt_state_shapes()
 
@@ -459,15 +563,22 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         return self._deferred_compute()
 
     def _wrap_values(self, values: Any) -> SlicedResult:
+        """Per-cohort values keyed by id; a sharded member's per-tile values
+        are gathered first (a collective over the slice group)."""
         count = self._table.count
-        return SlicedResult(self._table.registered_ids(), _tree_map(lambda v: v[:count], values))
+        return SlicedResult(
+            self._table.registered_ids(),
+            _tree_map(lambda v: self._gather_rows(v)[:count], values),
+        )
 
     def merge_state(self, metrics):
         """Merge other sliced replicas by original id: unseen ids append to
         the table (growing the capacity as needed), then the other's rows
         combine into this member's rows through ``segment_scatter`` with
         each state's declared reduction. Equal to having streamed the
-        other's batches here (integer adds and extrema exactly)."""
+        other's batches here (integer adds and extrema exactly). A sharded
+        source is gathered to the unsharded layout (a collective over its
+        slice group), and a sharded member combines into its own tile."""
         for other in self._fold_for_merge(metrics):
             o_count = other._table.count
             if o_count == 0:
@@ -485,8 +596,8 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
             cap = self._table.capacity
             for name in self._sliced_state_names:
                 kind = _REDUCTION_KINDS[self._state_name_to_reduction[name]]
-                theirs = getattr(other, name)[:o_count].to(self._device)
-                folded = segment_scatter(theirs, rows, cap, reduce=kind)
+                theirs = other._gather_rows(getattr(other, name))[:o_count].to(self._device)
+                folded = segment_scatter(theirs, rows, cap, reduce=kind, **self._mesh_kw())
                 mine = getattr(self, name)
                 if kind == "sum":
                     merged = mine + folded
@@ -505,8 +616,8 @@ class _SlicedFoldMember(_SlicedMemberBase):
     _fold_fn = staticmethod(_sliced_fold)
     _compute_fn = staticmethod(_sliced_compute)
 
-    def __init__(self, template: Metric, table: SliceTable) -> None:
-        super().__init__(table, device=template.device)
+    def __init__(self, template: Metric, table: SliceTable, shard: Optional[MeshAxis] = None) -> None:
+        super().__init__(table, device=template.device, shard=shard)
         tcls = type(template)
         self._base_fold = tcls._fold_fn
         self._base_fold_params = tuple(template._fold_params)
@@ -525,6 +636,7 @@ class _SlicedFoldMember(_SlicedMemberBase):
             self._base_fold_params,
             self._table.capacity,
             self._reduce_kind,
+            self._shard,
         )
         self._compute_params = (
             self._base_compute,
@@ -574,9 +686,14 @@ class _SlicedScoreSketchMember(_SlicedMemberBase):
     _compute_fn = staticmethod(sliced_curve_compute)
 
     def __init__(
-        self, template: Metric, table: SliceTable, *, curve_bucket_bits: Optional[int] = None
+        self,
+        template: Metric,
+        table: SliceTable,
+        *,
+        curve_bucket_bits: Optional[int] = None,
+        shard: Optional[MeshAxis] = None,
     ) -> None:
-        super().__init__(table, device=template.device)
+        super().__init__(table, device=template.device, shard=shard)
         self._template_cls = type(template).__qualname__
         self._kind = "auroc" if "AUROC" in self._template_cls else "auprc"
         bits = curve_bucket_bits if curve_bucket_bits is not None else template._sketch_bits
@@ -594,13 +711,14 @@ class _SlicedScoreSketchMember(_SlicedMemberBase):
         self._refit_params()
 
     def _check_capacity(self, capacity: int) -> None:
-        check_sliced_sketch_extent(self._bits, capacity)
+        # per shard: each rank's combined index runs over its own tile
+        check_sliced_sketch_extent(self._bits, capacity, shards=self._shards)
 
     def _refit_params(self) -> None:
         # runs at construction, at every growth and at every adopted load:
         # the bound holds for the member's life
         self._check_capacity(self._table.capacity)
-        self._fold_params = (self._bits, self._table.capacity)
+        self._fold_params = (self._bits, self._table.capacity, self._shard)
         self._compute_params = (self._bits, self._kind)
 
     @property
@@ -623,6 +741,11 @@ class _SlicedScoreSketchMember(_SlicedMemberBase):
 
     def _on_window_result(self, result):
         values, overflow, nan_total = result
+        if self._shard is not None:
+            # every rank's tile flags, one all_reduce: each rank raises alike
+            flags = torch.stack([overflow.to(torch.int64), nan_total.to(torch.int64)])
+            flags = _dist.all_reduce_sum(flags, self._shard.group)
+            overflow, nan_total = flags[0] > 0, flags[1]
         raise_sketch_overflow(overflow)
         raise_sketch_nan(nan_total, "sample(s)")
         return self._wrap_values(values)
@@ -717,13 +840,19 @@ def check_sliceable(metric: Metric, *, approx: Any = None) -> None:
 
 
 def _build_member(
-    template: Metric, table: SliceTable, *, curve_bucket_bits: Optional[int] = None
+    template: Metric,
+    table: SliceTable,
+    *,
+    curve_bucket_bits: Optional[int] = None,
+    shard: Optional[MeshAxis] = None,
 ) -> _SlicedMemberBase:
     check_sliceable(template)
     if _is_sketch_curve(template):
-        return _SlicedScoreSketchMember(template, table, curve_bucket_bits=curve_bucket_bits)
+        return _SlicedScoreSketchMember(
+            template, table, curve_bucket_bits=curve_bucket_bits, shard=shard
+        )
     kind = _REDUCE_KINDS[type(template)._fold_reduce]
-    return _FOLD_MEMBER_BY_KIND[kind](template, table)
+    return _FOLD_MEMBER_BY_KIND[kind](template, table, shard=shard)
 
 
 # --------------------------------------------------------------- collection
@@ -745,6 +874,11 @@ class SlicedMetricCollection(MetricCollection):
     geometrically. ``curve_bucket_bits`` sets the sketch members' width
     (4 to 20 bits; default the template's own). Every member receives the same update columns, so build
     separate collections for metrics fed from different tensors.
+
+    ``mesh`` (a ``DeviceMesh``) with ``mesh_axis`` (one of its dim names)
+    splits the slice axis over that dim's ranks (see the module doc); the
+    capacity is rounded up to a multiple of the dim's size. Both are
+    needed: the port builds no mesh of its own.
     """
 
     def __init__(
@@ -753,12 +887,25 @@ class SlicedMetricCollection(MetricCollection):
         *,
         capacity: int = _DEFAULT_CAPACITY,
         curve_bucket_bits: Optional[int] = None,
+        mesh: Any = None,
+        mesh_axis: Optional[str] = None,
     ) -> None:
         if isinstance(metrics, Metric):
             metrics = {"metric": metrics}
-        self.slice_table = SliceTable(capacity)
+        if mesh is not None and mesh_axis is None:
+            raise ValueError("mesh requires mesh_axis: name the mesh dim the slice axis shards over.")
+        if mesh_axis is not None and mesh is None:
+            raise ValueError(
+                "mesh_axis requires mesh: pass the torch.distributed DeviceMesh that has the dim "
+                f"{mesh_axis!r}."
+            )
+        shard = _dist.mesh_axis(mesh, mesh_axis) if mesh is not None else None
+        self._slice_shard = shard
+        self.slice_table = SliceTable(capacity, granularity=shard.size if shard is not None else 1)
         members = {
-            name: _build_member(template, self.slice_table, curve_bucket_bits=curve_bucket_bits)
+            name: _build_member(
+                template, self.slice_table, curve_bucket_bits=curve_bucket_bits, shard=shard
+            )
             for name, template in dict(metrics).items()
         }
         super().__init__(members)
@@ -781,6 +928,13 @@ class SlicedMetricCollection(MetricCollection):
         rows = self._intern_and_grow(_to_numpy(slice_ids))
         # the rows are placed like any numpy column, so the window owns them
         return self._update_impl((rows, *args), {})
+
+    def update_placed(self, args: tuple) -> "SlicedMetricCollection":
+        """An ingest pipeline's entry: ``args[0]`` is the host id column,
+        the other columns may already be on the device (JAX:
+        ``sliced.py:1224-1229``)."""
+        rows = self._intern_and_grow(_to_numpy(args[0]))
+        return self._update_impl((rows, *args[1:]), {})
 
     def _intern_and_grow(self, slice_ids: np.ndarray) -> np.ndarray:
         """Intern a batch; if the members reject the grown capacity, the

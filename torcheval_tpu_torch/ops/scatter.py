@@ -1,8 +1,9 @@
 """Segment scatter: per-sample deltas reduced into a leading segment axis.
 
 JAX counterpart: ``torcheval_tpu/ops/scatter.py`` (``segment_scatter``
-without its ``mesh``/``axis`` route, ``_resolve_method``, ``_apply_local``,
-and ``pallas_segment_sum`` with its Pallas kernel ``_scatter_kernel``). The
+with its ``mesh``/``axis`` route, ``_resolve_method``, ``_apply_local``,
+``pallas_segment_sum`` with its Pallas kernel ``_scatter_kernel``, and
+``sharded_pallas_segment_sum``). The
 sliced collection (``metrics/sliced.py``) folds every batch through
 :func:`segment_scatter`: ``out[r] = reduce(vals[i] for rows[i] == r)`` for
 ``r`` in ``[0, num_segments)``; rows outside that range (negative or
@@ -42,8 +43,24 @@ sliced collection (``metrics/sliced.py``) folds every batch through
 Methods: ``"auto"`` and ``"kernel"`` (the JAX package's ``"pallas"``) run
 :func:`segment_sum`, which launches the kernel on a CUDA tensor and runs the
 plain version on a CPU one; ``"torch"`` runs the plain version on any
-device, an explicit choice that nothing on the sliced path makes. The
-sharded route (``mesh=``/``axis=``) comes with the distributed slice.
+device, an explicit choice that nothing on the sliced path makes.
+
+Sharded forms, one process per card:
+
+* ``segment_scatter(..., mesh=, axis=)``, the block-range route of the
+  sharded sliced collection: every rank of the ``DeviceMesh`` dim ``axis``
+  sees the same ``vals``/``rows``, and rank ``r`` of ``S`` reduces into its
+  own tile, the global segments ``[r*w, (r+1)*w)`` with ``w =
+  num_segments / S``. No collective runs. The rows are localised to ``rows
+  - r*w``, so a sum launches the kernel with ``w`` segments and every row
+  of another rank's tile falls outside ``[0, w)``, where the kernel drops
+  it before any atomic (the JAX route's explicit dead segment would be one
+  hot row taking ``(S - 1) / S`` of every batch). A max or min masks those
+  rows' values with the reduce's identity and spreads their indices over
+  the tile (``local mod w``), so no row is hot and none changes.
+* :func:`sharded_segment_sum`, the counterpart of
+  ``sharded_pallas_segment_sum``: each rank sums its own samples, then one
+  ``all_reduce(SUM)``.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ import math
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.utils import dist as _dist
 
 _METHODS = ("auto", "kernel", "torch")
 _REDUCES = ("sum", "max", "min")
@@ -159,13 +177,17 @@ def _reduce_identity(reduce: str, dtype: torch.dtype):
     return info.min if reduce == "max" else info.max
 
 
+def _check_real(vals: torch.Tensor, reduce: str) -> None:
+    if vals.dtype == torch.bool or vals.is_complex():
+        raise TypeError(f"segment {reduce} takes real values, got {vals.dtype}.")
+
+
 def _segment_extremum(
     vals: torch.Tensor, rows: torch.Tensor, num_segments: int, reduce: str
 ) -> torch.Tensor:
     """Segment max or min: ``scatter_reduce_`` into the reduce's identity,
     out-of-range rows sent to a dead extra segment that is cut off."""
-    if vals.dtype == torch.bool or vals.is_complex():
-        raise TypeError(f"segment {reduce} takes real values, got {vals.dtype}.")
+    _check_real(vals, reduce)
     flat = vals.reshape(vals.shape[0], math.prod(vals.shape[1:]))
     idx = _dead_segment_index(rows, num_segments)[:, None].expand(flat.shape)
     out = torch.full(
@@ -178,6 +200,18 @@ def _segment_extremum(
     return out[:num_segments].reshape((num_segments,) + vals.shape[1:])
 
 
+def _tile_extremum(
+    vals: torch.Tensor, local: torch.Tensor, w: int, reduce: str
+) -> torch.Tensor:
+    """Segment max or min into a ``w``-row tile from localised rows: rows
+    outside ``[0, w)`` carry the reduce's identity to row ``local mod w``."""
+    _check_real(vals, reduce)
+    ok = (local >= 0) & (local < w)
+    ident = _reduce_identity(reduce, vals.dtype)
+    masked = torch.where(ok.reshape((-1,) + (1,) * (vals.ndim - 1)), vals, ident)
+    return _segment_extremum(masked, torch.remainder(local, w), w, reduce)
+
+
 def segment_scatter(
     vals: torch.Tensor,
     rows: torch.Tensor,
@@ -185,12 +219,19 @@ def segment_scatter(
     *,
     reduce: str = "sum",
     method: str = "auto",
+    mesh=None,
+    axis: str = None,
 ) -> torch.Tensor:
     """Reduce per-sample rows ``vals[i]`` into segment ``rows[i]`` of a
     leading ``[num_segments]`` axis: the one entry point the sliced fold
     scatters through. ``reduce`` is ``"sum"``, ``"max"`` or ``"min"``;
     ``method`` is ``"auto"``, ``"kernel"`` (sum only) or ``"torch"``; see the
-    module doc."""
+    module doc.
+
+    With ``mesh`` (a ``DeviceMesh``) and ``axis`` (one of its dim names),
+    returns this rank's ``(num_segments / S,) + vals.shape[1:]`` tile of
+    the result (the block-range route of the module doc);
+    ``num_segments`` must be a multiple of the dim's size ``S``."""
     if reduce not in _REDUCES:
         raise ValueError(f"reduce must be one of {_REDUCES}, got {reduce!r}.")
     if method not in _METHODS:
@@ -200,9 +241,43 @@ def segment_scatter(
             f"method='kernel' supports reduce='sum' only (the kernel has no "
             f"{reduce!r} form); use method='auto' or 'torch'."
         )
+    if (mesh is None) != (axis is None):
+        raise ValueError("mesh and axis must be passed together.")
     _check(vals, rows, num_segments)
-    if reduce != "sum":
+    if mesh is not None:
+        ax = _dist.mesh_axis(mesh, axis)
+        if num_segments % ax.size:
+            raise ValueError(
+                f"num_segments {num_segments} is not a multiple of mesh axis {axis!r} "
+                f"size {ax.size}: the block-range route needs equal per-rank tiles (the "
+                "sliced collection rounds its capacity up)."
+            )
+        num_segments //= ax.size
+        rows = rows - ax.rank * num_segments
+        if reduce != "sum":
+            return _tile_extremum(vals, rows, num_segments, reduce)
+    elif reduce != "sum":
         return _segment_extremum(vals, rows, num_segments, reduce)
     if method == "torch":
         return segment_sum_plain(vals, rows, num_segments)
     return segment_sum(vals, rows, num_segments)
+
+
+def sharded_segment_sum(
+    vals: torch.Tensor, rows: torch.Tensor, num_segments: int, group=None
+) -> torch.Tensor:
+    """``(num_segments,) + vals.shape[1:]`` sums of every rank's samples in
+    ``group`` (the whole ``torch.distributed`` world for None):
+    :func:`segment_sum` over this rank's ``vals``/``rows``, then one
+    ``all_reduce(SUM)``, staged through the host for gloo. The result is on
+    ``vals``' device on every rank; with no world it is :func:`segment_sum`
+    and no collective runs. Float sums add the ranks' partial sums in the
+    backend's order, within the module's bound.
+
+    JAX counterpart: ``sharded_pallas_segment_sum`` (``scatter.py:324-390``),
+    whose partitioning rule runs the kernel on each shard's samples and
+    folds the partials with one ``psum``."""
+    local = segment_sum(vals, rows, num_segments)
+    if not _dist.initialized():
+        return local
+    return _dist.all_reduce_sum(local, group)

@@ -25,8 +25,18 @@ Methods (``method=``):
   tensor runs its plain version, :func:`topk_kernel_plain`.
 * ``"auto"``: :func:`_pick_method`.
 
-The label-sharded engine (``sharded_label_topk``) and the row-sharded
-``sharded_pallas_topk`` come with the distributed slice.
+Sharded forms, one process per card:
+
+* :func:`sharded_topk_kernel`, the counterpart of ``sharded_pallas_topk``
+  (row-sharded): each rank selects over the rows it holds, and the
+  outputs stay on its device; no collective runs.
+* :func:`sharded_label_topk`, the label-sharded engine: each rank holds
+  the label tile of a ``DeviceMesh`` dim, selects its tile's candidates,
+  and one ``all_gather`` over the dim's group plus an exact merge give
+  every rank of the group the top-k of the whole label axis. A tensor
+  carries no sharding, so the mesh is always passed; the JAX engine's
+  pick of a label-sharded operand (``label_sharding_of``, ``topk``'s
+  auto route to it) has no counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from typing import Tuple
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.convert import as_tensor
 
 _METHODS = ("auto", "dense", "prune", "kernel")
@@ -269,3 +280,139 @@ def topk_values(x: torch.Tensor, k: int, *, method: str = "auto") -> torch.Tenso
 def topk_indices(x: torch.Tensor, k: int, *, method: str = "auto") -> torch.Tensor:
     """The indices half of :func:`topk`."""
     return topk(x, k, method=method)[1]
+
+
+# ----------------------------------------------------------------- sharded
+def sharded_topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded top-k: :func:`topk_kernel` over the rows this rank holds
+    (its block of the global batch, ``parallel.shard_batch``), the outputs
+    on this rank's device; no collective runs. Top-k is row-independent, so
+    the ranks' outputs in rank order are the top-k of the global batch.
+
+    JAX counterpart: ``sharded_pallas_topk`` (``topk.py:353-358``), whose
+    partitioning rule (``_topk_partition``) runs the kernel on each
+    shard's rows and leaves the outputs row-sharded."""
+    return topk_kernel(x, k)
+
+
+# the order key of padding candidates: below every float32 key (the lowest,
+# -NaN with every mantissa bit set, is the int32 minimum)
+_PAD_KEY = -(2**31) - 1
+# companion columns travel as int64 words of their own bits
+_WORDS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _local_label_topk(x: torch.Tensor, k: int, method: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's selection over its label tile (JAX: ``topk.py:418-440``):
+    ``auto`` is the kernel on a CUDA tensor with ``k <= 128`` and dense
+    otherwise (the JAX engine picks by the mesh's platform the same way);
+    a forced method runs as in :func:`topk`."""
+    if method == "auto":
+        method = "kernel" if x.device.type == "cuda" and k <= _KERNEL_MAX_K else "dense"
+    return topk(x, k, method=method)
+
+
+def _to_words(c: torch.Tensor) -> torch.Tensor:
+    return c.contiguous().view(_WORDS[c.element_size()]).to(torch.int64)
+
+
+def _from_words(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return w.to(_WORDS[dtype.itemsize]).view(dtype)
+
+
+def sharded_label_topk(
+    x: torch.Tensor,
+    k: int,
+    *,
+    mesh,
+    label_axis: str,
+    method: str = "auto",
+    gather=None,
+):
+    """Top-k over a label axis split over the ranks of a mesh dim: this
+    rank's ``(values, indices)`` of the k largest scores per row of the
+    WHOLE label axis, in ``jax.lax.top_k``'s order, indices global (int64).
+
+    JAX counterpart: ``sharded_label_topk`` (``topk.py:520-629``, its
+    per-shard body ``_sharded_label_program``). Bit for bit the top-k of the
+    global matrix, as there. Steps on each rank:
+
+    1. the rank's tile ``x`` (rows, tile width) selects its
+       ``min(k, tile width)`` candidates (:func:`_local_label_topk`: the
+       kernel on the card), padded to ``k`` with candidates whose key lies
+       below every real score, so that every rank sends equal sizes;
+    2. the companion column ``gather`` is taken at the local indices;
+    3. ONE ``all_gather`` over the dim's process group carries every
+       rank's candidates (int64 words: order key, local index, companion)
+       and its tile width. It synchronises the group, as the JAX program's
+       all_gather does; with gloo it is staged through the host;
+    4. each candidate's index becomes global by adding the sum of the
+       widths of the tiles before its rank;
+    5. the exact merge: one stable descending sort of the ``k * S`` order
+       keys (:func:`order_key`, the total order of float32). Candidates sit
+       in rank order, each rank's in ascending index among equal keys, so
+       ties resolve to the lowest global index; a real ``-inf`` beats
+       padding.
+
+    The tiles must be contiguous and in the order of the ranks in the
+    dim's group (the block-range split of ``parallel.label_tile``; a
+    rank's tile may be empty). Rows
+    are the same on every rank of the group. ``k`` may exceed the global
+    label count: the columns past it are padding, value ``-inf`` and index
+    -1.
+
+    Args:
+        x: this rank's score tile ``(rows, tile width)``; selected in
+            float32, as the JAX engine selects.
+        k: ``k >= 1``.
+        mesh, label_axis: a ``DeviceMesh`` and the name of its label dim.
+        method: the local lowering (``auto``, ``dense``, ``prune``,
+            ``kernel``).
+        gather: optional companion tile of ``x``'s shape (a relevance
+            tile), returned at the selected indices as a third output.
+    """
+    x = as_tensor(x)
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (rows, labels), got shape {tuple(x.shape)}.")
+    if type(k) is not int:
+        raise TypeError(f"Expected `k` to be an integer, but {type(k)} was provided.")
+    if k < 1:
+        raise ValueError(f"requires k >= 1, got k={k}.")
+    if method not in _METHODS:
+        raise ValueError(f"method must be one of {_METHODS}, got {method!r}.")
+    ax = _dist.mesh_axis(mesh, label_axis)
+    if gather is not None:
+        gather = as_tensor(gather)
+        if gather.shape != x.shape:
+            raise ValueError(
+                f"gather operand must match x's shape {tuple(x.shape)}, got {tuple(gather.shape)}."
+            )
+    n, w = x.shape
+    dev = x.device
+    k_local = min(k, w)
+    cols = 3 if gather is not None else 2
+    words = torch.zeros((n, cols, k), dtype=torch.int64, device=dev)
+    words[:, 0] = _PAD_KEY
+    if k_local:
+        v, i = _local_label_topk(x.to(torch.float32), k_local, method)
+        words[:, 0, :k_local] = order_key(v).to(torch.int64)
+        words[:, 1, :k_local] = i
+        if gather is not None:
+            words[:, 2, :k_local] = _to_words(torch.gather(gather, 1, i))
+    width = torch.full((1,), w, dtype=torch.int64, device=dev)
+    got = _dist.all_gather_stacked(torch.cat([words.reshape(-1), width]), ax.group).to(dev)
+    widths = got[:, -1]
+    offsets = torch.cumsum(widths, 0) - widths
+    # (S, n, cols, k) to (n, cols, S * k): rank-major candidates per row
+    cand = got[:, :-1].reshape(ax.size, n, cols, k).permute(1, 2, 0, 3).reshape(n, cols, ax.size * k)
+    keys = cand[:, 0]
+    glob = cand[:, 1] + offsets.repeat_interleave(k)
+    pos = torch.sort(keys, dim=1, descending=True, stable=True).indices[:, :k]
+    top = torch.gather(keys, 1, pos)
+    pad = top == _PAD_KEY
+    values = _flip(top.to(torch.int32)).view(torch.float32).masked_fill(pad, float("-inf"))
+    indices = torch.gather(glob, 1, pos).masked_fill(pad, -1)
+    if gather is None:
+        return values, indices
+    comp = _from_words(torch.gather(cand[:, 2], 1, pos), gather.dtype)
+    return values, indices, comp.masked_fill(pad, 0)

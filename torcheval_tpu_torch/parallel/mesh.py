@@ -2,23 +2,38 @@
 card each, and the helpers that give each rank its block of a batch.
 
 JAX counterpart: ``torcheval_tpu/parallel/mesh.py`` (``data_parallel_mesh``
-and ``shard_batch``). There one process drives every device of a
-1-D mesh, and a batch is one global array sharded along axis 0. Here each
-process drives one card (``cuda:<LOCAL_RANK>``), and the mesh is the
-process group: :func:`shard_batch` gives this rank its contiguous block of
-a global batch, and the metrics' states merge across ranks when they are
-synced (``metrics/toolkit.py``).
+and ``shard_batch``), plus ``shard_tile_width`` of
+``torcheval_tpu/ops/topk.py``. There one process drives every device of a
+mesh, and a batch is one global array sharded along named axes. Here each
+process drives one card (``cuda:<LOCAL_RANK>``):
+
+* the data-parallel mesh is the process group: :func:`shard_batch` gives
+  this rank its contiguous block of a global batch, and the metrics'
+  states merge across ranks when they are synced (``metrics/toolkit.py``);
+* a named mesh axis (the label axis of the retrieval metrics'
+  ``label_mesh=``, the slice axis of a sharded ``SlicedMetricCollection``)
+  is a dim of a ``torch.distributed.device_mesh.DeviceMesh``, which the
+  caller builds (``init_device_mesh``) and passes with the dim's name.
+  ``utils.dist.mesh_axis`` checks the pair and resolves this rank's place
+  on the dim. Rank ``r`` of ``S`` owns the block-range tile ``[r*w, min((r+1)*w,
+  total))`` with ``w = shard_tile_width(total, S)``; :func:`label_tile`
+  cuts a rank's tile out of a global ``(rows, labels)`` matrix.
+
+A torch tensor carries no sharding, so nothing here reads one off an
+operand (the JAX package's ``label_sharding_of``): the mesh is always
+passed explicitly.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
 from torcheval_tpu_torch.utils import dist as _dist
+from torcheval_tpu_torch.utils.dist import MeshAxis, mesh_axis  # noqa: F401 (re-exported)
 from torcheval_tpu_torch.utils.convert import as_tensor
 from torcheval_tpu_torch.utils.devices import DeviceLike, canonical_device
 
@@ -78,3 +93,29 @@ def shard_batch(mesh: DataParallelMesh, *arrays: Any):
         start, stop = block_bounds(t.shape[0], mesh.size, mesh.rank)
         out.append(t[start:stop].to(mesh.device))
     return out[0] if len(out) == 1 else tuple(out)
+
+
+def shard_tile_width(total: int, shards: int) -> int:
+    """Tile width of the block-range split of ``total`` elements over
+    ``shards`` ranks: ``ceil(total / shards)`` (the last tiles may be
+    narrower, or empty)."""
+    return -(-int(total) // int(shards))
+
+
+def tile_bounds(total: int, shards: int, rank: int) -> Tuple[int, int]:
+    """``[start, stop)`` of rank ``rank``'s block-range tile of ``total``
+    elements over ``shards`` ranks."""
+    w = shard_tile_width(total, shards)
+    start = min(rank * w, total)
+    return start, min(start + w, total)
+
+
+def label_tile(x: Any, mesh: Any, axis: str) -> torch.Tensor:
+    """This rank's label tile of a global ``(rows, labels)`` matrix ``x``:
+    columns ``tile_bounds(labels, S, r)``, where ``r`` is this process's
+    rank among the ``S`` ranks of the mesh dim ``axis``, as a contiguous
+    tensor on ``x``'s device."""
+    t = as_tensor(x)
+    ax = mesh_axis(mesh, axis)
+    start, stop = tile_bounds(t.shape[1], ax.size, ax.rank)
+    return t[:, start:stop].contiguous()

@@ -1,8 +1,8 @@
 """Resident-sketch state for the ``approx=`` metric mode.
 
-JAX counterpart: ``torcheval_tpu/sketch/cache.py``, without its sharded
-branches (``sliced_score_hist_fold``'s ``shard=``, and the sharded sketch
-counts of ``ops/dist_curves.py``). The glue between the folds and computes
+JAX counterpart: ``torcheval_tpu/sketch/cache.py``, with the sliced
+fold's ``shard=`` branch and the per-shard extent bound, without the
+sharded sketch counts of ``ops/dist_curves.py``. The glue between the folds and computes
 of ``sketch/histogram.py`` and the sample-cache metric classes:
 
 * the knob: the ``approx=`` argument and the ``TORCHEVAL_TPU_APPROX``
@@ -393,33 +393,46 @@ def check_sliced_bucket_bits(bucket_bits: int) -> int:
     return bucket_bits
 
 
-def check_sliced_sketch_extent(bucket_bits: int, num_slices: int) -> None:
+def check_sliced_sketch_extent(bucket_bits: int, num_slices: int, shards: int = 1) -> None:
     """Fail closed at the sliced sketch's addressing edge: the combined
-    segment index ``row * planes + plane`` is int32, so
-    ``num_slices * (2^(bits+1) + 1)`` must stay at most 2^31 - 1, past
-    which the index would wrap and corrupt per-cohort counts. Run at member
-    registration and at every capacity growth, never inside the fold.
-    16-bit buckets cap out near 16,000 cohorts; a million cohorts need
-    ``curve_bucket_bits`` of 4-10."""
+    segment index ``row * planes + plane`` is int32, so the per-shard
+    extent ``ceil(num_slices / shards) * (2^(bits+1) + 1)`` must stay at
+    most 2^31 - 1, past which the index would wrap and corrupt per-cohort
+    counts. Run at member registration and at every capacity growth, never
+    inside the fold. The bound is per shard because a sharded fold builds
+    each rank's index over its own tile: sharding over N ranks multiplies
+    the cohorts a width admits by N. 16-bit buckets cap out near 16,000
+    cohorts a shard; a million cohorts need ``curve_bucket_bits`` of 4-10
+    or a sharded slice axis."""
     planes = 2 * (1 << bucket_bits) + 1
-    if int(num_slices) * planes > 2**31 - 1:
+    shards = max(int(shards), 1)
+    per_shard = -(-int(num_slices) // shards)
+    if per_shard * planes > 2**31 - 1:
         raise ValueError(
-            f"sliced sketch extent {num_slices} slices x {planes} planes "
-            f"(curve_bucket_bits={bucket_bits}) exceeds the int32 segment-index "
-            "range (2^31-1): per-slice histogram counts would silently "
-            "corrupt. Use a coarser curve_bucket_bits (each bit halves the "
-            "slice headroom)."
+            f"sliced sketch extent {per_shard} slices/shard x {planes} planes "
+            f"(curve_bucket_bits={bucket_bits}, {num_slices} slices over {shards} "
+            "shard(s)) exceeds the int32 segment-index range (2^31-1): per-slice "
+            "histogram counts would silently corrupt. Use a coarser curve_bucket_bits "
+            "(each bit halves the slice headroom) or shard the slice axis over more "
+            "ranks (SlicedMetricCollection(mesh=..., mesh_axis=...)): the extent bound "
+            "is per shard."
         )
 
 
-def sliced_score_hist_fold(rows, scores, targets, bits, num_slices):
+def sliced_score_hist_fold(rows, scores, targets, bits, num_slices, shard=None):
     """Fold one ``(N,)`` binary batch into per-cohort ``(num_slices, B)``
     ``(tp, fp)`` int32 histograms and a per-cohort NaN count, routed by the
     dense ``rows`` column. Each sample lands in plane ``2 * bucket + (1 -
     target)`` of its cohort's ``2B + 1`` planes (NaN samples in the last),
     so the fold is one segment-sum launch of int32 ones however many count
     lanes the sketch keeps. Integer adds: per-cohort counts equal those of a
-    standalone fold of the cohort's samples."""
+    standalone fold of the cohort's samples.
+
+    With ``shard`` (the slice axis's ``utils.dist.MeshAxis``), rank ``r`` of
+    ``S`` folds into its tile of ``w = num_slices / S`` cohorts: the rows
+    are localised to ``rows - r*w`` before the combined index is built (a
+    global index would wrap int32 at the unsharded edge), and a sample of
+    another rank's tile goes to index -1, which the segment sum drops."""
     check_sliced_bucket_bits(bits)
     rows = rows.to(torch.int32)
     nan = torch.isnan(scores.to(torch.float32))
@@ -428,7 +441,13 @@ def sliced_score_hist_fold(rows, scores, targets, bits, num_slices):
     num_buckets = 1 << bits
     planes = 2 * num_buckets + 1
     plane = torch.where(nan, 2 * num_buckets, 2 * b + (1 - t))
-    idx = rows * planes + plane
+    if shard is None:
+        idx = rows * planes + plane
+    else:
+        num_slices //= shard.size
+        local = rows - shard.rank * num_slices
+        ok = (local >= 0) & (local < num_slices)
+        idx = torch.where(ok, local * planes + plane, -1)
     hist = segment_sum(torch.ones_like(rows), idx, num_slices * planes).reshape(num_slices, planes)
     return {
         "sketch_tp": hist[:, 0 : 2 * num_buckets : 2],

@@ -8,11 +8,15 @@ collectives are not counted on to take CUDA tensors), the current CUDA
 device for NCCL. :func:`collective_device` says which, and the helpers
 below stage a tensor there and bring the result back to the tensor's own
 device. Without an initialised process group the world has one rank.
+A named mesh axis is a dim of a ``DeviceMesh`` (:func:`mesh_axis`).
+Each helper counts its calls and the bytes this rank sends (``.calls``,
+``.bytes``: plain attributes, read and zeroed by callers that measure).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -62,6 +66,39 @@ def members(processes: Optional[Sequence[int]]) -> Optional[Tuple[int, ...]]:
     return group
 
 
+@dataclass(frozen=True, eq=False)
+class MeshAxis:
+    """One named dim of a ``DeviceMesh``, resolved for this process: the
+    process group its collectives run over, its ``size`` and this
+    process's ``rank`` in that group, which orders the dim's tiles and
+    every gather over it. Copies share it by reference (it holds process
+    groups)."""
+
+    mesh: Any
+    name: str
+    group: Any
+    size: int
+    rank: int
+
+    def __deepcopy__(self, memo) -> "MeshAxis":
+        return self
+
+
+def mesh_axis(mesh: Any, name: str) -> MeshAxis:
+    """The dim ``name`` of ``mesh`` (a ``DeviceMesh``) for this rank. Raises
+    ``ValueError`` for a mesh without dim names or a name it does not have,
+    so that a metric or collection built with a wrong name fails when it is
+    built, not at its first fold."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if not isinstance(name, str) or name not in names:
+        raise ValueError(
+            f"mesh axis {name!r} is not a dim of the mesh (dims: {names}); pass a "
+            "torch.distributed DeviceMesh with mesh_dim_names and one of its names."
+        )
+    group = mesh.get_group(name)
+    return MeshAxis(mesh, name, group, dist.get_world_size(group), dist.get_rank(group))
+
+
 def collective_device(group: ProcessGroup = None) -> torch.device:
     """Where ``group``'s backend reads and writes collective buffers: the
     current CUDA device for NCCL, the host for any other backend."""
@@ -75,7 +112,13 @@ def all_reduce_sum(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
     ``t``'s device (staged through the host for gloo)."""
     buf = t.to(collective_device(group), copy=True)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    all_reduce_sum.calls += 1
+    all_reduce_sum.bytes += buf.numel() * buf.element_size()
     return buf.to(t.device)
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.bytes = 0
 
 
 def all_gather_stacked(t: torch.Tensor, group: ProcessGroup = None) -> torch.Tensor:
@@ -89,4 +132,10 @@ def all_gather_stacked(t: torch.Tensor, group: ProcessGroup = None) -> torch.Ten
         dist.all_gather_into_tensor(out, buf, group=group)
     else:
         dist.all_gather(list(out.unbind(0)), buf, group=group)
+    all_gather_stacked.calls += 1
+    all_gather_stacked.bytes += buf.numel() * buf.element_size()
     return out
+
+
+all_gather_stacked.calls = 0
+all_gather_stacked.bytes = 0
