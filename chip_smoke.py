@@ -113,6 +113,25 @@ failed check. Phases:
    and the sharded segment sum over each rank's half of the sliced window
    (one launch and one all_reduce), equal to the plain sum of the whole
    window; each rank prints its seconds, collective bytes and launches;
+   distributed-curves leg: two ranks on the card over gloo (``chip_smoke.py
+   --dist-rank R PORT DIR``), each computing through a ``ShardedEvaluator``
+   of the two: (a) ``BinaryAUROC`` and ``BinaryAUPRC`` over its 4 of the
+   data-parallel leg's 8 chunks (a raw cache of 2^26 rows a rank), equal
+   within rtol 1e-5 to the one-process uncompacted AUROC and to a
+   one-process ``BinaryAUPRC``; (b) per-class ``MulticlassAUROC`` and
+   ``MulticlassAUPRC`` (1000 classes) over the ImageNet-val leg's shapes
+   from a seed of their own, 3 and 2 of the 5 batches a rank, every class
+   within rtol 1e-5 of one process; (c) ``BinaryAUROC(approx=True)`` over
+   (a)'s chunks, its global sketch counts equal to a one-process approximate
+   metric's and its value equal; (d) a batch with 80% of its scores tied
+   (at a bucket capacity factor of 1: at two ranks the factor 4 holds every
+   row) and a batch with NaN scores, on which both ranks take the gather
+   route and equal one process. (a) and (b) run through the bucket exchange
+   (``ops/dist_curves.py``) with no gather round, the histogram and the
+   segment sum launched for their splitters; each rank prints its compute
+   seconds on the distributed route and on the gather route (the toolkit's
+   sync of clones), the collectives and bytes of each, the splitter
+   all-reduce's seconds, the launches and peak memory;
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
@@ -124,7 +143,11 @@ failed check. Phases:
    (``segment_sum_sketch_*``), with the sketch launches counted by leg; and
    the sharded leg's shapes (``topk_label_tile``, ``topk_row_block``,
    ``segment_sum_slice_tile``, ``segment_sum_sketch_slice_tile``,
-   ``sharded_segment_sum``).
+   ``sharded_segment_sum``); and the distributed-curves leg's splitters
+   (``hist_splitter``: 2^26 int32 bins into 2^16, beside ``torch.bincount``;
+   ``segment_sum_splitter``: 3 x 10^7 int32 ones by ``c * 2^16 + bin`` into
+   1000 x 2^16 rows, beside ``index_add_``), each first held bit-equal to
+   its plain version.
 
 Every leg prints its fold cadence: the window steps and the solo folds of
 ``metrics/deferred.py`` that it ran, and the batches each folded.
@@ -174,6 +197,12 @@ QUANTILE_STACK = 4
 DP_RANKS, DP_CHUNKS = 2, 8
 DP_THRESHOLD = 3 * HEADLINE_CHUNK
 DP_TIMEOUT_S = 600
+# the distributed-curves leg: two ranks, the data-parallel leg's chunks and
+# the ImageNet-val leg's shapes (its 5 batches, 3 and 2 a rank)
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 900
+DIST_CURVE_SPLIT = (3, 2)
+DIST_SMALL_ROWS = 1 << 20
 # the sharded leg: two ranks on the card, each holding half of the retrieval
 # leg's label axis and of the sliced leg's cohorts
 SHARD_RANKS = 2
@@ -2057,6 +2086,270 @@ def check_shard_leg(ranks, outdir, retrieval, sliced, sliced_launches):
                      f"rank {r}: per-cohort mean (largest error {err.max():.3e})")
 
 
+# ------------------------------------------- phase 4, distributed-curves leg
+def dist_curve_batches(dev):
+    """The ImageNet-val curve leg's shapes from a seed of their own (the
+    parent and both ranks make the same batches): 5 x (10,000, 1000)
+    softmax scores and int64 labels."""
+    return curve_leg_data(dev, torch.Generator(device=dev).manual_seed(SEED + 300))
+
+
+def dist_small_batch(dev, kind):
+    """Part (d)'s batches: ``ties`` (80% of the scores on one value) or
+    ``nan`` (uniform scores, a few NaN), ``DIST_SMALL_ROWS`` rows."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 400 + (kind == "nan"))
+    s = torch.rand((DIST_SMALL_ROWS,), generator=g, device=dev)
+    t = (torch.rand((DIST_SMALL_ROWS,), generator=g, device=dev) < 0.4).to(torch.float32)
+    if kind == "ties":
+        s = torch.where(s < 0.8, torch.full_like(s, 0.5), s)
+    else:
+        s[:: DIST_SMALL_ROWS // 8] = float("nan")
+    return s, t
+
+
+def _dist_collectives():
+    """``(calls, bytes)`` of the three collectives of ``utils/dist.py``."""
+    from torcheval_tpu_torch.utils import dist as tdist
+
+    fns = (tdist.all_reduce_sum, tdist.all_gather_stacked, tdist.all_to_all_rows)
+    return {f.__name__: (f.calls, f.bytes) for f in fns}
+
+
+def _dist_since(mark):
+    now = _dist_collectives()
+    return {k: [now[k][0] - mark[k][0], now[k][1] - mark[k][1]] for k in now}
+
+
+def dist_worker(rank: int, port: str, outdir: str) -> int:
+    """One rank of the distributed-curves leg (``chip_smoke.py --dist-rank R
+    PORT OUTDIR``), on ``cuda:0`` over gloo, every part through a
+    ``ShardedEvaluator`` over the two ranks: (a) ``BinaryAUROC`` and
+    ``BinaryAUPRC`` over its 4 data-parallel chunks (a raw cache of 2^26
+    rows); (b) ``MulticlassAUROC``/``MulticlassAUPRC`` (1000 classes, per
+    class) over its 3 or 2 ImageNet-val batches; (c) ``BinaryAUROC(approx=
+    True)`` over (a)'s chunks; (d) a batch of massive ties at a bucket
+    capacity factor of 1 (at two ranks the factor 4 holds every row) and a
+    batch with NaN scores. Each part's kernel launches, collectives and
+    route counter are counted from zero around its updates and compute; the
+    gather route (the toolkit's sync of the same members) is timed after it
+    for comparison. Prints one ``DIST_RESULT`` JSON line and writes (c)'s
+    global sketch counts to ``OUTDIR/rank<R>_sketch.npz``."""
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch.metrics import (
+        BinaryAUPRC,
+        BinaryAUROC,
+        MulticlassAUPRC,
+        MulticlassAUROC,
+        toolkit,
+    )
+    from torcheval_tpu_torch.ops import dist_curves as dc
+    from torcheval_tpu_torch.ops.hist import hist
+    from torcheval_tpu_torch.ops.scatter import segment_sum
+    from torcheval_tpu_torch.ops.stream_compact import stream_compact
+    from torcheval_tpu_torch.parallel import ShardedEvaluator, data_parallel_mesh, init_from_env, shutdown
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DIST_RANKS),
+                      RANK=str(rank), LOCAL_RANK="0")
+    _require(init_from_env(backend="gloo") == (rank, DIST_RANKS), "distributed-curves rank joined")
+    mesh = data_parallel_mesh()
+    dev = mesh.device
+    wire = toolkit._allgather_stacked
+    # where a distributed call's host seconds go: each collective of
+    # ops/dist_curves.py timed between two synchronisations (the exchange
+    # with its host staging); the rest is the rank's own device work. The
+    # largest all-reduce of a part is its splitter histogram's.
+    spent, reduces = {}, []
+
+    def timed(name, fn):
+        def run(t, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            spent[name] = spent.get(name, 0.0) + dt
+            if name == "all_reduce":
+                reduces.append((t.numel() * t.element_size(), dt))
+            return out
+
+        run.__dict__ = fn.__dict__  # the exchange's counters stay one object
+        return run
+
+    dc._all_reduce = timed("all_reduce", dc._all_reduce)
+    dc._all_gather = timed("all_gather", dc._all_gather)
+    dc.exchange_buckets = timed("exchange", dc.exchange_buckets)
+
+    def drive(members, batches, gather=True, before_compute=None):
+        """Updates and ``compute()`` through the evaluator, counted from
+        zero; then, for comparison, the gather route on clones."""
+        ev = ShardedEvaluator(members, mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        hist.launches = segment_sum.launches = stream_compact.launches = 0
+        dc.record_call.calls = {}
+        dc.exchange_buckets.calls = dc.exchange_buckets.send_bytes = 0
+        rounds, mark = wire.rounds, _dist_collectives()
+        reduces.clear()
+        spent.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for b in batches:
+            ev.update(*b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = ev.compute()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = {
+            "values": {k: v.double().reshape(-1).cpu().tolist() for k, v in out.items()},
+            "update_seconds": t1 - t0, "compute_seconds": t2 - t1,
+            "routes": {f"{p}/{f}": n for (p, f), n in dc.record_call.calls.items()},
+            "gather_rounds": wire.rounds - rounds, "collectives": _dist_since(mark),
+            "exchange_send_bytes": dc.exchange_buckets.send_bytes,
+            "launches": {"hist": hist.launches, "segment_sum": segment_sum.launches,
+                         "stream_compact": stream_compact.launches},
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "largest_all_reduce": max(reduces) if reduces else None,
+            "collective_seconds": dict(spent),
+        }
+        if gather:
+            clones = {k: toolkit.clone_metric(m) for k, m in ev.metrics.items()}
+            rounds, mark = wire.rounds, _dist_collectives()
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = toolkit.sync_and_compute_collection(clones, recipient_rank="all")
+            torch.cuda.synchronize()
+            res["gather"] = {
+                "compute_seconds": time.perf_counter() - t0, "rounds": wire.rounds - rounds,
+                "collectives": _dist_since(mark),
+                "values": {k: v.double().reshape(-1).cpu().tolist() for k, v in got.items()},
+            }
+        return ev, res
+
+    out = {"rank": rank}
+    # warm-up (untimed): each route once at a small size
+    small = [(torch.rand(1 << 16, device=dev), (torch.rand(1 << 16, device=dev) < 0.5).float())]
+    drive({"a": BinaryAUROC(device=dev), "b": BinaryAUROC(approx=True, device=dev)}, small, gather=False)
+    drive({"m": MulticlassAUROC(num_classes=8, device=dev)},
+          [(torch.rand((4096, 8), device=dev), torch.randint(0, 8, (4096,), device=dev))], gather=False)
+
+    per = DP_CHUNKS // DIST_RANKS
+    chunks = [dp_chunk(dev, i)[2:] for i in range(rank * per, (rank + 1) * per)]
+    _, out["binary"] = drive({"auroc": BinaryAUROC(device=dev), "auprc": BinaryAUPRC(device=dev)},
+                             chunks)
+    ev, out["approx"] = drive({"auroc": BinaryAUROC(approx=True, device=dev)}, chunks)
+    m = ev.metrics["auroc"]
+    empty_s, empty_t = m._empty_block()
+    tp, fp, nan = dc.sharded_sketch_counts(list(m.inputs) or [empty_s], list(m.targets) or [empty_t],
+                                           bucket_bits=m._sketch_bits,
+                                           base=(m.sketch_tp, m.sketch_fp, m.sketch_nan_dropped))
+    np.savez(os.path.join(outdir, f"rank{rank}_sketch.npz"), tp=tp.cpu().numpy(),
+             fp=fp.cpu().numpy(), nan=nan.cpu().numpy())
+    del chunks, ev, m
+    torch.cuda.empty_cache()
+
+    lo = sum(DIST_CURVE_SPLIT[:rank])
+    batches = dist_curve_batches(dev)[lo : lo + DIST_CURVE_SPLIT[rank]]
+    _, out["multiclass"] = drive(
+        {"auroc": MulticlassAUROC(num_classes=CURVE_CLASSES, average=None, device=dev),
+         "auprc": MulticlassAUPRC(num_classes=CURVE_CLASSES, average=None, device=dev)}, batches)
+    del batches
+    torch.cuda.empty_cache()
+
+    out["fallback"] = {}
+    for kind in ("ties", "nan"):
+        s, t = dist_small_batch(dev, kind)
+        lo, hi = rank * DIST_SMALL_ROWS // DIST_RANKS, (rank + 1) * DIST_SMALL_ROWS // DIST_RANKS
+        dc.DIST_CAPACITY_FACTOR = 1 if kind == "ties" else 4
+        _, out["fallback"][kind] = drive({"auroc": BinaryAUROC(device=dev),
+                                          "auprc": BinaryAUPRC(device=dev)}, [(s[lo:hi], t[lo:hi])],
+                                         gather=False)
+    dc.DIST_CAPACITY_FACTOR = 4
+    shutdown()
+    print("DIST_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def dist_leg(outdir):
+    """The distributed-curves ranks' results."""
+    return spawn_ranks("--dist-rank", DIST_RANKS, "DIST_RESULT", DIST_TIMEOUT_S, outdir)
+
+
+def dist_references(dev):
+    """One process, without the distributed route: ``BinaryAUPRC`` and
+    ``BinaryAUROC(approx=True)`` over the 8 data-parallel chunks (the
+    uncompacted AUROC is ``dp_reference``'s), per-class ``MulticlassAUROC``
+    and ``MulticlassAUPRC`` over the 5 curve batches, and both metrics on
+    part (d)'s two batches."""
+    from torcheval_tpu_torch.metrics import BinaryAUPRC, BinaryAUROC, MulticlassAUPRC, MulticlassAUROC
+
+    auprc, approx = BinaryAUPRC(device=dev), BinaryAUROC(approx=True, device=dev)
+    for i in range(DP_CHUNKS):
+        _, _, logits, binary = dp_chunk(dev, i)
+        auprc.update(logits, binary)
+        approx.update(logits, binary)
+    ref = {"auprc": float(auprc.compute()), "approx_auroc": float(approx.compute())}
+    approx._compact()  # fold any staged rows into the resident sketch
+    ref["sketch"] = {k: v.cpu().numpy() for k, v in (
+        ("tp", approx.sketch_tp), ("fp", approx.sketch_fp), ("nan", approx.sketch_nan_dropped))}
+    del auprc, approx
+    mc = {"auroc": MulticlassAUROC(num_classes=CURVE_CLASSES, average=None, device=dev),
+          "auprc": MulticlassAUPRC(num_classes=CURVE_CLASSES, average=None, device=dev)}
+    for x, y in dist_curve_batches(dev):
+        for m in mc.values():
+            m.update(x, y)
+    ref["multiclass"] = {k: m.compute().double().cpu().numpy() for k, m in mc.items()}
+    ref["fallback"] = {}
+    for kind in ("ties", "nan"):
+        s, t = dist_small_batch(dev, kind)
+        ref["fallback"][kind] = {"auroc": float(BinaryAUROC(device=dev).update(s, t).compute()),
+                                 "auprc": float(BinaryAUPRC(device=dev).update(s, t).compute())}
+    return ref
+
+
+def check_dist_leg(ranks, outdir, auroc_ref, ref):
+    """Gates (a)-(d) on every rank: values against the one-process ones
+    (rtol 1e-5), the sketch counts exactly, the routes, no gather round on
+    the distributed route, and the kernels launched on it."""
+    for res in ranks:
+        r = res["rank"]
+        a = res["binary"]
+        _require(_close(a["values"]["auroc"][0], auroc_ref),
+                 f"rank {r} (a): dist AUROC {a['values']['auroc'][0]} vs one process {auroc_ref}")
+        _require(_close(a["values"]["auprc"][0], ref["auprc"]),
+                 f"rank {r} (a): dist AUPRC {a['values']['auprc'][0]} vs one process {ref['auprc']}")
+        _require(a["routes"] == {"dist/binary": 2} and a["gather_rounds"] == 0,
+                 f"rank {r} (a): routes {a['routes']}, gather rounds {a['gather_rounds']}")
+        _require(a["launches"]["hist"] == 2, f"rank {r} (a): hist launches {a['launches']}")
+        b = res["multiclass"]
+        for k in ("auroc", "auprc"):
+            got, want = np.asarray(b["values"][k]), ref["multiclass"][k]
+            err = np.abs(got - want)
+            _require(got.shape == want.shape and bool(np.all(err <= ATOL + RTOL * np.abs(want))),
+                     f"rank {r} (b): per-class {k} (largest error {err.max():.3e})")
+        _require(b["routes"] == {"dist/multiclass": 2} and b["gather_rounds"] == 0,
+                 f"rank {r} (b): routes {b['routes']}, gather rounds {b['gather_rounds']}")
+        _require(b["launches"]["segment_sum"] == 2, f"rank {r} (b): launches {b['launches']}")
+        c = res["approx"]
+        _require(c["routes"] == {"sketch/binary": 1} and c["gather_rounds"] == 0,
+                 f"rank {r} (c): routes {c['routes']}")
+        _require(c["values"]["auroc"][0] == ref["approx_auroc"],
+                 f"rank {r} (c): approx AUROC {c['values']['auroc'][0]} vs one process "
+                 f"{ref['approx_auroc']}")
+        _require(c["launches"]["segment_sum"] > 0, f"rank {r} (c): launches {c['launches']}")
+        with np.load(os.path.join(outdir, f"rank{r}_sketch.npz")) as f:
+            for k in ("tp", "fp", "nan"):
+                _require(np.array_equal(f[k], ref["sketch"][k]), f"rank {r} (c): sketch {k} exactly")
+        for kind, d in res["fallback"].items():
+            _require(d["routes"] == {"fused/binary": 2} and d["gather_rounds"] == 2,
+                     f"rank {r} (d, {kind}): routes {d['routes']}, rounds {d['gather_rounds']}")
+            for k in ("auroc", "auprc"):
+                _require(_close(d["values"][k][0], ref["fallback"][kind][k]),
+                         f"rank {r} (d, {kind}): {k} {d['values'][k][0]} vs one process "
+                         f"{ref['fallback'][kind][k]}")
+
+
 def nccl_world_of_one(dev, gen):
     """A one-rank NCCL world through ``init_from_env``; the sharded class
     counts run one histogram launch and one NCCL all_reduce there."""
@@ -2412,6 +2705,68 @@ def hist_c2_row(dev, timer, launches, keys):
         "shape": (f"config 3's window: ({keys.numel()},) int32 joint keys into {c2} bins; launches: "
                   "every hist launch of the config-3 leg, its C^2 launch and F1's two a fold"),
     }
+
+
+def dist_rows(dev, timer, launches):
+    """The two kernels at the distributed-curves leg's splitter shapes, each
+    held bit-equal to its plain version first: the histogram over rank 0's
+    2^26 splitter bins of part (a) (the top 16 bits of its order keys) into
+    2^16 bins, beside ``torch.bincount``; and the segment sum over rank 0's
+    3 x 10^7 combined keys ``c * 2^16 + bin`` of part (b), int32 ones into
+    1000 x 2^16 rows, beside ``index_add_``."""
+    from torcheval_tpu_torch.ops import dist_curves as dc
+    from torcheval_tpu_torch.ops.hist import hist, hist_plain
+    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
+
+    per = DP_CHUNKS // DIST_RANKS
+    bins = dc.splitter_bins(dc.order_key(torch.cat([dp_chunk(dev, i)[2] for i in range(per)])))
+    err = int((hist(bins, dc.HIST_BINS).long() - hist_plain(bins, dc.HIST_BINS).long()).abs().max())
+    _require(err == 0, "hist at the binary splitter shape against its plain version")
+    rows = [{
+        "name": "hist_splitter",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/hist.cu",
+        "replaces": "torcheval_tpu/ops/pallas_hist.py:55",
+        "launches": launches["hist_splitter"],
+        "max_abs_err": float(err),
+        "ms": timer.ms(lambda: hist(bins, dc.HIST_BINS)),
+        "plain_ms": timer.ms(lambda: hist_plain(bins, dc.HIST_BINS)),
+        "bound_ms": (bins.numel() * bins.element_size() + dc.HIST_BINS * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: torch.bincount(bins, minlength=dc.HIST_BINS)),
+        "shape": (f"binary splitter: ({bins.numel()},) int32 bins into {dc.HIST_BINS}, one rank's "
+                  "data-parallel chunks; launches: the distributed-curves leg's part (a)"),
+    }]
+    del bins
+    x = torch.cat([b[0] for b in dist_curve_batches(dev)[: DIST_CURVE_SPLIT[0]]])
+    offset = torch.arange(CURVE_CLASSES, dtype=torch.int32, device=dev)[:, None] * dc.HIST_BINS
+    keys = (dc.splitter_bins(dc.order_key(x.T)) + offset).reshape(-1)
+    del x, offset
+    ones = torch.ones_like(keys)
+    segments = CURVE_CLASSES * dc.HIST_BINS
+    err = int((segment_sum(ones, keys, segments).long()
+               - segment_sum_plain(ones, keys, segments).long()).abs().max())
+    _require(err == 0, "segment_sum at the multiclass splitter shape against its plain version")
+
+    def library():
+        return torch.zeros(segments, dtype=torch.int32, device=dev).index_add_(0, keys, ones)
+
+    rows.append({
+        "name": "segment_sum_splitter",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/scatter.cu",
+        "replaces": "torcheval_tpu/ops/scatter.py:95",
+        "launches": launches["segment_sum_splitter"],
+        "max_abs_err": float(err),
+        "ms": timer.ms(lambda: segment_sum(ones, keys, segments)),
+        "plain_ms": timer.ms(lambda: segment_sum_plain(ones, keys, segments)),
+        "bound_ms": (keys.numel() * 4 * 2 + segments * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(library),
+        "shape": (f"multiclass splitter: ({keys.numel()},) int32 ones by c * 2^16 + bin into "
+                  f"{segments} rows, one rank's 3 curve batches; launches: part (b)"),
+    })
+    return rows
 
 
 def curve_fold_inputs(batches):
@@ -2872,15 +3227,65 @@ def main() -> int:
         "stream_compact": sum(res["stream_compact_launches"] for res in ranks),
     }
 
+    print(f"phase 4 distributed-curves leg ({DIST_RANKS} ranks on one card over gloo, each "
+          f"through a ShardedEvaluator: (a) {DP_CHUNKS // DIST_RANKS * HEADLINE_CHUNK} data-parallel "
+          f"rows a rank, (b) the "
+          f"ImageNet-val batches split {DIST_CURVE_SPLIT}, (c) approx=True on (a)'s rows, (d) "
+          "the fallbacks)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as dist_dir:
+        dist_ranks = dist_leg(dist_dir)
+        dist_ref = dist_references(dev)
+        check_dist_leg(dist_ranks, dist_dir, auroc_ref, dist_ref)
+    torch.cuda.empty_cache()
+    for res in dist_ranks:
+        r = res["rank"]
+        for part, what in (("binary", "(a) BinaryAUROC+BinaryAUPRC"),
+                           ("multiclass", "(b) MulticlassAUROC+MulticlassAUPRC per class"),
+                           ("approx", "(c) BinaryAUROC(approx=True)")):
+            g = res[part]
+            print(f"  rank {r}: {what}: compute() {g['compute_seconds']:.4f} s on the dist route "
+                  f"(routes {g['routes']}, gather rounds {g['gather_rounds']}; collectives [calls, "
+                  f"bytes sent] {g['collectives']}; {g['exchange_send_bytes']} bytes into the "
+                  f"exchange); gather route {g['gather']['compute_seconds']:.4f} s "
+                  f"({g['gather']['rounds']} rounds, {g['gather']['collectives']}); launches "
+                  f"{g['launches']}; updates {g['update_seconds']:.4f} s; peak memory "
+                  f"{g['peak_bytes'] / 2**30:.2f} GiB")
+            if g["largest_all_reduce"] is not None:
+                nbytes, secs = g["largest_all_reduce"]
+                local = g["compute_seconds"] - sum(g["collective_seconds"].values())
+                print(f"  rank {r}: {what}: largest all-reduce (the splitter histogram) {nbytes} "
+                      f"bytes in {secs:.4f} s; seconds by collective (between synchronisations) "
+                      f"{ {k: round(v, 4) for k, v in g['collective_seconds'].items()} }, the rank's "
+                      f"own work {local:.4f} s")
+        for kind, g in res["fallback"].items():
+            print(f"  rank {r}: (d) {kind}: routes {g['routes']}, {g['gather_rounds']} gather "
+                  f"rounds, compute() {g['compute_seconds']:.4f} s, AUROC {g['values']['auroc'][0]:.8f} "
+                  f"(one process {dist_ref['fallback'][kind]['auroc']:.8f})")
+    r0 = dist_ranks[0]
+    print(f"  (a) AUROC {r0['binary']['values']['auroc'][0]:.8f} (one process, uncompacted "
+          f"{auroc_ref:.8f}), AUPRC {r0['binary']['values']['auprc'][0]:.8f} (one process "
+          f"{dist_ref['auprc']:.8f}); (b) every class within rtol 1e-5; (c) sketch counts equal the "
+          f"one-process approx metric's, AUROC {r0['approx']['values']['auroc'][0]:.8f}")
+    dist_launches = {
+        "hist_splitter": sum(res["binary"]["launches"]["hist"] for res in dist_ranks),
+        "segment_sum_splitter": sum(res["multiclass"]["launches"]["segment_sum"] for res in dist_ranks),
+        "segment_sum_sketch": sum(res["approx"]["launches"]["segment_sum"] for res in dist_ranks),
+        "stream_compact": sum(res["fallback"][k]["launches"]["stream_compact"] for res in dist_ranks
+                              for k in res["fallback"]),
+    }
+    sketch_launches["binary"] += dist_launches["segment_sum_sketch"]
+
     print("phase 5 kernel timings at the main path's shapes")
     launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
                 + curve_launches[k] for k in headline_launches}
-    launches["hist"] += cm_launches
+    launches["hist"] += cm_launches + dist_launches["hist_splitter"]
+    launches["stream_compact"] += dist_launches["stream_compact"]
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
     by_leg = {"sliced": sliced_launches, "curves": curve_launches["segment_sum"],
-              "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches}
+              "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches,
+              "dist_curves": dist_launches["segment_sum_splitter"] + dist_launches["segment_sum_sketch"]}
     rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     rows[-1]["launches_by_leg"] = by_leg
@@ -2893,6 +3298,7 @@ def main() -> int:
     rows.extend(sketch_rows(timer, sketch_fold_inputs(dev, sketch_gen(dev)), sketch_launches,
                             errs["segment_sum_sketch"]))
     rows.extend(shard)
+    rows.extend(dist_rows(dev, timer, dist_launches))
     del cm_keys, curve_fold
     torch.cuda.synchronize()
     for r in rows:
@@ -2952,6 +3358,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--dist-rank":
+        sys.exit(dist_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
     if len(sys.argv) == 5 and sys.argv[1] == "--shard-rank":

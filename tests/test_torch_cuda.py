@@ -1053,3 +1053,105 @@ def test_label_mesh_ndcg_on_the_card_equals_the_cpu(dev, mesh_of_one):
     assert topk_kernel.launches == before + 4  # the ranking and the ideal, per batch
     cpu = NDCG(k=10, device="cpu").update(s.cpu()[:32], t.cpu()[:32]).update(s.cpu()[32:], t.cpu()[32:])
     torch.testing.assert_close(value.cpu(), cpu.compute(), rtol=1e-5, atol=1e-8)
+
+
+# ---------------------------------- the distributed curves, a world of one
+@pytest.fixture
+def data_of_one(dev):
+    """A gloo world of one rank on the card and a ``cuda`` mesh over it with
+    a data dim."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tied_scores(n, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = torch.randint(0, 300, (n,), generator=g, device=dev).to(torch.float32) / 300.0
+    return s, (torch.rand((n,), generator=g, device=dev) < 0.4).to(torch.float32)
+
+
+@pytest.mark.parametrize("which", ["auroc", "auprc"])
+def test_dist_binary_curve_at_world_of_one_equals_the_cpu(dev, data_of_one, which):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+    from torcheval_tpu_torch.ops.curves import binary_auprc_kernel, binary_auroc_kernel
+    from torcheval_tpu_torch.utils.dist import mesh_axis
+
+    fn = dc.sharded_binary_auroc if which == "auroc" else dc.sharded_binary_auprc
+    s, t = _tied_scores(1 << 20, 3, dev)
+    s[:1000] = -0.0
+    before = (hist.launches, dc.exchange_buckets.calls)
+    value, err = fn([s[:300_000], s[300_000:]], [t[:300_000], t[300_000:]],
+                    group=mesh_axis(data_of_one, "data"))
+    torch.cuda.synchronize()
+    assert (hist.launches, dc.exchange_buckets.calls) == (before[0] + 1, before[1] + 1)
+    assert err == 0 and value.device == s.device
+    want = (binary_auroc_kernel if which == "auroc" else binary_auprc_kernel)(s.cpu(), t.cpu())
+    torch.testing.assert_close(value.cpu(), want, rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("which", ["mc_auroc", "mc_auprc"])
+def test_dist_multiclass_curve_at_world_of_one_equals_the_cpu(dev, data_of_one, which):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+    from torcheval_tpu_torch.ops.curves import multiclass_auprc_kernel, multiclass_auroc_kernel
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.softmax(torch.randn((20_000, 100), generator=g, device=dev) * 3, dim=1)
+    y = torch.randint(0, 100, (20_000,), generator=g, device=dev)
+    fn = dc.sharded_multiclass_auroc if which == "mc_auroc" else dc.sharded_multiclass_auprc
+    before = segment_sum.launches
+    value, err = fn([x], [y])
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1 and err == 0
+    want = (multiclass_auroc_kernel if which == "mc_auroc" else multiclass_auprc_kernel)(x.cpu(), y.cpu())
+    torch.testing.assert_close(value.cpu(), want, rtol=1e-5, atol=1e-8)
+
+
+def test_dist_nan_and_abstention_at_world_of_one(dev, data_of_one):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    s, t = _tied_scores(10_000, 6, dev)
+    s[7] = float("nan")
+    assert dc.sharded_binary_auroc([s], [t])[1] == 1
+    before = dc.exchange_buckets.calls
+    assert dc.curve_value("auroc", [s], [t], abstain=True) is None
+    assert dc.exchange_buckets.calls == before  # stood down after the splitter
+
+
+def test_splitter_histogram_kernels_equal_their_plain_versions(dev):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    bins = dc.splitter_bins(dc.order_key(torch.rand((1 << 22,), device=dev) - 0.5))
+    assert torch.equal(hist(bins, dc.HIST_BINS), hist_plain(bins, dc.HIST_BINS))
+    keys = dc.splitter_bins(dc.order_key(torch.rand((100, 20_000), device=dev)))
+    combined = (keys + torch.arange(100, device=dev, dtype=torch.int32)[:, None] * dc.HIST_BINS).reshape(-1)
+    ones = torch.ones_like(combined)
+    assert torch.equal(segment_sum(ones, combined, 100 * dc.HIST_BINS),
+                       segment_sum_plain(ones, combined, 100 * dc.HIST_BINS))
+
+
+@pytest.mark.parametrize("classes", [None, 50])
+def test_dist_sketch_counts_at_world_of_one_equal_the_cpu(dev, data_of_one, classes):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    if classes is None:
+        s, t = torch.randn((1 << 20,), generator=g, device=dev), torch.rand((1 << 20,), device=dev) < 0.3
+        bits = 16
+    else:
+        s = torch.rand((50_000, classes), generator=g, device=dev)
+        t = torch.randint(0, classes, (50_000,), generator=g, device=dev)
+        bits = 12
+    base = dc.sharded_sketch_counts([s.cpu()], [t.cpu()], bucket_bits=bits, num_classes=classes)
+    before = segment_sum.launches
+    got = dc.sharded_sketch_counts([s], [t], bucket_bits=bits, num_classes=classes,
+                                   base=tuple(x.to(dev) for x in base))
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    for a, b in zip(got, base):
+        assert torch.equal(a.cpu(), 2 * b)

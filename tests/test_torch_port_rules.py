@@ -320,7 +320,7 @@ _HOST_MOVES_ALLOWED = {
 @pytest.mark.parametrize(
     "rel",
     ["metrics/toolkit.py", "utils/dist.py", "parallel/mesh.py", "parallel/bootstrap.py",
-     "parallel/evaluator.py"],
+     "parallel/evaluator.py", "ops/dist_curves.py"],
 )
 def test_sync_and_parallel_never_move_cuda_state_to_the_host(rel):
     allowed = _HOST_MOVES_ALLOWED.get(rel, set())
@@ -626,3 +626,62 @@ def test_mesh_axis_names_are_checked(world_of_one):
     assert shard_tile_width(10, 4) == 3
     assert [tile_bounds(10, 4, r) for r in range(4)] == [(0, 3), (3, 6), (6, 9), (9, 10)]
     assert tile_bounds(2, 4, 3) == (2, 2)
+
+
+# ------------------------------------------------- the distributed curves
+DIST_CURVES_SLICE_MODULES = [
+    "torcheval_tpu_torch.metrics.classification.auroc",
+    "torcheval_tpu_torch.ops.dist_curves",
+    "torcheval_tpu_torch.parallel.evaluator",
+    "torcheval_tpu_torch.utils.dist",
+    "torcheval_tpu_torch.utils.test_utils.dist_curves_worker",
+]
+
+
+@pytest.mark.parametrize("name", DIST_CURVES_SLICE_MODULES)
+def test_dist_curves_slice_modules_are_checked(name):
+    assert name in _modules()
+    path = PACKAGE.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
+def _called_attributes(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {node.func.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)}
+
+
+def test_dist_curves_count_with_the_kernels_not_a_library_op():
+    called = _called_attributes(PACKAGE / "ops" / "dist_curves.py")
+    assert not {"bincount", "index_add_", "histc", "scatter_add_"} & called
+    assert {"hist", "segment_sum"} <= {
+        n.id for n in ast.walk(ast.parse((PACKAGE / "ops" / "dist_curves.py").read_text()))
+        if isinstance(n, ast.Name)}
+
+
+@pytest.mark.parametrize("which", ["binary", "multiclass", "sketch"])
+def test_dist_curves_raise_instead_of_falling_back(no_library, which):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    before = (hist.launches, segment_sum.launches)
+    s, t = torch.rand(8), (torch.rand(8) < 0.5).to(torch.float32)
+    x, y = torch.rand(8, 3), torch.tensor([0, 1, 2, 0, 1, 2, 0, 1])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if which == "binary":  # the splitter histogram reaches the histogram kernel
+            dc.sharded_binary_auroc([s], [t])
+        elif which == "multiclass":  # and the per-class one the segment sum
+            dc.sharded_multiclass_auprc([x], [y])
+        else:
+            dc.sharded_sketch_counts([s], [t], bucket_bits=10)
+    assert (hist.launches, segment_sum.launches) == before
+
+
+def test_dist_curve_metrics_default_to_cuda(monkeypatch):
+    from torcheval_tpu_torch.metrics import MulticlassAUROC
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MulticlassAUROC(num_classes=3)
+    m = MulticlassAUROC(num_classes=3, device="cpu")
+    assert all(t.device.type == "cpu" for t in m._empty_block())

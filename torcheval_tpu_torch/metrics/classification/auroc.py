@@ -31,12 +31,26 @@ one launch of the segment-sum kernel (``csrc/scatter.cu``). A
 ``compute()`` folds leftover staged rows into a temporary histogram and
 leaves the state as it was.
 
-Not ported yet: the sharded and distributed curve paths (the sharded
-sketch fold among them).
+**Data-parallel compute** (``parallel/evaluator.py::ShardedEvaluator``):
+each rank holds its own cache, and :meth:`_CompactingCacheLifecycle.
+_distributed_compute` computes the result over a process group without
+gathering the samples. An exact metric runs the distributed curve
+(``ops/dist_curves.py``: a bucket exchange, a sort a rank, a few small
+collectives) when every rank's cache is raw entries only; a rank whose
+cache holds summary rows or a NaN flag abstains through the route's first
+collective, and a NaN score or a bucket overflow shows in its error
+channel, so every rank stands down together and the caller syncs by
+gathering (the JAX package's fused path). An ``approx=`` metric adds every
+rank's resident sketch and staged rows in one int32 all-reduce
+(``sharded_sketch_counts``). The routes read the state and leave it as it
+was. ``ops.dist_curves.record_call`` counts each compute by route: ``dist``,
+``sketch``, or ``fused`` (every exact compute on one rank's state, the
+gather route's included).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -62,6 +76,7 @@ from torcheval_tpu_torch.ops.curves import (
     multiclass_auprc_kernel,
     multiclass_auroc_kernel,
 )
+from torcheval_tpu_torch.ops.dist_curves import curve_value, record_call, sharded_sketch_counts
 from torcheval_tpu_torch.ops.summary import (
     PAD_SCORE,
     compact_count_rows,
@@ -83,6 +98,7 @@ from torcheval_tpu_torch.sketch.cache import (
     sketch_mc_auprc_from_parts,
     sketch_mc_auroc_from_parts,
 )
+from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 
@@ -422,6 +438,90 @@ class _CompactingCacheLifecycle:
         self._nan_checked = False
         self._recount_cache()
 
+    # ------------------------------------------------- distributed compute
+    # the exact metric's kernel in ops/dist_curves.py ("auroc", "auprc",
+    # "mc_auroc", "mc_auprc"), set by each metric class
+    _DIST_KERNEL: Optional[str] = None
+
+    def _family(self) -> str:
+        return "multiclass" if (self._DIST_KERNEL or "").startswith("mc_") else "binary"
+
+    def _empty_block(self):
+        """A rank with no cached rows still joins every collective, with
+        empty blocks of its metric's shape."""
+        classes = getattr(self, "num_classes", None)
+        shape = (0,) if self._family() == "binary" else (0, classes)
+        return (torch.empty(shape, dtype=torch.float32, device=self._device),
+                torch.empty((0,), dtype=torch.int64, device=self._device))
+
+    def _cache_blocks(self):
+        empty_s, empty_t = self._empty_block()
+        return list(self.inputs) or [empty_s], list(self.targets) or [empty_t]
+
+    def _sharded_raw_mesh(self, group) -> bool:
+        """True when the distributed exact curve applies to this metric over
+        ``group``: not for approximate metrics (their sketch route), a
+        multiclass metric without ``num_classes`` (a rank with no rows could
+        not shape its blocks), or a group of one rank. Decided from the
+        configuration and the group alone, so every rank decides alike;
+        what this rank's cache holds rides the route's first collective
+        (:meth:`_sharded_value`)."""
+        if self._sketch_bits is not None or self._DIST_KERNEL is None:
+            return False
+        if self._family() == "multiclass" and getattr(self, "num_classes", None) is None:
+            return False
+        return _group_size(group) > 1
+
+    def _sketch_sharded_mesh(self, group) -> bool:
+        """True when the sketch all-reduce applies: an approximate metric
+        over more than one rank."""
+        return self._sketch_bits is not None and _group_size(group) > 1
+
+    def _sharded_value(self, group):
+        """The exact value over ``group`` by the distributed curve, or None
+        on every rank of it when the route stands down: some rank's cache
+        holds summary rows or a NaN flag (its abstention), or a NaN score or
+        a bucket overflow tripped the error channel."""
+        if not self._sharded_raw_mesh(group):
+            return None
+        abstain = bool(self.summary_scores) or int(self.summary_nan_dropped.item()) != 0
+        s_list, t_list = self._cache_blocks()
+        out = curve_value(self._DIST_KERNEL, s_list, t_list, group=group, abstain=abstain)
+        if out is None or out[1]:
+            return None
+        return out[0]
+
+    def _distributed_compute(self, group):
+        """``compute()`` over every rank of ``group`` (a process group, or
+        a ``DeviceMesh`` dim's ``MeshAxis``) without gathering the samples,
+        or None on every rank when no route applies (then the caller syncs
+        the metric by gathering). Every rank of ``group`` calls it
+        together. The state is read, never changed."""
+        if self._sketch_sharded_mesh(group):
+            s_list, t_list = self._cache_blocks()
+            tp, fp, nan = sharded_sketch_counts(
+                s_list, t_list, group=group, bucket_bits=self._sketch_bits,
+                num_classes=self._sketch_classes,
+                base=(self.sketch_tp, self.sketch_fp, self.sketch_nan_dropped),
+            )
+            record_call("sketch", self._family())
+            # the metric's own compute over the global sketch, nothing staged
+            view = copy.copy(self)
+            view.inputs, view.targets = [], []
+            view.sketch_tp, view.sketch_fp, view.sketch_nan_dropped = tp, fp, nan
+            return view.compute()
+        value = self._sharded_value(group)
+        if value is None:
+            return None
+        record_call("dist", self._family())
+        if self._family() == "multiclass":
+            return _mc_average(value, self.average)
+        return value
+
+
+def _group_size(group) -> int:
+    return _dist.world_size(_dist.process_group(group))
+
 
 class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tensor]):
     """Cache and compaction machinery of the binary curve metrics.
@@ -501,6 +601,7 @@ class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tens
     def _value(self, empty: float, presorted_fn, from_parts):
         if not (self.inputs or self.summary_scores):
             return torch.tensor(empty, device=self._device)
+        record_call("fused", "binary")
         presorted = self._presorted_summary()
         if presorted is not None:
             result = presorted_fn(*presorted)
@@ -523,6 +624,8 @@ class BinaryAUROC(_BinaryCurveMetric):
     ``compaction_threshold`` set, it is a bounded exact unique-threshold
     summary."""
 
+    _DIST_KERNEL = "auroc"
+
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:
             return self._sketch_value(sketch_auroc_from_parts)
@@ -533,6 +636,8 @@ class BinaryAUROC(_BinaryCurveMetric):
 
 class BinaryAUPRC(_BinaryCurveMetric):
     """Streaming area under the PR curve (average precision)."""
+
+    _DIST_KERNEL = "auprc"
 
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:
@@ -619,6 +724,7 @@ class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.
             if self.average == "macro":
                 return torch.tensor(empty, device=self._device)
             return torch.full((self.num_classes,), empty, device=self._device)
+        record_call("fused", "multiclass")
         presorted = self._mc_presorted()
         if presorted is not None:
             per_class = presorted_fn(*presorted)
@@ -639,6 +745,8 @@ class MulticlassAUROC(_MulticlassCurveMetric):
     """Streaming one-vs-all multiclass AUROC (``average`` "macro", or
     "none"/None for the per-class vector); 0.5 with no data."""
 
+    _DIST_KERNEL = "mc_auroc"
+
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:
             per_class = self._sketch_value(sketch_mc_auroc_from_parts, self.num_classes)
@@ -649,6 +757,8 @@ class MulticlassAUROC(_MulticlassCurveMetric):
 class MulticlassAUPRC(_MulticlassCurveMetric):
     """Streaming one-vs-all multiclass average precision; 0.0 with no
     data."""
+
+    _DIST_KERNEL = "mc_auprc"
 
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:

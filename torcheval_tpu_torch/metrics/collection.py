@@ -28,6 +28,7 @@ pipeline) is not ported.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Union
 
 import numpy as np
@@ -79,15 +80,7 @@ class MetricCollection:
         self._deferred = {
             n: m for n, m in self.metrics.items() if getattr(m, "_defers", False)
         }
-        self._window = EvalWindow(self._deferred, owner=self) if self._deferred else None
-        for m in self._deferred.values():
-            m._defer_managed = True
-            # a list: a metric in several collections belongs to each window,
-            # and a read of its state drains them all
-            windows = getattr(m, "_defer_windows", None)
-            if windows is None:
-                windows = m._defer_windows = []
-            windows.append(self._window)
+        self._open_window()
         # place each batch once, on the first member's device
         self._place = next(iter(self.metrics.values()))._input
         self._deferred_updates = tuple(m.update for m in self._deferred.values())
@@ -107,6 +100,39 @@ class MetricCollection:
         self._window_compute_keys = tuple(
             n for n, m in self._deferred.items() if _is_own(type(m).compute)
         )
+
+    def _open_window(self) -> None:
+        """The window the deferring members share, and each member's place
+        in it."""
+        self._window = EvalWindow(self._deferred, owner=self) if self._deferred else None
+        for m in self._deferred.values():
+            m._defer_managed = True
+            # a list: a metric in several collections belongs to each window,
+            # and a read of its state drains them all
+            windows = getattr(m, "_defer_windows", None)
+            if windows is None:
+                windows = m._defer_windows = []
+            windows.append(self._window)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # pickling folds the window's batches and carries no window (it
+        # holds weak references): the unpickled collection opens its own
+        if self._window is not None:
+            self._window.close()
+        state = dict(self.__dict__)
+        state["_window"] = None
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self._open_window()
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "MetricCollection":
+        # a copy is every attribute copied, as without the pickling hooks
+        new = object.__new__(type(self))
+        memo[id(self)] = new
+        new.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return new
 
     def update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
         return self._update_impl(args, kwargs)

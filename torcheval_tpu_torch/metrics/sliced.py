@@ -61,8 +61,12 @@ or not at all, and into the JAX package's (``utils/jax_state.py``);
 ``load_state_dict`` keeps this rank's tile; a capacity growth and a merge
 gather the tiles they re-cut. Results equal the unsharded collection's
 (integer lanes exactly; float sums within ``ops/scatter.py``'s bound).
-A sharded member does not pickle (its mesh holds process groups), and
-cross-replica sync of a sharded collection is not ported.
+A sharded member or collection pickles as unsharded, holding the global
+value (the JAX package's degradation: its mesh holds process groups), so
+pickling it gathers the tiles, a collective over the slice dim as
+``state_dict()`` is; ``copy.deepcopy`` shares the mesh and keeps the tiles.
+A sync over the data ranks (the toolkit's ``processes=``) gathers each
+replica's unsharded layout and keeps this rank's tiles of the fold.
 
 **Windows.** The members ride the collection's window
 (``metrics/deferred.py``) as concat-fold members (``_fold_per_chunk =
@@ -79,6 +83,7 @@ kernel adds in float32 and rounds once (``ops/scatter.py``).
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -539,6 +544,37 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         super()._prepare_for_merge_state()
         self._refresh_id_states()
 
+    def __getstate__(self) -> Dict[str, Any]:
+        """A pickle holds the global value in the unsharded layout and no
+        mesh (process groups do not pickle), as the JAX package degrades a
+        sharded member. A sharded member gathers its tiles for it, as
+        ``state_dict()`` does: a collective over the slice group, which
+        every rank of it runs together."""
+        self._refresh_id_states()
+        state = super().__getstate__()
+        if self._shard is not None:
+            for name in self._sliced_state_names:
+                state[name] = self._gather_rows(state[name])
+            state.update(_shard=None, _shards=1)
+            state.pop("_fold_params")
+            state.pop("_compute_params")
+        return state
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        degraded = "_fold_params" not in state
+        super().__setstate__(state)
+        if degraded:
+            # pickled from a sharded member: rebuild the unsharded statics
+            self._table.granularity = 1
+            self._adopt_state_shapes()
+
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "_SlicedMemberBase":
+        # a copy shares the mesh and keeps its tiles: no collective
+        new = object.__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(copy.deepcopy(DeferredFoldMixin.__getstate__(self), memo))
+        return new
+
     def load_state_dict(self, state_dict, strict: bool = True) -> None:
         # a partial load (strict=False) keeps the current id lanes: bring
         # them up to date with the table first
@@ -973,6 +1009,13 @@ class SlicedMetricCollection(MetricCollection):
             for name, member in self.metrics.items():
                 member.merge_state([other.metrics[name]])
         return self
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # the members pickle unsharded (each gathers its tiles): the copy
+        # holds no mesh
+        state = super().__getstate__()
+        state["_slice_shard"] = None
+        return state
 
     def reset(self) -> "SlicedMetricCollection":
         """Reset every member and forget the observed cohorts (the capacity

@@ -501,6 +501,10 @@ def _install_gathered(metric: TMetric, gathered: List[Dict[str, TState]]) -> TMe
         ]
     folded = _fold_states(gathered, metric._state_name_to_reduction)
     synced = clone_metric(metric)
+    if getattr(metric, "_sliced_sync", False):
+        # the fold is the unsharded layout: a slice-sharded member keeps
+        # this rank's tiles of it (identity when unsharded)
+        folded = synced._tiles_of(folded)
     for name, red in metric._state_name_to_reduction.items():
         value = folded[name]
         default = metric._state_name_to_default[name]

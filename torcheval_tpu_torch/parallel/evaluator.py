@@ -7,9 +7,20 @@ a device mesh, and XLA adds the collectives inside the update programs.
 Here each rank of a ``torch.distributed`` world feeds its own local batches
 (for example its block of each global batch, ``mesh.shard_batch``) to an
 eager ``MetricCollection`` on its card, and :meth:`ShardedEvaluator.compute`
-syncs every member in one two-round exchange
-(``toolkit.sync_and_compute_collection(..., recipient_rank="all")``), so the
-result is global on every rank, as in the JAX package.
+gives the global result on every rank, as in the JAX package:
+
+* the exact curve members (``BinaryAUROC``, ``BinaryAUPRC``,
+  ``MulticlassAUROC``, ``MulticlassAUPRC``) compute through the
+  distributed curves (``ops/dist_curves.py``): each row crosses the wire
+  once, in one bucket all-to-all, where a gather would bring every rank's
+  cache to every rank (the JAX package's ``_sharded_value``); their
+  ``approx=`` forms add every rank's sketch in one all-reduce;
+* every other member, and a curve member whose route stood down (a
+  summary, a NaN score or a bucket overflow on some rank: every rank sees
+  it in the same collective), syncs in one two-round exchange
+  (``toolkit.sync_and_compute_collection(..., recipient_rank="all")``).
+
+A group of one rank syncs nothing and warns, as before.
 """
 
 from __future__ import annotations
@@ -18,7 +29,7 @@ from typing import Any, Dict, Optional, Union
 
 from torcheval_tpu_torch.metrics.collection import MetricCollection
 from torcheval_tpu_torch.metrics.metric import Metric
-from torcheval_tpu_torch.metrics.toolkit import sync_and_compute_collection
+from torcheval_tpu_torch.metrics.toolkit import _torch_group, sync_and_compute_collection
 from torcheval_tpu_torch.parallel.mesh import DataParallelMesh, data_parallel_mesh
 
 
@@ -60,12 +71,23 @@ class ShardedEvaluator:
         return self
 
     def compute(self) -> Any:
-        """Every member's result over all ranks of the mesh, on every rank."""
-        out = sync_and_compute_collection(
-            self.metrics,
-            recipient_rank="all",
-            processes=self.mesh.processes,
-        )
+        """Every member's result over all ranks of the mesh, on every rank:
+        the curve members by their distributed routes, in member order, then
+        the rest in one sync (module doc). The states are not changed."""
+        out: Dict[str, Any] = {}
+        if self.mesh.size > 1:
+            group = _torch_group(self.mesh.processes)
+            for name, m in self.metrics.items():
+                route = getattr(m, "_distributed_compute", None)
+                value = route(group) if route is not None else None
+                if value is not None:
+                    out[name] = value
+        rest = {n: m for n, m in self.metrics.items() if n not in out}
+        if rest:
+            out.update(sync_and_compute_collection(
+                rest, recipient_rank="all", processes=self.mesh.processes
+            ))
+        out = {n: out[n] for n in self.metrics}
         return out["metric"] if self._single else out
 
     def reset(self) -> "ShardedEvaluator":

@@ -11,12 +11,15 @@ device. Without an initialised process group the world has one rank.
 A named mesh axis is a dim of a ``DeviceMesh`` (:func:`mesh_axis`).
 Each helper counts its calls and the bytes this rank sends (``.calls``,
 ``.bytes``: plain attributes, read and zeroed by callers that measure).
+:func:`all_to_all_rows` is the ragged exchange behind the distributed
+curves (``ops/dist_curves.py``): each rank sends its own number of rows to
+each peer.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -99,6 +102,13 @@ def mesh_axis(mesh: Any, name: str) -> MeshAxis:
     return MeshAxis(mesh, name, group, dist.get_world_size(group), dist.get_rank(group))
 
 
+def process_group(group: Any) -> ProcessGroup:
+    """The process group a collective over ``group`` runs on: a
+    :class:`MeshAxis`'s group, or ``group`` itself (a process group, or
+    None for the whole world)."""
+    return group.group if isinstance(group, MeshAxis) else group
+
+
 def collective_device(group: ProcessGroup = None) -> torch.device:
     """Where ``group``'s backend reads and writes collective buffers: the
     current CUDA device for NCCL, the host for any other backend."""
@@ -139,3 +149,31 @@ def all_gather_stacked(t: torch.Tensor, group: ProcessGroup = None) -> torch.Ten
 
 all_gather_stacked.calls = 0
 all_gather_stacked.bytes = 0
+
+
+def all_to_all_rows(
+    t: torch.Tensor,
+    send_counts: List[int],
+    recv_counts: List[int],
+    group: ProcessGroup = None,
+) -> torch.Tensor:
+    """One ragged all-to-all over ``group``: ``t``'s rows (axis 0) are laid
+    out by destination, ``send_counts[k]`` of them for group rank ``k``, and
+    the result holds ``recv_counts[k]`` rows from each rank ``k`` in group
+    order, on ``t``'s device (staged through the host for gloo). Every rank
+    passes the counts its peers pass for it: ``recv_counts[k]`` here is
+    ``send_counts[me]`` on rank ``k``."""
+    dev = collective_device(group)
+    buf = t.to(dev).contiguous()
+    out = buf.new_empty((sum(recv_counts),) + tuple(buf.shape[1:]))
+    dist.all_to_all_single(
+        out, buf, output_split_sizes=list(recv_counts), input_split_sizes=list(send_counts),
+        group=group,
+    )
+    all_to_all_rows.calls += 1
+    all_to_all_rows.bytes += buf.numel() * buf.element_size()
+    return out.to(t.device)
+
+
+all_to_all_rows.calls = 0
+all_to_all_rows.bytes = 0

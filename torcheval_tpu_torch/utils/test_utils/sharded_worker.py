@@ -9,8 +9,12 @@ these workers, one world per module:
 
     python -m torcheval_tpu_torch.utils.test_utils.sharded_worker <scenario> <rank> <world> <port> <outdir>
 
-``scenario`` is ``topk``, ``scatter`` or ``sliced``. Each process joins
-through ``parallel.init_from_env``, builds its ``DeviceMesh``es with
+``scenario`` is ``topk``, ``scatter`` or ``sliced`` (four ranks), or one of
+the slice-sharded collection's sync and pickling scenarios: ``sliced_sync``
+(four ranks, a 2 x 2 ``("data", "slices")`` mesh, each data replica synced
+over its data ranks) and ``sliced_pickle`` (two ranks; rank 0 writes the
+pickles to ``<outdir>/*.pkl``). Each process joins through
+``parallel.init_from_env``, builds its ``DeviceMesh``es with
 ``init_device_mesh("cpu", ...)``, runs the scenario on its tiles and
 writes ``<outdir>/rank<r>.json``; the ``sliced`` scenario also reads
 ``<outdir>/jax_state.npz`` (a JAX collection's state, written by the test)
@@ -24,6 +28,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -475,7 +480,69 @@ def run_sliced(rank: int, world: int, outdir: str) -> dict:
     return res
 
 
-SCENARIOS = {"topk": run_topk, "scatter": run_scatter, "sliced": run_sliced}
+def sliced_values(result) -> dict:
+    """``{id: value}`` of one member's ``SlicedResult``: the synced layout
+    orders ids as their sorted union, a streamed one as first seen."""
+    values = _list(result["values"])
+    return {str(int(i)): v for i, v in zip(result.slice_ids, values)}
+
+
+def run_sliced_sync(rank: int, world: int, outdir: str) -> dict:
+    """A slice-sharded ``Sum`` member on a 2 x 2 ``("data", "slices")``
+    mesh: each data replica streams its two of four batches, then every
+    rank syncs the member over its data ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from torcheval_tpu_torch.metrics import SlicedMetricCollection, Sum
+    from torcheval_tpu_torch.metrics.toolkit import get_synced_metric, sync_and_compute
+    from torcheval_tpu_torch.utils import dist as _dist
+
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "slices"))
+    data = _dist.mesh_axis(mesh, "data")
+    data_ranks = dist.get_process_group_ranks(data.group)
+    col = SlicedMetricCollection({"sum": Sum(device="cpu")}, capacity=64, mesh=mesh,
+                                 mesh_axis="slices")
+    for ids, s, _ in sliced_batches(40, n_batches=4, seed=3)[2 * data.rank : 2 * data.rank + 2]:
+        col.update(ids, s)
+    member = col.metrics["sum"]
+    synced = sync_and_compute(member, recipient_rank="all", processes=data_ranks)
+    clone = get_synced_metric(member, recipient_rank="all", processes=data_ranks)
+    return {
+        "data_ranks": data_ranks,
+        "synced": sliced_values(synced),
+        "local": sliced_values(member.compute()),
+        "synced_tile_rows": int(clone.weighted_sum.shape[0]),
+        "synced_capacity": int(clone.slice_ids_hi.shape[0]),
+    }
+
+
+def run_sliced_pickle(rank: int, world: int, outdir: str) -> dict:
+    """A slice-sharded collection and one of its members pickled on every
+    rank of a 1-D ``("slices",)`` mesh (each pickle gathers the tiles);
+    rank 0 writes the pickles for the test process to load with no
+    process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("slices",))
+    col = _feed(_sliced(True, mesh, 64), sliced_batches(48))
+    agg = _feed(_sliced(True, mesh, 64, agg=True), sliced_batches(300, n_batches=3, seed=9), agg=True)
+    blobs = {"member": pickle.dumps(col.metrics["auroc"]), "collection": pickle.dumps(col),
+             "agg": pickle.dumps(agg)}
+    if rank == 0:
+        for name, blob in blobs.items():
+            with open(os.path.join(outdir, f"{name}.pkl"), "wb") as f:
+                f.write(blob)
+    clone = copy.deepcopy(col)
+    return {
+        "after_pickling": _values(col),
+        "tile_rows": _tile_rows(col),
+        "deepcopy_shares_mesh": all(m._shard is col._slice_shard for m in clone.metrics.values()),
+    }
+
+
+SCENARIOS = {"topk": run_topk, "scatter": run_scatter, "sliced": run_sliced,
+             "sliced_sync": run_sliced_sync, "sliced_pickle": run_sliced_pickle}
 
 
 def _free_port() -> int:
@@ -484,21 +551,23 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def launch_world(scenario: str, outdir: str, timeout_s: float) -> list:
-    """Run the ``WORLD`` workers of ``scenario`` and return each rank's
-    results. Every worker is killed at ``timeout_s``, so a hung collective
-    cannot hang the caller; a failed rank raises ``AssertionError`` with
-    every rank's output. A second port is tried only when the first was
-    taken between choosing and binding it."""
+def launch_world(scenario: str, outdir: str, timeout_s: float, world: int = WORLD,
+                 module: str = "torcheval_tpu_torch.utils.test_utils.sharded_worker") -> list:
+    """Run the ``world`` workers (``python -m <module> scenario R world PORT
+    OUTDIR``) of ``scenario`` and return each rank's results. Every worker
+    is killed at ``timeout_s``, so a hung collective cannot hang the
+    caller; a failed rank raises ``AssertionError`` with every rank's
+    output. A second port is tried only when the first was taken between
+    choosing and binding it."""
     try:
-        return _launch_once(scenario, outdir, timeout_s)
+        return _launch_once(scenario, outdir, timeout_s, world, module)
     except AssertionError as err:
         if "address already in use" not in str(err).lower():
             raise
-        return _launch_once(scenario, outdir, timeout_s)
+        return _launch_once(scenario, outdir, timeout_s, world, module)
 
 
-def _launch_once(scenario: str, outdir: str, timeout_s: float) -> list:
+def _launch_once(scenario: str, outdir: str, timeout_s: float, world: int, module: str) -> list:
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -507,11 +576,10 @@ def _launch_once(scenario: str, outdir: str, timeout_s: float) -> list:
     port = str(_free_port())
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "torcheval_tpu_torch.utils.test_utils.sharded_worker",
-             scenario, str(r), str(WORLD), port, outdir],
+            [sys.executable, "-m", module, scenario, str(r), str(world), port, outdir],
             env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
-        for r in range(WORLD)
+        for r in range(world)
     ]
     deadline = time.monotonic() + timeout_s
     outs, timed_out = [], False
@@ -532,7 +600,7 @@ def _launch_once(scenario: str, outdir: str, timeout_s: float) -> list:
                 f"{timed_out}):\n{logs}"
             )
     results = []
-    for r in range(WORLD):
+    for r in range(world):
         with open(os.path.join(outdir, f"rank{r}.json")) as f:
             results.append(json.load(f))
     return results
@@ -544,14 +612,31 @@ def main() -> None:
     os.environ.update(
         MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world), RANK=str(rank)
     )
-    from torcheval_tpu_torch.parallel import init_from_env, shutdown
+    from torcheval_tpu_torch.parallel import init_from_env
 
     got = init_from_env(device="cpu")
     assert got == (rank, world), got
     res = SCENARIOS[scenario](rank, world, outdir)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+    leave_world()
+
+
+def leave_world() -> None:
+    """A barrier, the world destroyed, then an exit that skips the
+    interpreter's teardown: with a ``DeviceMesh``'s groups, that teardown
+    aborts the process (``terminate called without an active exception``)
+    in about 1 of 60 two-rank worlds on a loaded host, after every result
+    is written."""
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch.parallel import shutdown
+
+    dist.barrier()
     shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":
