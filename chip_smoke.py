@@ -64,6 +64,17 @@ failed check. Phases:
    one ``MetricCollection`` and standalone; the matrix checked exactly
    against ``torch.bincount``, F1 (and, as information, macro precision and
    recall) within rtol 1e-5 of float64 values from it;
+   recommendation-eval leg (about one MLPerf DLRM evaluation pass over
+   Criteo Terabyte's held-out day a task): ``BinaryNormalizedEntropy(
+   num_tasks=3, from_logits=True)``, ``ClickThroughRate(num_tasks=3)``,
+   ``WeightedCalibration(num_tasks=3)`` and their windowed forms (window 8)
+   over 16 batches of (3, 2^22) logits, 3% clicks and weights, in three
+   ``MetricCollection``s (one per update signature); counts exactly, every
+   value within rtol 1e-5 of float64 sums on the card (lifetime and the
+   last 8 batches), ``Throughput`` (the CUDA-event time) equal to rows over
+   elapsed time; prints preds/s, peak memory and the fold cadence; and
+   ``R2Score`` in its three ``multioutput`` modes over 4 batches of (2^22,
+   8), within rtol 1e-5 of float64;
    ImageNet-val curve leg: ``MulticlassAUROC`` and ``MulticlassAUPRC``
    (``compaction_threshold=20_000``) and
    ``MulticlassBinnedPrecisionRecallCurve(1000, threshold=100)`` over 5
@@ -131,7 +142,23 @@ failed check. Phases:
    segment sum launched for their splitters; each rank prints its compute
    seconds on the distributed route and on the gather route (the toolkit's
    sync of clones), the collectives and bytes of each, the splitter
-   all-reduce's seconds, the launches and peak memory;
+   all-reduce's seconds, the launches and peak memory; (e) (a) and (b) once
+   more with ``TORCHEVAL_TPU_SYNC_QUANTIZE=bf16`` and once with ``int8``
+   (the quantized routes: a bf16 or int8 splitter histogram beside a
+   12-byte exact all-reduce, 5- and 6-byte exchange rows), each value within
+   rtol 1e-5 of the raw route's, the routes, collective counts, launches
+   and exchange bytes (5/8 and 6/8 of the raw rows) checked; a small case
+   of quantized scores (AUROC bit-identical to raw, AUPRC within rtol
+   1e-5), the NaN fallback under int8 and the sketch all-reduce under the
+   int8 knob (exact); each rank prints the splitter round's bytes and
+   seconds. Then the quantized sync: ``sync_and_compute_collection`` over
+   the two ranks of config 3's ``MulticlassConfusionMatrix(1000)`` (the
+   narrow lane), a ``BinaryAUROC(approx=True)`` sketch (the bucket lane) and
+   a ``WeightedCalibration(num_tasks=256)`` (the q8 lane), with
+   ``quantize=False`` and ``True``: the confusion matrix equal to
+   ``torch.bincount``'s and the sketch AUROC equal in both, the calibration
+   within ``max|block| / 254`` a rank, two rounds each, the rounds' payload
+   bytes and seconds printed;
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
@@ -225,6 +252,14 @@ CRITERIA = ("exact_match", "hamming", "overlap", "contain", "belong")
 # H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 RTOL, ATOL = 1e-5, 1e-8
+# the recommendation-eval leg: 16 batches of (3, 2^22) predictions, about one
+# MLPerf DLRM evaluation pass over Criteo Terabyte's held-out day a task
+REC_TASKS, REC_ROWS, REC_BATCHES, REC_WINDOW = 3, 1 << 22, 16, 8
+REC_CLICK_RATE = 0.03
+R2_ROWS, R2_OUTPUTS, R2_BATCHES = 1 << 22, 8, 4
+R2_MODES = ("uniform_average", "raw_values", "variance_weighted")
+QUANT_MODES = ("bf16", "int8")
+SYNC_CAL_TASKS = 256
 # unit roundoff of the half types
 HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
@@ -1616,6 +1651,160 @@ def cm_information(dev, batches, ref):
     return out
 
 
+# ------------------------------------------- phase 4, recommendation-eval leg
+def rec_leg_data(dev):
+    """16 batches of (3, 2^22) float32 logits, {0, 1} targets at a 3% click
+    rate and float32 weights in [0.5, 1.5), from a seed of their own; the
+    logits lean towards the clicks, as a trained model's do."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 600)
+    out = []
+    for _ in range(REC_BATCHES):
+        t = (torch.rand((REC_TASKS, REC_ROWS), generator=g, device=dev) < REC_CLICK_RATE).to(torch.float32)
+        x = torch.randn((REC_TASKS, REC_ROWS), generator=g, device=dev) + 2.0 * t - 3.5
+        w = torch.rand((REC_TASKS, REC_ROWS), generator=g, device=dev) + 0.5
+        out.append((x, t, w))
+    return out
+
+
+def rec_leg(dev, batches):
+    """The five recommendation metrics over the leg's batches. Their
+    ``update`` signatures differ (NE takes logits, targets and a ``weight=``
+    keyword; CTR the clicks and weights; calibration probabilities, targets
+    and weights), so they ride three ``MetricCollection``s, one per
+    signature, each a deferred window. The calibration's probabilities are
+    the logits' sigmoid, made inside the timed loop. Returns the results,
+    the preds/s of a ``Throughput`` fed the CUDA-event time, the host
+    seconds, the peak memory and the fold cadence."""
+    from torcheval_tpu_torch.metrics import (
+        BinaryNormalizedEntropy,
+        ClickThroughRate,
+        MetricCollection,
+        Throughput,
+        WeightedCalibration,
+        WindowedClickThroughRate,
+        WindowedWeightedCalibration,
+    )
+
+    kw = dict(num_tasks=REC_TASKS, device=dev)
+    ne = MetricCollection({"ne": BinaryNormalizedEntropy(from_logits=True, **kw)})
+    ctr = MetricCollection({"ctr": ClickThroughRate(**kw),
+                            "wctr": WindowedClickThroughRate(window_size=REC_WINDOW, **kw)})
+    cal = MetricCollection({"cal": WeightedCalibration(**kw),
+                            "wcal": WindowedWeightedCalibration(window_size=REC_WINDOW, **kw)})
+    throughput = Throughput(device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    folds0 = fold_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for x, t, w in batches:
+        ne.update(x, t, weight=w)
+        ctr.update(t, w)
+        cal.update(torch.sigmoid(x), t, w)
+    out = {**ne.compute(), **ctr.compute(), **cal.compute()}
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - t0
+    preds = REC_BATCHES * REC_TASKS * REC_ROWS
+    throughput.update(preds, start.elapsed_time(end) / 1e3)
+    return {
+        "out": out, "preds": preds, "rate": float(throughput.compute()),
+        "elapsed_s": float(throughput.elapsed_time_sec), "num_total": float(throughput.num_total),
+        "host_s": host_s, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "cadence": cadence(folds0),
+        "windows": [len(ctr.metrics["wctr"].window), len(cal.metrics["wcal"].window)],
+    }
+
+
+def rec_reference(batches):
+    """Per task, in float64 on the card and not through the port: the
+    weighted click, prediction and cross-entropy sums of every batch, then
+    CTR, calibration and NE over all batches and over the last
+    ``REC_WINDOW``."""
+    stats = []
+    for x, t, w in batches:
+        xd, td, wd = x.double(), t.double(), w.double()
+        pd = torch.sigmoid(x).double()
+        ce = torch.nn.functional.softplus(xd) - xd * td
+        stats.append(torch.stack([wd.sum(1), (wd * td).sum(1), (wd * pd).sum(1), (wd * ce).sum(1)]))
+
+    def rates(part):
+        sw, swt, swp, sce = torch.stack(part).sum(0)
+        p = torch.clamp(swt / sw, 1.1920929e-07, 1 - 1.1920929e-07)
+        base = -p * torch.log(p) - (1 - p) * torch.log(1 - p)
+        return {"ctr": swt / sw, "cal": swp / swt, "ne": (sce / sw) / base}
+
+    return rates(stats), rates(stats[-REC_WINDOW:])
+
+
+def check_rec_leg(res, ref):
+    """Counts exactly (the windows' lengths, Throughput's total), every
+    value within rtol 1e-5 of the float64 references; the largest relative
+    error by metric."""
+    life, win = ref
+    out = res["out"]
+    got = {"ne": out["ne"], "ctr": out["ctr"], "cal": out["cal"],
+           "wctr_lifetime": out["wctr"][0], "wctr_window": out["wctr"][1],
+           "wcal_lifetime": out["wcal"][0], "wcal_window": out["wcal"][1]}
+    want = {"ne": life["ne"], "ctr": life["ctr"], "cal": life["cal"],
+            "wctr_lifetime": life["ctr"], "wctr_window": win["ctr"],
+            "wcal_lifetime": life["cal"], "wcal_window": win["cal"]}
+    errs = {}
+    for k, g in got.items():
+        g, w = g.double().cpu(), want[k].cpu()
+        _require(g.shape == (REC_TASKS,) and bool(torch.isfinite(g).all()), f"rec leg {k}: {g.tolist()}")
+        errs[k] = float(((g - w).abs() / w.abs()).max())
+        _require(bool(torch.allclose(g, w, rtol=RTOL, atol=ATOL)),
+                 f"rec leg {k} {g.tolist()} vs float64 {w.tolist()} (relative error {errs[k]:.3e})")
+    _require(res["windows"] == [REC_WINDOW, REC_WINDOW], f"rec leg windows {res['windows']}")
+    _require(res["num_total"] == res["preds"], f"Throughput counted {res['num_total']}")
+    _require(abs(res["rate"] - res["preds"] / res["elapsed_s"]) <= 1e-6 * res["rate"],
+             f"Throughput {res['rate']} vs rows over elapsed time")
+    return errs
+
+
+def r2_leg(dev):
+    """``R2Score`` in its three ``multioutput`` modes, one collection, over
+    4 batches of (2^22, 8) float32 regressors from a seed of their own;
+    each value within rtol 1e-5 of float64 sums on the card."""
+    from torcheval_tpu_torch.metrics import MetricCollection, R2Score
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 700)
+    batches = []
+    for _ in range(R2_BATCHES):
+        y = torch.randn((R2_ROWS, R2_OUTPUTS), generator=g, device=dev) * 2 + 1
+        batches.append((y + 0.6 * torch.randn((R2_ROWS, R2_OUTPUTS), generator=g, device=dev), y))
+    col = MetricCollection({m: R2Score(multioutput=m, device=dev) for m in R2_MODES})
+    torch.cuda.synchronize()
+    folds0 = fold_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for yhat, y in batches:
+        col.update(yhat, y)
+    out = col.compute()
+    end.record()
+    end.synchronize()
+    ss, s1, rss = (torch.zeros(R2_OUTPUTS, dtype=torch.float64, device=dev) for _ in range(3))
+    for yhat, y in batches:
+        yd = y.double()
+        ss, s1, rss = ss + (yd * yd).sum(0), s1 + yd.sum(0), rss + ((yd - yhat.double()) ** 2).sum(0)
+    n = R2_BATCHES * R2_ROWS
+    tss = ss - s1 * s1 / n
+    raw = 1 - rss / tss
+    want = {"raw_values": raw, "uniform_average": raw.mean(),
+            "variance_weighted": (raw * tss / tss.sum()).sum()}
+    errs = {}
+    for m in R2_MODES:
+        got = out[m].double()
+        errs[m] = float(((got - want[m]).abs() / want[m].abs()).max())
+        _require(bool(torch.isfinite(got).all()) and bool(torch.allclose(got, want[m], rtol=RTOL, atol=ATOL)),
+                 f"R2Score {m} {got.tolist()} vs float64 {want[m].tolist()} (relative error {errs[m]:.3e})")
+    _require(all(int(col.metrics[m].num_obs) == n for m in R2_MODES), "R2Score counted every row")
+    return {"errs": errs, "seconds": start.elapsed_time(end) / 1e3, "cadence": cadence(folds0),
+            "uniform": float(out["uniform_average"])}
+
+
 # ------------------------------------------ phase 4, ImageNet-val curve leg
 def curve_leg_data(dev, gen):
     """The ImageNet-1k validation set's size: 5 batches of 10,000 rows of
@@ -2179,6 +2368,19 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
     dc._all_reduce = timed("all_reduce", dc._all_reduce)
     dc._all_gather = timed("all_gather", dc._all_gather)
     dc.exchange_buckets = timed("exchange", dc.exchange_buckets)
+    lossy, splitters = dc.lossy_splitter_sum, []
+
+    def lossy_timed(local, mode, pg, k):
+        """The quantized splitter round: its seconds (between two
+        synchronisations) and the bytes that entered its collectives."""
+        torch.cuda.synchronize()
+        mark, t0 = _dist_collectives(), time.perf_counter()
+        out = lossy(local, mode, pg, k)
+        torch.cuda.synchronize()
+        splitters.append((sum(v[1] for v in _dist_since(mark).values()), time.perf_counter() - t0))
+        return out
+
+    dc.lossy_splitter_sum = lossy_timed
 
     def drive(members, batches, gather=True, before_compute=None):
         """Updates and ``compute()`` through the evaluator, counted from
@@ -2191,6 +2393,7 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
         dc.exchange_buckets.calls = dc.exchange_buckets.send_bytes = 0
         rounds, mark = wire.rounds, _dist_collectives()
         reduces.clear()
+        splitters.clear()
         spent.clear()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -2211,6 +2414,7 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
                          "stream_compact": stream_compact.launches},
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "largest_all_reduce": max(reduces) if reduces else None,
+            "splitter_rounds": list(splitters) if splitters else None,
             "collective_seconds": dict(spent),
         }
         if gather:
@@ -2238,15 +2442,28 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
     chunks = [dp_chunk(dev, i)[2:] for i in range(rank * per, (rank + 1) * per)]
     _, out["binary"] = drive({"auroc": BinaryAUROC(device=dev), "auprc": BinaryAUPRC(device=dev)},
                              chunks)
+    # (e) the quantized routes of (a), the mode set through the environment
+    # as a user's evaluator would read it
+    out["quantized"] = {}
+    for mode in QUANT_MODES:
+        os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = mode
+        _, out["quantized"][f"binary/{mode}"] = drive(
+            {"auroc": BinaryAUROC(device=dev), "auprc": BinaryAUPRC(device=dev)}, chunks, gather=False)
+    os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE")
     ev, out["approx"] = drive({"auroc": BinaryAUROC(approx=True, device=dev)}, chunks)
     m = ev.metrics["auroc"]
     empty_s, empty_t = m._empty_block()
-    tp, fp, nan = dc.sharded_sketch_counts(list(m.inputs) or [empty_s], list(m.targets) or [empty_t],
-                                           bucket_bits=m._sketch_bits,
-                                           base=(m.sketch_tp, m.sketch_fp, m.sketch_nan_dropped))
+    sketch_args = (list(m.inputs) or [empty_s], list(m.targets) or [empty_t])
+    sketch_kw = dict(bucket_bits=m._sketch_bits, base=(m.sketch_tp, m.sketch_fp, m.sketch_nan_dropped))
+    tp, fp, nan = dc.sharded_sketch_counts(*sketch_args, **sketch_kw)
     np.savez(os.path.join(outdir, f"rank{rank}_sketch.npz"), tp=tp.cpu().numpy(),
              fp=fp.cpu().numpy(), nan=nan.cpu().numpy())
-    del chunks, ev, m
+    # (e) the sketch all-reduce is never quantized
+    os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = "int8"
+    q_counts = dc.sharded_sketch_counts(*sketch_args, **sketch_kw)
+    os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE")
+    out["quantized"]["sketch_equal"] = all(torch.equal(a, b) for a, b in zip(q_counts, (tp, fp, nan)))
+    del chunks, ev, m, sketch_args, sketch_kw, q_counts
     torch.cuda.empty_cache()
 
     lo = sum(DIST_CURVE_SPLIT[:rank])
@@ -2254,6 +2471,13 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
     _, out["multiclass"] = drive(
         {"auroc": MulticlassAUROC(num_classes=CURVE_CLASSES, average=None, device=dev),
          "auprc": MulticlassAUPRC(num_classes=CURVE_CLASSES, average=None, device=dev)}, batches)
+    for mode in QUANT_MODES:  # (e) the quantized routes of (b)
+        os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = mode
+        _, out["quantized"][f"multiclass/{mode}"] = drive(
+            {"auroc": MulticlassAUROC(num_classes=CURVE_CLASSES, average=None, device=dev),
+             "auprc": MulticlassAUPRC(num_classes=CURVE_CLASSES, average=None, device=dev)},
+            batches, gather=False)
+    os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE")
     del batches
     torch.cuda.empty_cache()
 
@@ -2266,9 +2490,109 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
                                           "auprc": BinaryAUPRC(device=dev)}, [(s[lo:hi], t[lo:hi])],
                                          gather=False)
     dc.DIST_CAPACITY_FACTOR = 4
+    # (e) NaN scores still trip the error channel on a quantized route
+    s, t = dist_small_batch(dev, "nan")
+    lo, hi = rank * DIST_SMALL_ROWS // DIST_RANKS, (rank + 1) * DIST_SMALL_ROWS // DIST_RANKS
+    os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = "int8"
+    _, out["quantized"]["nan/int8"] = drive({"auroc": BinaryAUROC(device=dev),
+                                             "auprc": BinaryAUPRC(device=dev)},
+                                            [(s[lo:hi], t[lo:hi])], gather=False)
+    os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE")
+    out["quantized"]["bit_equal"] = dist_quantized_scores(dev, rank, dc)
+    out["sync"] = quantized_sync(dev, rank, outdir, toolkit)
     shutdown()
     print("DIST_RESULT " + json.dumps(out), flush=True)
     return 0
+
+
+def dist_quantized_scores(dev, rank, dc):
+    """(e) A small case of quantized scores (300 levels; 2^16 rows a rank,
+    and (2^14, 50) for the multiclass pair): for each quantized route,
+    whether its values are bit-identical to the raw route's and their
+    largest relative difference; the error rows must be 0 on both."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 800 + rank)
+    s = torch.randint(0, 300, (1 << 16,), generator=g, device=dev).to(torch.float32) / 300
+    t = (torch.rand((1 << 16,), generator=g, device=dev) < 0.4).to(torch.float32)
+    x = torch.randint(0, 300, (1 << 14, 50), generator=g, device=dev).to(torch.float32) / 300
+    y = torch.randint(0, 50, (1 << 14,), generator=g, device=dev)
+    out = {}
+    for name, fn, args in (("auroc", dc.sharded_binary_auroc, ([s], [t])),
+                           ("auprc", dc.sharded_binary_auprc, ([s], [t])),
+                           ("mc_auroc", dc.sharded_multiclass_auroc, ([x], [y])),
+                           ("mc_auprc", dc.sharded_multiclass_auprc, ([x], [y]))):
+        raw, raw_err = fn(*args, quantize=False)
+        for mode in QUANT_MODES:
+            got, err = fn(*args, quantize=mode)
+            _require(err == raw_err == 0, f"(e) quantized scores {name}/{mode}: error rows {err}")
+            rel = float(((got.double() - raw.double()).abs() / raw.double().abs()).max())
+            out[f"{name}/{mode}"] = [bool(torch.equal(got, raw)), rel]
+    return out
+
+
+def quantized_sync(dev, rank, outdir, toolkit):
+    """The quantized sync: ``sync_and_compute_collection`` over the two
+    ranks of config 3's ``MulticlassConfusionMatrix(1000)`` (this rank's
+    share of its 13 batches, from a seed of their own: the narrow lane), a
+    ``BinaryAUROC(approx=True)`` sketch over one data-parallel chunk (the
+    bucket lane) and a ``WeightedCalibration(num_tasks=256)`` (the q8 lane),
+    with ``quantize=False`` and then ``True``. Records each round's payload
+    bytes and seconds, the results, and (to ``OUTDIR/rank<R>_cal.npz``) the
+    calibration's local and synced sums for the parent's bound."""
+    from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassConfusionMatrix, WeightedCalibration
+
+    batches = cm_leg_data(dev, torch.Generator(device=dev).manual_seed(SEED + 500))[rank::DIST_RANKS]
+    _, _, logits, binary = dp_chunk(dev, rank)
+    g = torch.Generator(device=dev).manual_seed(SEED + 900 + rank)
+    shape = (SYNC_CAL_TASKS, 1 << 14)
+    p = torch.rand(shape, generator=g, device=dev)
+    clicks = (torch.rand(shape, generator=g, device=dev) < 0.1).to(torch.float32)
+    w = torch.rand(shape, generator=g, device=dev) + 0.5
+    inner, rounds_log = toolkit._allgather_stacked, []
+
+    def logged(x, group, round_label="collective", lane="typed"):
+        t0 = time.perf_counter()
+        got = inner(x, group, round_label, lane)
+        rounds_log.append((round_label, x.numel() * x.element_size(), time.perf_counter() - t0))
+        return got
+
+    logged.__dict__ = inner.__dict__  # the counters stay one object
+    toolkit._allgather_stacked = logged
+    res, local = {}, {}
+    try:
+        for quantize in (False, True):
+            cm = MulticlassConfusionMatrix(CM_CLASSES, device=dev)
+            for pred, label in batches:
+                cm.update(pred, label)
+            sketch = BinaryAUROC(approx=True, device=dev).update(logits, binary)
+            sketch._compact()  # the resident sketch alone crosses the wire
+            cal = WeightedCalibration(num_tasks=SYNC_CAL_TASKS, device=dev).update(p, clicks, w)
+            members = {"cm": cm, "sketch": sketch, "cal": cal}
+            local = {k: v.cpu().numpy() for k, v in cal.state_dict().items()}
+            rounds_log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = toolkit.sync_and_compute_collection(members, recipient_rank="all", quantize=quantize)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rounds = [list(r) for r in rounds_log]
+            synced = toolkit.get_synced_metric(cal, recipient_rank="all", quantize=quantize)
+            np.savez(os.path.join(outdir, f"rank{rank}_cal_{quantize}.npz"),
+                     **{f"synced_{k}": v.cpu().numpy() for k, v in synced.state_dict().items()},
+                     **{f"local_{k}": v for k, v in local.items()})
+            res[str(quantize)] = {
+                "cm_sha": hash_bytes(out["cm"]), "cm_dtype": str(out["cm"].dtype).removeprefix("torch."),
+                "cm_total": int(out["cm"].sum()), "sketch_auroc": float(out["sketch"]),
+                "rounds": rounds, "seconds": seconds,
+            }
+    finally:
+        toolkit._allgather_stacked = inner
+    return res
+
+
+def hash_bytes(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def dist_leg(outdir):
@@ -2348,6 +2672,79 @@ def check_dist_leg(ranks, outdir, auroc_ref, ref):
                 _require(_close(d["values"][k][0], ref["fallback"][kind][k]),
                          f"rank {r} (d, {kind}): {k} {d['values'][k][0]} vs one process "
                          f"{ref['fallback'][kind][k]}")
+
+
+# collective calls (all_reduce, all_gather, all_to_all) of two metrics'
+# computes on each route: five a call raw, six with bf16, seven with int8
+QUANT_COLLECTIVES = {"bf16": (6, 4, 2), "int8": (4, 6, 4)}
+
+
+def check_dist_quantized(dev, ranks, outdir):
+    """Gates of part (e) and of the quantized sync on every rank: values
+    within rtol 1e-5 of the raw route, bit-identical on quantized scores;
+    routes, collectives, launches and the exchange's bytes (5/8 and 6/8 of
+    the raw rows); the error channel trips; the sketch counts exact; the
+    synced integer results equal (the confusion matrix equal to
+    ``torch.bincount``'s), the q8 lane within its bound, two rounds a
+    sync."""
+    for res in ranks:
+        r, q = res["rank"], res["quantized"]
+        for fam, row, kernel in (("binary", 5, "hist"), ("multiclass", 6, "segment_sum")):
+            raw = res[fam]
+            for mode in QUANT_MODES:
+                got = q[f"{fam}/{mode}"]
+                for k, v in got["values"].items():
+                    a, b = np.asarray(v), np.asarray(raw["values"][k])
+                    _require(a.shape == b.shape and bool(np.all(np.abs(a - b) <= ATOL + RTOL * np.abs(b))),
+                             f"rank {r} (e) {fam}/{mode} {k}: largest difference from the raw route "
+                             f"{np.abs(a - b).max():.3e}")
+                _require(got["routes"] == {f"dist/{fam}": 2} and got["gather_rounds"] == 0,
+                         f"rank {r} (e) {fam}/{mode}: routes {got['routes']}, rounds {got['gather_rounds']}")
+                calls = tuple(got["collectives"][f][0] for f in
+                              ("all_reduce_sum", "all_gather_stacked", "all_to_all_rows"))
+                _require(calls == QUANT_COLLECTIVES[mode], f"rank {r} (e) {fam}/{mode}: collectives {calls}")
+                _require(got["exchange_send_bytes"] * 8 == raw["exchange_send_bytes"] * row,
+                         f"rank {r} (e) {fam}/{mode}: {got['exchange_send_bytes']} exchange bytes against "
+                         f"the raw route's {raw['exchange_send_bytes']}")
+                _require(got["launches"][kernel] == 2, f"rank {r} (e) {fam}/{mode}: launches {got['launches']}")
+        _require(q["sketch_equal"], f"rank {r} (e): the sketch counts under the int8 knob")
+        nan = q["nan/int8"]
+        _require(nan["routes"] == {"fused/binary": 2} and nan["gather_rounds"] == 2,
+                 f"rank {r} (e) NaN scores: routes {nan['routes']}")
+        # AUROC's partial integrals are exact integer trapezoids here, so a
+        # moved splitter cannot change a bit; AUPRC's are float32 sums of
+        # precision fractions, which a moved splitter regroups
+        for key, (equal, rel) in q["bit_equal"].items():
+            _require(equal if "auroc" in key else rel <= RTOL,
+                     f"rank {r} (e) quantized scores {key}: bit-equal {equal}, relative difference {rel:.3e}")
+    batches = cm_leg_data(dev, torch.Generator(device=dev).manual_seed(SEED + 500))
+    keys = torch.cat([label.long() * CM_CLASSES + pred.long() for pred, label in batches])
+    for res in ranks:
+        r, sync = res["rank"], res["sync"]
+        dtype = getattr(torch, sync["True"]["cm_dtype"])
+        ref = torch.bincount(keys, minlength=CM_CLASSES**2).reshape(CM_CLASSES, CM_CLASSES).to(dtype)
+        _require(sync["True"]["cm_sha"] == sync["False"]["cm_sha"] == hash_bytes(ref),
+                 f"rank {r} quantized sync: confusion matrix equal to torch.bincount's")
+        _require(sync["True"]["sketch_auroc"] == sync["False"]["sketch_auroc"],
+                 f"rank {r} quantized sync: sketch AUROC {sync['True']['sketch_auroc']} vs "
+                 f"{sync['False']['sketch_auroc']}")
+        for quantize in ("False", "True"):
+            _require([x[0] for x in sync[quantize]["rounds"]] == ["descriptor", "payload"],
+                     f"rank {r} quantized sync ({quantize}): rounds {sync[quantize]['rounds']}")
+        _require(sync["True"]["rounds"][1][1] < sync["False"]["rounds"][1][1],
+                 f"rank {r} quantized sync: payload bytes did not shrink")
+    files = {q: [np.load(os.path.join(outdir, f"rank{r}_cal_{q}.npz")) for r in range(DIST_RANKS)]
+             for q in ("False", "True")}
+    worst = 0.0
+    for name in ("weighted_input_sum", "weighted_label_sum"):
+        # one q8 block of 256 tasks: each rank's error at most max|block| / 254
+        bound = sum(float(np.abs(f[f"local_{name}"]).max()) for f in files["True"]) / 254.0
+        for fq, fr in zip(files["True"], files["False"]):
+            diff = float(np.abs(fq[f"synced_{name}"].astype(np.float64)
+                                - fr[f"synced_{name}"].astype(np.float64)).max())
+            worst = max(worst, diff / bound)
+            _require(diff <= bound * (1 + 1e-5), f"quantized sync {name}: drift {diff} above its bound {bound}")
+    return worst
 
 
 def nccl_world_of_one(dev, gen):
@@ -2735,7 +3132,7 @@ def dist_rows(dev, timer, launches):
         "bound_by": "bytes",
         "library_ms": timer.ms(lambda: torch.bincount(bins, minlength=dc.HIST_BINS)),
         "shape": (f"binary splitter: ({bins.numel()},) int32 bins into {dc.HIST_BINS}, one rank's "
-                  "data-parallel chunks; launches: the distributed-curves leg's part (a)"),
+                  "data-parallel chunks; launches: the distributed-curves leg's parts (a) and (e)"),
     }]
     del bins
     x = torch.cat([b[0] for b in dist_curve_batches(dev)[: DIST_CURVE_SPLIT[0]]])
@@ -2764,7 +3161,7 @@ def dist_rows(dev, timer, launches):
         "bound_by": "bytes",
         "library_ms": timer.ms(library),
         "shape": (f"multiclass splitter: ({keys.numel()},) int32 ones by c * 2^16 + bin into "
-                  f"{segments} rows, one rank's 3 curve batches; launches: part (b)"),
+                  f"{segments} rows, one rank's 3 curve batches; launches: parts (b) and (e)"),
     })
     return rows
 
@@ -3000,6 +3397,32 @@ def main() -> int:
     cm_keys = torch.cat([label * CM_CLASSES + pred for pred, label in batches])
     del batches, mat
 
+    print(f"phase 4 recommendation-eval leg ({REC_BATCHES} x ({REC_TASKS}, {REC_ROWS}) logits, "
+          f"{REC_CLICK_RATE:.0%} clicks, weights: NE, CTR, calibration and their windows of "
+          f"{REC_WINDOW}; R2Score over {R2_BATCHES} x ({R2_ROWS}, {R2_OUTPUTS}))")
+    batches = rec_leg_data(dev)
+    rec_leg(dev, batches[:2])  # warm-up: the first use of each PyTorch kernel
+    launched0 = (hist.launches, segment_sum.launches, stream_compact.launches, topk_kernel.launches)
+    rec = rec_leg(dev, batches)
+    rec_errs = check_rec_leg(rec, rec_reference(batches))
+    del batches
+    r2 = r2_leg(dev)
+    launched = [a - b for a, b in zip((hist.launches, segment_sum.launches, stream_compact.launches,
+                                       topk_kernel.launches), launched0)]
+    print(f"  {rec['preds']} predictions in {rec['elapsed_s']:.6f} s (CUDA events; host "
+          f"{rec['host_s']:.6f} s): Throughput {rec['rate']:.1f} preds/s; peak memory "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB; windows hold {rec['windows']} batches")
+    print(f"  NE {[round(v, 8) for v in rec['out']['ne'].tolist()]}, CTR "
+          f"{[round(v, 8) for v in rec['out']['ctr'].tolist()]}, calibration "
+          f"{[round(v, 8) for v in rec['out']['cal'].tolist()]}; largest relative error against "
+          f"float64 by metric { {k: float(f'{v:.3e}') for k, v in rec_errs.items()} }")
+    print(f"  fold cadence: {cadence_text(rec['cadence'])}; kernel launches (hist, segment_sum, "
+          f"stream_compact, topk) {launched}: the leg runs elementwise sums, no hand kernel")
+    print(f"  R2Score (uniform {r2['uniform']:.8f}) over {R2_BATCHES * R2_ROWS} x {R2_OUTPUTS} in "
+          f"{r2['seconds']:.6f} s (CUDA events); largest relative error against float64 "
+          f"{ {k: float(f'{v:.3e}') for k, v in r2['errs'].items()} }; fold cadence: "
+          f"{cadence_text(r2['cadence'])}")
+
     print(f"phase 4 ImageNet-val curve leg ({CURVE_BATCHES} x ({CURVE_ROWS}, {CURVE_CLASSES}) "
           f"softmax scores)")
     batches = curve_leg_data(dev, gen)
@@ -3231,11 +3654,12 @@ def main() -> int:
           f"through a ShardedEvaluator: (a) {DP_CHUNKS // DIST_RANKS * HEADLINE_CHUNK} data-parallel "
           f"rows a rank, (b) the "
           f"ImageNet-val batches split {DIST_CURVE_SPLIT}, (c) approx=True on (a)'s rows, (d) "
-          "the fallbacks)")
+          "the fallbacks, (e) (a) and (b) on the quantized routes; then the quantized sync)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as dist_dir:
         dist_ranks = dist_leg(dist_dir)
         dist_ref = dist_references(dev)
         check_dist_leg(dist_ranks, dist_dir, auroc_ref, dist_ref)
+        q8_worst = check_dist_quantized(dev, dist_ranks, dist_dir)
     torch.cuda.empty_cache()
     for res in dist_ranks:
         r = res["rank"]
@@ -3261,17 +3685,49 @@ def main() -> int:
             print(f"  rank {r}: (d) {kind}: routes {g['routes']}, {g['gather_rounds']} gather "
                   f"rounds, compute() {g['compute_seconds']:.4f} s, AUROC {g['values']['auroc'][0]:.8f} "
                   f"(one process {dist_ref['fallback'][kind]['auroc']:.8f})")
+    for res in dist_ranks:
+        r = res["rank"]
+        for fam, what in (("binary", "(a)"), ("multiclass", "(b)")):
+            raw = res[fam]
+            print(f"  rank {r}: (e) {what} raw: compute() {raw['compute_seconds']:.4f} s; splitter "
+                  f"all-reduce [bytes, s] {raw['largest_all_reduce']}; "
+                  f"{raw['exchange_send_bytes']} bytes into the exchange")
+            for mode in QUANT_MODES:
+                g = res["quantized"][f"{fam}/{mode}"]
+                calls = [g["collectives"][f][0] for f in ("all_reduce_sum", "all_gather_stacked",
+                                                           "all_to_all_rows")]
+                print(f"  rank {r}: (e) {what} {mode}: compute() {g['compute_seconds']:.4f} s; "
+                      f"splitter rounds [bytes into the collectives, s] {g['splitter_rounds']}; "
+                      f"{g['exchange_send_bytes']} bytes into the exchange; collective calls "
+                      f"(all_reduce, all_gather, all_to_all) {calls} for two metrics; seconds by "
+                      f"collective { {k: round(v, 4) for k, v in g['collective_seconds'].items()} }; "
+                      f"peak memory {g['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"  rank {r}: (e) quantized scores bit-identical to raw {res['quantized']['bit_equal']}; "
+              f"NaN scores fall back on int8 ({res['quantized']['nan/int8']['routes']}); sketch "
+              f"counts under the int8 knob exact: {res['quantized']['sketch_equal']}")
+        for quantize, what in (("False", "raw"), ("True", "quantized")):
+            g = res["sync"][quantize]
+            print(f"  rank {r}: sync {what}: {g['seconds']:.4f} s for the collection (confusion "
+                  f"matrix 1000 x 1000, a binary sketch, calibration of {SYNC_CAL_TASKS} tasks); "
+                  f"rounds [label, payload bytes, s] {g['rounds']}")
+    print(f"  quantized sync: confusion matrix and sketch AUROC equal to the raw sync's; "
+          f"calibration drift at most {q8_worst:.4f} of its bound max|block| / 254 a rank")
     r0 = dist_ranks[0]
     print(f"  (a) AUROC {r0['binary']['values']['auroc'][0]:.8f} (one process, uncompacted "
           f"{auroc_ref:.8f}), AUPRC {r0['binary']['values']['auprc'][0]:.8f} (one process "
           f"{dist_ref['auprc']:.8f}); (b) every class within rtol 1e-5; (c) sketch counts equal the "
           f"one-process approx metric's, AUROC {r0['approx']['values']['auroc'][0]:.8f}")
     dist_launches = {
-        "hist_splitter": sum(res["binary"]["launches"]["hist"] for res in dist_ranks),
-        "segment_sum_splitter": sum(res["multiclass"]["launches"]["segment_sum"] for res in dist_ranks),
+        "hist_splitter": sum(res["binary"]["launches"]["hist"] + res["quantized"]["nan/int8"]["launches"]["hist"]
+                             + sum(res["quantized"][f"binary/{m}"]["launches"]["hist"] for m in QUANT_MODES)
+                             for res in dist_ranks),
+        "segment_sum_splitter": sum(res["multiclass"]["launches"]["segment_sum"]
+                                    + sum(res["quantized"][f"multiclass/{m}"]["launches"]["segment_sum"]
+                                          for m in QUANT_MODES) for res in dist_ranks),
         "segment_sum_sketch": sum(res["approx"]["launches"]["segment_sum"] for res in dist_ranks),
         "stream_compact": sum(res["fallback"][k]["launches"]["stream_compact"] for res in dist_ranks
-                              for k in res["fallback"]),
+                              for k in res["fallback"])
+        + sum(res["quantized"]["nan/int8"]["launches"]["stream_compact"] for res in dist_ranks),
     }
     sketch_launches["binary"] += dist_launches["segment_sum_sketch"]
 

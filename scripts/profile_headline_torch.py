@@ -3,7 +3,7 @@
 
 Run from the root of the repository:
 
-    python3 scripts/profile_headline_torch.py [--leg headline|approx|small|topk|ndcg10|ndcg100|sliced|config3|config3_standalone|curves|curves_approx]
+    python3 scripts/profile_headline_torch.py [--leg headline|approx|small|topk|ndcg10|ndcg100|sliced|config3|config3_standalone|curves|curves_approx|rec]
 
 It builds one leg of ``chip_smoke.py`` with its data made on the card from
 a seed: ``headline`` (the default: MulticlassAccuracy over 5 classes plus
@@ -25,7 +25,10 @@ MetricCollection or standalone: BASELINE config 3) or ``curves``
 MulticlassBinnedPrecisionRecallCurve over 5 batches of (10,000, 1000)
 softmax scores: the ImageNet-1k validation set's size) or ``curves_approx``
 (MulticlassAUROC and MulticlassAUPRC with ``approx=True``, 2^12 buckets, on
-the same batches). It runs the leg once to warm up,
+the same batches) or ``rec`` (the recommendation-eval leg:
+BinaryNormalizedEntropy, ClickThroughRate, WeightedCalibration and their
+windowed forms over 16 batches of (3, 2^22) logits, clicks and weights, in
+three MetricCollections). It runs the leg once to warm up,
 then once under ``torch.profiler``, and prints the wall time of both runs,
 the device's busy time (the union of the intervals in which a kernel, copy
 or memset ran) and idle share over the profiled run, and the device time by
@@ -106,6 +109,14 @@ def _plain_leg(cs, name, dev, gen):
             return seconds, (float(out[0].mean()), float(out[1].mean()))
 
         return run, cs.CURVE_BATCHES * cs.CURVE_ROWS, "rows"
+    if name == "rec":
+        batches = cs.rec_leg_data(dev)
+
+        def run():
+            res = cs.rec_leg(dev, batches)
+            return res["elapsed_s"], tuple(res["out"]["ne"].tolist())
+
+        return run, cs.REC_BATCHES * cs.REC_TASKS * cs.REC_ROWS, "preds"
     if name == "small":
         batches = cs.small_batch_data(dev, gen)
 
@@ -153,7 +164,7 @@ def main() -> int:
     parser.add_argument("--leg", default="headline",
                         choices=("headline", "approx", "small", "topk", "ndcg10", "ndcg100",
                                  "sliced", "config3", "config3_standalone", "curves",
-                                 "curves_approx"))
+                                 "curves_approx", "rec"))
     parser.add_argument("--runs", type=int, default=0, help="timed runs after the profiled one")
     args = parser.parse_args()
     if not torch.cuda.is_available():

@@ -1155,3 +1155,124 @@ def test_dist_sketch_counts_at_world_of_one_equal_the_cpu(dev, data_of_one, clas
     assert segment_sum.launches == before + 1
     for a, b in zip(got, base):
         assert torch.equal(a.cpu(), 2 * b)
+
+
+# ---------------- recommendation and regression metrics, quantized routes
+def _rec_batch(dev, seed, shape=(3, 4096)):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev) * 2
+    t = (torch.rand(shape, generator=g, device=dev) < 0.03).to(torch.float32)
+    w = torch.rand(shape, generator=g, device=dev) + 0.5
+    return x, t, w
+
+
+def _rec_metrics(device, num_tasks=3):
+    from torcheval_tpu_torch.metrics import (
+        BinaryNormalizedEntropy,
+        ClickThroughRate,
+        WeightedCalibration,
+        WindowedClickThroughRate,
+        WindowedWeightedCalibration,
+    )
+
+    return {
+        "ne": BinaryNormalizedEntropy(num_tasks=num_tasks, from_logits=True, device=device),
+        "ctr": ClickThroughRate(num_tasks=num_tasks, device=device),
+        "cal": WeightedCalibration(num_tasks=num_tasks, device=device),
+        "wctr": WindowedClickThroughRate(num_tasks=num_tasks, window_size=3, device=device),
+        "wcal": WindowedWeightedCalibration(num_tasks=num_tasks, window_size=3, device=device),
+    }
+
+
+def _feed_rec(metrics, x, t, w):
+    metrics["ne"].update(x, t, weight=w)
+    metrics["ctr"].update(t, w)
+    metrics["wctr"].update(t, w)
+    p = torch.sigmoid(x)
+    metrics["cal"].update(p, t, w)
+    metrics["wcal"].update(p, t, w)
+
+
+def test_rec_metrics_on_the_card_equal_the_cpu(dev):
+    card, cpu = _rec_metrics(dev), _rec_metrics("cpu")
+    for i in range(5):
+        x, t, w = _rec_batch(dev, 40 + i)
+        _feed_rec(card, x, t, w)
+        _feed_rec(cpu, x.cpu(), t.cpu(), w.cpu())
+    for k in card:
+        got, want = card[k].compute(), cpu[k].compute()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        for g, c in zip(got, want):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-8)
+
+
+def test_rec_collection_window_on_the_card_equals_the_cpu(dev):
+    from torcheval_tpu_torch.metrics import BinaryNormalizedEntropy, MetricCollection, R2Score
+
+    col = MetricCollection({"r2": R2Score(multioutput="raw_values", device=dev)})
+    ne = MetricCollection({"ne": BinaryNormalizedEntropy(num_tasks=3, from_logits=True, device=dev)})
+    r2_cpu, ne_cpu = R2Score(multioutput="raw_values", device="cpu"), BinaryNormalizedEntropy(
+        num_tasks=3, from_logits=True, device="cpu")
+    g = torch.Generator(device=dev).manual_seed(9)
+    for i in range(4):
+        y = torch.randn((10_000, 8), generator=g, device=dev)
+        yhat = y + 0.5 * torch.randn((10_000, 8), generator=g, device=dev)
+        col.update(yhat, y)
+        r2_cpu.update(yhat.cpu(), y.cpu())
+        x, t, _ = _rec_batch(dev, 60 + i)
+        ne.update(x, t)
+        ne_cpu.update(x.cpu(), t.cpu())
+    torch.testing.assert_close(col.compute()["r2"].cpu(), r2_cpu.compute(), rtol=1e-5, atol=1e-8)
+    torch.testing.assert_close(ne.compute()["ne"].cpu(), ne_cpu.compute(), rtol=1e-5, atol=1e-8)
+
+
+def test_throughput_and_async_warning_on_the_card(dev, caplog):
+    import logging
+
+    from torcheval_tpu_torch.metrics import MulticlassRecall, Throughput
+    from torcheval_tpu_torch.utils.tracing import join_pending
+
+    m = Throughput(device=dev).update(1000, 2.0)
+    assert m.compute().device.type == "cuda" and float(m.compute()) == 500.0
+    with caplog.at_level(logging.WARNING):
+        labels = torch.tensor([0, 0, 2, 2], device=dev)
+        MulticlassRecall(num_classes=3, average="macro", device=dev).update(
+            torch.nn.functional.one_hot(labels, 3).float(), labels).compute()
+        assert join_pending(timeout=60)
+    assert any("ground-truth instances of [1]" in r.message for r in caplog.records)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("which", ["auroc", "mc_auprc"])
+def test_quantized_dist_curves_at_world_of_one_equal_raw(dev, data_of_one, which, mode):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    if which == "auroc":
+        s, t = _tied_scores(1 << 20, 11, dev)
+        fn = dc.sharded_binary_auroc
+        row = 5
+    else:
+        g = torch.Generator(device=dev).manual_seed(12)
+        s = torch.softmax(torch.randn((20_000, 64), generator=g, device=dev) * 3, dim=1)
+        t = torch.randint(0, 64, (20_000,), generator=g, device=dev)
+        fn = dc.sharded_multiclass_auprc
+        row = 6
+    raw, raw_err = fn([s], [t], quantize=False)
+    sent = dc.exchange_buckets.send_bytes
+    got, err = fn([s], [t], quantize=mode)
+    torch.cuda.synchronize()
+    assert err == raw_err == 0
+    assert (dc.exchange_buckets.send_bytes - sent) == row * s.shape[0] * (1 if s.ndim == 1 else s.shape[1])
+    torch.testing.assert_close(got, raw, rtol=1e-5, atol=1e-8)
+
+
+def test_q8_blocks_on_the_card_equal_the_host_codec(dev):
+    from torcheval_tpu_torch.ops.dist_curves import _q8_blocks
+    from torcheval_tpu_torch.utils.quant import q8_parts
+
+    x = torch.rand(1 << 16, device=dev) * 1000
+    scales, q = _q8_blocks(x)
+    want_s, want_q = q8_parts(x.cpu().numpy())
+    assert np.array_equal(q.cpu().numpy(), want_q)
+    np.testing.assert_allclose(scales.cpu().numpy(), want_s, rtol=1e-7)

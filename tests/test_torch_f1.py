@@ -22,6 +22,7 @@ from torcheval_tpu.ops.confusion import _MATMUL_ELEMENT_BUDGET
 from torcheval_tpu.ops.confusion import match_triple_counts as jax_triple
 from torcheval_tpu_torch.metrics import BinaryF1Score, MulticlassF1Score, SlicedMetricCollection
 from torcheval_tpu_torch.metrics.functional import binary_f1_score, multiclass_f1_score
+from torcheval_tpu_torch.utils.tracing import join_pending
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
 from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
@@ -86,10 +87,12 @@ def test_empty_class_warning(caplog):
     scores, labels = _data(seed=3, n=1, batch=50, absent=2)
     with caplog.at_level(logging.WARNING):
         multiclass_f1_score(scores[0], labels[0], num_classes=C, average="macro")
+        assert join_pending(timeout=30)  # the warning is logged on a daemon thread
     assert any("do not exist in the target" in r.message for r in caplog.records)
     caplog.clear()
     with caplog.at_level(logging.WARNING):
         MulticlassF1Score(num_classes=C, average="macro", device=CPU).update(scores[0], labels[0]).compute()
+        assert join_pending(timeout=30)
     assert any("do not exist in the target" in r.message for r in caplog.records)
 
 

@@ -437,6 +437,18 @@ _FOLD_FUNCTIONS = {
         "_multiclass_binned_update",
     },
     "metrics/functional/classification/f1_score.py": {"_f1_score_update", "_f1_score_compute"},
+    "metrics/classification/click_through_rate.py": {"_ctr_deferred_fold"},
+    "metrics/classification/weighted_calibration.py": {"_calibration_deferred_fold"},
+    "metrics/classification/binary_normalized_entropy.py": {"_ne_deferred_fold"},
+    "metrics/regression/r2_score.py": {"_r2_deferred_fold"},
+    "metrics/functional/classification/click_through_rate.py": {
+        "_ctr_fold", "_as_f32", "_ctr_compute",
+    },
+    "metrics/functional/classification/weighted_calibration.py": {
+        "_calibration_fold", "_calibration_compute",
+    },
+    "metrics/functional/classification/binary_normalized_entropy.py": {"_ne_fold", "_baseline_entropy"},
+    "metrics/functional/regression/r2_score.py": {"_r2_fold"},
 }
 
 
@@ -685,3 +697,94 @@ def test_dist_curve_metrics_default_to_cuda(monkeypatch):
         MulticlassAUROC(num_classes=3)
     m = MulticlassAUROC(num_classes=3, device="cpu")
     assert all(t.device.type == "cpu" for t in m._empty_block())
+
+
+# --------------------------- recommendation and regression metrics, quant
+REC_SLICE_MODULES = [
+    "torcheval_tpu_torch.metrics.aggregation.throughput",
+    "torcheval_tpu_torch.metrics.classification._windowed",
+    "torcheval_tpu_torch.metrics.classification.binary_normalized_entropy",
+    "torcheval_tpu_torch.metrics.classification.click_through_rate",
+    "torcheval_tpu_torch.metrics.classification.weighted_calibration",
+    "torcheval_tpu_torch.metrics.functional.classification._task_shapes",
+    "torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy",
+    "torcheval_tpu_torch.metrics.functional.classification.click_through_rate",
+    "torcheval_tpu_torch.metrics.functional.classification.weighted_calibration",
+    "torcheval_tpu_torch.metrics.functional.regression.r2_score",
+    "torcheval_tpu_torch.metrics.regression.r2_score",
+    "torcheval_tpu_torch.metrics.toolkit",
+    "torcheval_tpu_torch.ops.dist_curves",
+    "torcheval_tpu_torch.utils.quant",
+    "torcheval_tpu_torch.utils.tracing",
+    "torcheval_tpu_torch.utils.test_utils.quant_sync_worker",
+]
+
+
+@pytest.mark.parametrize("name", REC_SLICE_MODULES)
+def test_rec_slice_modules_are_checked(name):
+    # each is one of the modules the no-JAX and counterpart rules above walk
+    assert name in _modules()
+    path = PACKAGE.joinpath(*name.split(".")[1:]).with_suffix(".py")
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
+def _rec_metrics():
+    from torcheval_tpu_torch.metrics import (
+        BinaryNormalizedEntropy,
+        ClickThroughRate,
+        R2Score,
+        Throughput,
+        WeightedCalibration,
+        WindowedClickThroughRate,
+        WindowedWeightedCalibration,
+    )
+
+    return [BinaryNormalizedEntropy, ClickThroughRate, WeightedCalibration,
+            WindowedClickThroughRate, WindowedWeightedCalibration, R2Score, Throughput]
+
+
+@pytest.mark.parametrize("i", range(7))
+def test_rec_metrics_default_to_cuda_and_raise_without_it(monkeypatch, i):
+    make = _rec_metrics()[i]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(device="cuda")
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+# the value warnings: every host read runs inside the daemon thread's
+# worker or the nested check it calls, never in the caller's frame
+_WARNING_FUNCTIONS = {
+    "utils/tracing.py": {"async_value_warn", "host_resident", "join_pending"},
+    "metrics/functional/classification/precision.py": {"_warn_nan_classes"},
+    "metrics/functional/classification/recall.py": {"_warn_nan_recall", "_warn_no_positive"},
+    "metrics/functional/classification/f1_score.py": {"_warn_empty_classes"},
+    "metrics/aggregation/mean.py": {"_on_window_result"},
+    "metrics/aggregation/throughput.py": {"compute"},
+}
+
+
+@pytest.mark.parametrize("rel", sorted(_WARNING_FUNCTIONS))
+def test_async_value_warn_never_blocks_the_caller(rel):
+    names = _WARNING_FUNCTIONS[rel]
+    tree = ast.parse((PACKAGE / rel).read_text())
+    defined = {n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)}
+    assert names <= defined, f"{rel}: {sorted(names - defined)} not found"
+    bad = [(f, line) for f, line in _host_syncs(PACKAGE / rel) if f in names]
+    assert not bad, f"{rel}: host reads in the caller's frame: {bad}"
+    if rel != "utils/tracing.py":
+        assert "async_value_warn" in {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+
+
+def test_quantized_dist_curves_raise_instead_of_falling_back(no_library):
+    from torcheval_tpu_torch.ops import dist_curves as dc
+
+    before = (hist.launches, segment_sum.launches)
+    s, t = torch.rand(8), (torch.rand(8) < 0.5).to(torch.float32)
+    for mode in ("bf16", "int8"):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            dc.sharded_binary_auroc([s], [t], quantize=mode)
+    assert (hist.launches, segment_sum.launches) == before

@@ -32,6 +32,7 @@ from torcheval_tpu_torch.metrics.functional import (
 )
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
 from torcheval_tpu_torch.utils.test_utils import NUM_TOTAL_UPDATES, MetricClassTester
+from torcheval_tpu_torch.utils.tracing import join_pending
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -99,6 +100,7 @@ def test_binary_recall_with_no_positive_warns_and_is_zero(caplog):
     t = np.zeros(20, np.float32)
     with caplog.at_level(logging.WARNING):
         got = binary_recall(x, t)
+        assert join_pending(timeout=30)  # the warning is logged on a daemon thread
     assert float(got) == 0.0 == float(JF.binary_recall(x, t))
     assert any("no ground-truth instances" in r.message for r in caplog.records)
 
@@ -128,10 +130,12 @@ def test_warnings_for_empty_classes(caplog):
     scores, labels = _data(seed=3, n=1, batch=60, absent=1, never_predicted=1)
     with caplog.at_level(logging.WARNING):
         multiclass_precision(scores[0], labels[0], num_classes=C, average=None)
+        assert join_pending(timeout=30)
     assert any("[1] classes have zero instances" in r.message for r in caplog.records)
     caplog.clear()
     with caplog.at_level(logging.WARNING):
         MulticlassRecall(num_classes=C, average="macro", device=CPU).update(scores[0], labels[0]).compute()
+        assert join_pending(timeout=30)
     assert any("ground-truth instances of [1]" in r.message for r in caplog.records)
 
 

@@ -28,9 +28,11 @@ from torcheval_tpu_torch.metrics import (
     BinaryAUROC,
     Max,
     MulticlassAccuracy,
+    MulticlassConfusionMatrix,
     MulticlassF1Score,
     SlicedMetricCollection,
     Sum,
+    WeightedCalibration,
 )
 from torcheval_tpu_torch.metrics import toolkit as tk
 from torcheval_tpu_torch.metrics.state import Reduction
@@ -157,6 +159,37 @@ def test_descriptor_matrix_is_the_jax_packages_row_for_row():
     )
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+def test_quantized_descriptor_matrix_is_the_jax_packages_row_for_row():
+    # the codec column and the encoded lengths too: each package decodes
+    # the other's descriptors
+    port, ref = _twin_collections()
+    rng = np.random.default_rng(5)
+    probs, clicks = rng.random((128, 30)).astype(np.float32), (rng.random((128, 30)) < 0.3).astype(np.float32)
+    pred, target = rng.integers(0, 20, 500), rng.integers(0, 20, 500)
+    port["cal"] = WeightedCalibration(num_tasks=128, device=CPU).update(probs, clicks)
+    ref["cal"] = J.WeightedCalibration(num_tasks=128).update(probs, clicks)
+    port["cm"] = MulticlassConfusionMatrix(20, device=CPU).update(pred, target)
+    ref["cm"] = J.MulticlassConfusionMatrix(20).update(pred, target)
+    entries = tk._collection_entries(port)
+    encodings = [tk._encode_sync_entry(red, None if local is None else local.numpy(), True)
+                 for _, _, red, local in entries]
+    got = tk._descriptor_matrix(port, entries, encodings)
+    jentries = jtk._collection_entries(ref)
+    jenc = [jtk._encode_sync_entry(red, local, True) for _, _, red, local in jentries]
+    want = np.asarray(
+        [jtk._schema_digest_row(ref)]
+        + [jtk._encode_entry_descriptor(local, codec, len(enc) if enc is not None else 0)
+           for (_, _, _, local), (codec, enc) in zip(jentries, jenc)],
+        dtype=np.int32,
+    )
+    np.testing.assert_array_equal(got, want)
+    # the states' float sums differ in their last bits between the packages;
+    # on the same arrays the encoded bytes are the same
+    assert [tk._encode_sync_entry(red, jlocal, True)
+            for (_, _, red, _), (_, _, _, jlocal) in zip(entries, jentries)] == jenc
+    assert {tk._SYNC_CODEC_Q8, tk._SYNC_CODEC_NARROW} <= {c for c, _ in encodings}
 
 
 @pytest.mark.parametrize(

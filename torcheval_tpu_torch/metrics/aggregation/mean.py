@@ -20,6 +20,7 @@ from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
 from torcheval_tpu_torch.utils.devices import DeviceLike
 from torcheval_tpu_torch.utils.numerics import safe_div
+from torcheval_tpu_torch.utils.tracing import async_value_warn
 
 _logger = logging.getLogger(__name__)
 
@@ -41,7 +42,7 @@ def _mean_deferred_compute(weighted_sum, weights):
 class Mean(DeferredFoldMixin, Metric[torch.Tensor]):
     """Streaming weighted mean ``sum(weight * input) / sum(weight)``; state
     is two float32 scalars. With no update, compute returns 0.0 and logs a
-    warning (reading ``weights`` waits for the device)."""
+    warning a moment later (``weights`` is read on a daemon thread)."""
 
     _fold_fn = staticmethod(_mean_deferred_fold)
     _fold_per_chunk = True
@@ -62,8 +63,12 @@ class Mean(DeferredFoldMixin, Metric[torch.Tensor]):
         return self
 
     def _on_window_result(self, result):
-        if not bool(self.weights != 0):
-            _logger.warning("No calls to update() have been made - returning 0.0")
+        # the folded weights are read on a daemon thread (utils/tracing.py)
+        def _check(w) -> None:
+            if w == 0.0:
+                _logger.warning("No calls to update() have been made - returning 0.0")
+
+        async_value_warn(_check, self.weights)
         return result
 
     def compute(self) -> torch.Tensor:

@@ -13,9 +13,16 @@ from torcheval_tpu_torch.metrics.classification.auroc import (
     MulticlassAUPRC,
     MulticlassAUROC,
 )
+from torcheval_tpu_torch.metrics.classification.binary_normalized_entropy import (
+    BinaryNormalizedEntropy,
+)
 from torcheval_tpu_torch.metrics.classification.binned_precision_recall_curve import (
     BinaryBinnedPrecisionRecallCurve,
     MulticlassBinnedPrecisionRecallCurve,
+)
+from torcheval_tpu_torch.metrics.classification.click_through_rate import (
+    ClickThroughRate,
+    WindowedClickThroughRate,
 )
 from torcheval_tpu_torch.metrics.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -31,6 +38,10 @@ from torcheval_tpu_torch.metrics.classification.precision_recall_curve import (
     MulticlassPrecisionRecallCurve,
 )
 from torcheval_tpu_torch.metrics.classification.recall import BinaryRecall, MulticlassRecall
+from torcheval_tpu_torch.metrics.classification.weighted_calibration import (
+    WeightedCalibration,
+    WindowedWeightedCalibration,
+)
 
 __all__ = [
     "BinaryAccuracy",
@@ -39,9 +50,11 @@ __all__ = [
     "BinaryBinnedPrecisionRecallCurve",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryNormalizedEntropy",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",
+    "ClickThroughRate",
     "MulticlassAccuracy",
     "MulticlassAUPRC",
     "MulticlassAUROC",
@@ -53,4 +66,7 @@ __all__ = [
     "MulticlassRecall",
     "MultilabelAccuracy",
     "TopKMultilabelAccuracy",
+    "WeightedCalibration",
+    "WindowedClickThroughRate",
+    "WindowedWeightedCalibration",
 ]

@@ -13,9 +13,15 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     multiclass_auprc,
     multiclass_auroc,
 )
+from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy import (
+    binary_normalized_entropy,
+)
 from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
     binary_binned_precision_recall_curve,
     multiclass_binned_precision_recall_curve,
+)
+from torcheval_tpu_torch.metrics.functional.classification.click_through_rate import (
+    click_through_rate,
 )
 from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
@@ -37,6 +43,9 @@ from torcheval_tpu_torch.metrics.functional.classification.recall import (
     binary_recall,
     multiclass_recall,
 )
+from torcheval_tpu_torch.metrics.functional.classification.weighted_calibration import (
+    weighted_calibration,
+)
 
 __all__ = [
     "binary_accuracy",
@@ -45,9 +54,11 @@ __all__ = [
     "binary_binned_precision_recall_curve",
     "binary_confusion_matrix",
     "binary_f1_score",
+    "binary_normalized_entropy",
     "binary_precision",
     "binary_precision_recall_curve",
     "binary_recall",
+    "click_through_rate",
     "multiclass_accuracy",
     "multiclass_auprc",
     "multiclass_auroc",
@@ -59,4 +70,5 @@ __all__ = [
     "multiclass_recall",
     "multilabel_accuracy",
     "topk_multilabel_accuracy",
+    "weighted_calibration",
 ]

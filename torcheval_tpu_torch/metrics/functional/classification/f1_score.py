@@ -14,10 +14,12 @@ from __future__ import annotations
 import logging
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
 from torcheval_tpu_torch.utils.convert import as_tensor
+from torcheval_tpu_torch.utils.tracing import async_value_warn
 
 _logger = logging.getLogger(__name__)
 
@@ -129,13 +131,17 @@ def _binary_f1_score_update(
 
 
 def _warn_empty_classes(num_label: torch.Tensor) -> None:
-    """Log when some class has no label. Reads ``num_label`` on the host,
-    once per compute (the JAX package reads it asynchronously)."""
-    if num_label.ndim and bool((num_label == 0).any()):
-        _logger.warning(
-            "Some classes do not exist in the target. "
-            "F1 scores for these classes will be cast to zeros."
-        )
+    """Log when some class has no label. ``num_label`` is read on a daemon
+    thread (``utils/tracing.py``), so compute never waits for the device."""
+
+    def _check(labels) -> None:
+        if labels.ndim and (labels == 0).any():
+            _logger.warning(
+                "Some classes do not exist in the target. "
+                "F1 scores for these classes will be cast to zeros."
+            )
+
+    async_value_warn(_check, num_label)
 
 
 def multiclass_f1_score(

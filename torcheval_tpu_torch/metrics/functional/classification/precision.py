@@ -16,6 +16,7 @@ from __future__ import annotations
 import logging
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
@@ -23,6 +24,7 @@ from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix impo
 )
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
 from torcheval_tpu_torch.utils.convert import as_tensor
+from torcheval_tpu_torch.utils.tracing import async_value_warn
 
 _logger = logging.getLogger(__name__)
 
@@ -125,16 +127,19 @@ def _binary_precision_update(
 
 
 def _warn_nan_classes(num_tp: torch.Tensor, num_fp: torch.Tensor, what: str) -> None:
-    """Log the classes with nothing predicted and no label. Reads the counts
-    on the host, once per compute (the JAX package reads them
-    asynchronously)."""
-    if num_tp.ndim:
-        bad = torch.nonzero((num_tp + num_fp) == 0).flatten()
-        if bad.numel():
+    """Log the classes with nothing predicted and no label. The counts are
+    read on a daemon thread (``utils/tracing.py``), so compute never waits
+    for the device."""
+
+    def _check(tp, fp) -> None:
+        if tp.ndim and ((tp + fp) == 0).any():
+            bad = np.nonzero((tp + fp) == 0)[0]
             _logger.warning(
                 f"{bad.tolist()} classes have zero instances in both the predictions "
                 f"and the ground truth labels. {what} is still logged as zero."
             )
+
+    async_value_warn(_check, num_tp, num_fp)
 
 
 def multiclass_precision(

@@ -13,6 +13,7 @@ from __future__ import annotations
 import logging
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
@@ -23,6 +24,7 @@ from torcheval_tpu_torch.metrics.functional.classification.precision import (
 )
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
 from torcheval_tpu_torch.utils.convert import as_tensor
+from torcheval_tpu_torch.utils.tracing import async_value_warn
 
 _logger = logging.getLogger(__name__)
 
@@ -116,23 +118,32 @@ def _binary_recall_compute(num_tp: torch.Tensor, num_true_labels: torch.Tensor) 
 
 
 def _warn_nan_recall(num_labels: torch.Tensor) -> None:
-    """Log the classes with no label. Reads the counts on the host, once per
-    compute (the JAX package reads them asynchronously)."""
-    if num_labels.ndim:
-        nan_classes = torch.nonzero(num_labels == 0).flatten()
-        if nan_classes.numel():
+    """Log the classes with no label. The counts are read on a daemon thread
+    (``utils/tracing.py``), so compute never waits for the device."""
+
+    def _check(labels) -> None:
+        if labels.ndim and (labels == 0).any():
+            nan_classes = np.nonzero(labels == 0)[0]
             _logger.warning(
                 f"One or more NaNs identified, as no ground-truth instances of "
                 f"{nan_classes.tolist()} have been seen. These have been converted to zero."
             )
 
+    async_value_warn(_check, num_labels)
+
 
 def _warn_no_positive(num_true_labels: torch.Tensor) -> None:
-    if int(num_true_labels) == 0:
-        _logger.warning(
-            "One or more NaNs identified, as no ground-truth instances "
-            "have been seen. These have been converted to zero."
-        )
+    """Log a stream with no positive label, read as :func:`_warn_nan_recall`
+    reads its counts."""
+
+    def _check(n) -> None:
+        if n == 0:
+            _logger.warning(
+                "One or more NaNs identified, as no ground-truth instances "
+                "have been seen. These have been converted to zero."
+            )
+
+    async_value_warn(_check, num_true_labels)
 
 
 def multiclass_recall(

@@ -1,7 +1,7 @@
 """Regression metric classes. JAX counterpart:
-``torcheval_tpu/metrics/regression/__init__.py`` (MeanSquaredError so
-far)."""
+``torcheval_tpu/metrics/regression/__init__.py``."""
 
 from torcheval_tpu_torch.metrics.regression.mean_squared_error import MeanSquaredError
+from torcheval_tpu_torch.metrics.regression.r2_score import R2Score
 
-__all__ = ["MeanSquaredError"]
+__all__ = ["MeanSquaredError", "R2Score"]

@@ -11,8 +11,8 @@ in exactly two collective rounds (:func:`_gather_collection_states`):
    a schema digest row, then per state ``[d0, ndim, dtype_code, d1, d2, d3,
    d4, codec, enc_nbytes]`` (``ndim == -1``: an empty CAT cache), with the
    JAX package's dtype codes and entry order;
-2. one ``all_gather`` of every state's raw bytes concatenated into a uint8
-   payload, padded to the longest rank's.
+2. one ``all_gather`` of every state's bytes (raw, or encoded by the entry's
+   codec) concatenated into a uint8 payload, padded to the longest rank's.
 
 Each rank then folds the gathered states by their declared reductions. A
 WINDOW (bounded deque) state is cut, between the rounds, to the rows that
@@ -32,11 +32,39 @@ local result at world size 1; source metrics are never changed;
 ``torch.distributed.new_group`` that only its members create and enter);
 ``timeout_s`` bounds the whole sync and ``on_failure="local"`` turns a
 timed-out or failed round into a warning and the local result.
-``quantize=`` is accepted and ignored: the wire codecs are not ported, so
-states always cross as raw bytes. The JAX package's observability spans
-and fault-injection hook are not ported; the rounds, their payload bytes
-and their seconds are counted in ``_allgather_stacked.rounds``,
-``.payload_bytes`` and ``.seconds`` instead.
+
+**Quantized lanes.** With ``quantize=True`` (or, for ``quantize=None``,
+``TORCHEVAL_TPU_SYNC_QUANTIZE`` set on; ``quantize=False`` opts out
+whatever the environment says), the additive entries (``SUM``, ``MAX``,
+``MIN``) are encoded before the descriptor round by the JAX package's
+codecs (``utils/quant.py``, the same bytes), and the codec id travels in
+the descriptor's ``codec`` column with the encoded length in
+``enc_nbytes``, so every rank decodes every peer's entry from the
+descriptors alone (ranks that disagree on the knob still interoperate):
+
+* codec 1, **narrow** (lossless): integer lanes, min-offset narrowed;
+  decoding widens to the declared type before the fold, so counts fold
+  bit-exactly;
+* codec 3, **bucket** (lossless): integer lanes again, as their nonzero
+  entries only (the sparse sketch histograms); raced against codec 1 per
+  entry, and the smaller ships;
+* codec 2, **q8** (bounded error): float32 ``SUM`` lanes of at least
+  ``Q8_MIN_ELEMENTS`` (64) elements, int8 blocks of 256 with a float32
+  scale each; an element is off by at most ``max|block| / 254`` for each
+  rank that contributes it. A lane with a non-finite value ships raw, and
+  ``_encode_sync_entry.quantize_fallbacks`` counts it
+  (``toolkit.sync.quantize_fallbacks`` in the JAX package).
+
+An encoder that would not shrink an entry leaves it raw, so the codecs
+only ever remove bytes. The sync stays two rounds. The encoding runs on a
+host copy of the entry (what the gloo round stages anyway); under NCCL the
+encoded bytes travel as a uint8 tensor on the card, and each encoded
+entry is decoded on the host.
+
+The JAX package's observability spans and fault-injection hook are not
+ported; the rounds, their payload bytes and their seconds are counted in
+``_allgather_stacked.rounds``, ``.payload_bytes`` and ``.seconds``
+instead.
 """
 
 from __future__ import annotations
@@ -58,6 +86,7 @@ import torch.distributed as dist
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, TState
 from torcheval_tpu_torch.utils import dist as _dist
+from torcheval_tpu_torch.utils import quant as _quant
 from torcheval_tpu_torch.utils.devices import DeviceLike
 
 _logger = logging.getLogger(__name__)
@@ -297,7 +326,61 @@ _CAT_DTYPES = (
 )
 _MAX_CAT_RANK = 5
 _DESC_COLS = 9
-_SYNC_CODEC_RAW = 0
+# codec ids are wire format, the JAX package's (module doc)
+_SYNC_CODEC_RAW, _SYNC_CODEC_NARROW, _SYNC_CODEC_Q8, _SYNC_CODEC_BUCKET = 0, 1, 2, 3
+_QUANT_LANES = (Reduction.SUM, Reduction.MAX, Reduction.MIN)
+
+
+def _encodable(red: Reduction, local: Optional[torch.Tensor]) -> bool:
+    """Whether a codec could apply to the entry: an additive lane holding
+    integers, or float32 of at least ``Q8_MIN_ELEMENTS`` under ``SUM``
+    (only those are copied to the host to be encoded)."""
+    if local is None or red not in _QUANT_LANES:
+        return False
+    if not (local.dtype.is_floating_point or local.dtype.is_complex or local.dtype == torch.bool):
+        return True
+    return red is Reduction.SUM and local.dtype == torch.float32 and local.numel() >= _quant.Q8_MIN_ELEMENTS
+
+
+def _encode_sync_entry(red: Reduction, local: Optional[np.ndarray], quantize: bool) -> Tuple[int, Optional[bytes]]:
+    """The wire codec for one entry and its encoded bytes: ``(codec id,
+    bytes or None)``, raw (``(0, None)``) when quantization is off, the
+    lane is not additive, or no encoding would shrink the entry. Integer
+    lanes race the lossless narrow and bucket codecs and the smaller ships;
+    a non-finite float32 lane ships raw and is counted in
+    ``quantize_fallbacks``."""
+    if not quantize or local is None or red not in _QUANT_LANES:
+        return _SYNC_CODEC_RAW, None
+    if local.dtype.kind in "iu":
+        enc = _quant.narrow_int_encode(local)
+        enc_b = _quant.bucket_payload_encode(local)
+        if enc_b is not None and (enc is None or len(enc_b) < len(enc)):
+            return _SYNC_CODEC_BUCKET, enc_b
+        if enc is not None:
+            return _SYNC_CODEC_NARROW, enc
+    elif red is Reduction.SUM and local.dtype == np.float32 and local.size >= _quant.Q8_MIN_ELEMENTS:
+        if not np.isfinite(local).all():
+            _encode_sync_entry.quantize_fallbacks += 1
+            return _SYNC_CODEC_RAW, None
+        enc = _quant.q8_encode(local, check_finite=False)  # checked just above
+        if enc is not None:
+            return _SYNC_CODEC_Q8, enc
+    return _SYNC_CODEC_RAW, None
+
+
+_encode_sync_entry.quantize_fallbacks = 0
+
+
+def _decode_sync_entry(codec: int, wire: bytes, dtype: torch.dtype, shape: tuple) -> np.ndarray:
+    """The inverse of :func:`_encode_sync_entry` for an encoded entry."""
+    if codec == _SYNC_CODEC_Q8:
+        return _quant.q8_decode(wire, shape)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))  # an integer type
+    if codec == _SYNC_CODEC_NARROW:
+        return _quant.narrow_int_decode(wire, np_dtype, shape)
+    if codec == _SYNC_CODEC_BUCKET:
+        return _quant.bucket_payload_decode(wire, np_dtype, shape)
+    raise ValueError(f"unknown sync codec {codec}")
 
 
 def _check_cat_descriptors(name: str, all_desc: np.ndarray) -> None:
@@ -461,7 +544,10 @@ def get_synced_metric(
     ``timeout_s`` bounds the whole sync. On expiry, or on a failed round,
     ``on_failure="raise"`` raises the :class:`SyncError` and ``"local"``
     warns once and returns a clone of the local (unsynced) metric on every
-    calling rank. ``quantize`` is accepted and ignored (raw bytes)."""
+    calling rank. ``quantize`` engages the wire codecs of the additive
+    lanes (module doc): integer lanes narrow losslessly, large float32
+    ``SUM`` lanes quantize within a documented bound; ``None`` reads
+    ``TORCHEVAL_TPU_SYNC_QUANTIZE`` and ``False`` keeps raw bytes."""
     _check_recipient(recipient_rank)
     _check_failure_policy(on_failure)
     _check_timeout_s(timeout_s)
@@ -476,7 +562,12 @@ def get_synced_metric(
         with _sync_deadline(timeout_s):
             if _needs_object_sync(metric):
                 return _object_synced_metric(metric, recipient_rank, group)
-            gathered = [per_rank["m"] for per_rank in _gather_collection_states({"m": metric}, group)]
+            gathered = [
+                per_rank["m"]
+                for per_rank in _gather_collection_states(
+                    {"m": metric}, group, quantize=_quant.sync_quantize_enabled(quantize)
+                )
+            ]
     except SyncError as err:
         _sync_failure(err, on_failure)
         return clone_metric(metric)
@@ -634,6 +725,8 @@ def _entry_nbytes(desc: np.ndarray) -> int:
     ndim = int(desc[1])
     if ndim < 0:
         return 0
+    if int(desc[7]):  # an encoded entry: its length is in the descriptor
+        return int(desc[8])
     itemsize = torch.empty((), dtype=_CAT_DTYPES[int(desc[2])]).element_size()
     return math.prod(_entry_shape(desc)) * itemsize
 
@@ -653,10 +746,15 @@ def _schema_digest_row(metrics: Dict[str, Metric]) -> list:
     return [len(schema)] + np.frombuffer(digest, dtype="<i4").tolist() + [0] * (_DESC_COLS - 7)
 
 
-def _descriptor_matrix(metrics: Dict[str, Metric], entries) -> np.ndarray:
-    """The ``(len(entries) + 1, 9)`` int32 matrix of round one."""
+def _descriptor_matrix(metrics: Dict[str, Metric], entries, encodings=None) -> np.ndarray:
+    """The ``(len(entries) + 1, 9)`` int32 matrix of round one
+    (``encodings``: each entry's ``(codec, bytes or None)``, raw when
+    None)."""
+    if encodings is None:
+        encodings = [(_SYNC_CODEC_RAW, None)] * len(entries)
     rows = [_schema_digest_row(metrics)] + [
-        _encode_entry_descriptor(local) for _, _, _, local in entries
+        _encode_entry_descriptor(local, codec, len(enc) if enc is not None else 0)
+        for (_, _, _, local), (codec, enc) in zip(entries, encodings)
     ]
     return np.asarray(rows, dtype=np.int32).reshape(len(entries) + 1, _DESC_COLS)
 
@@ -666,16 +764,24 @@ def _raw_bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _gather_collection_states(
-    metrics: Dict[str, Metric], group: Optional[Tuple[int, ...]] = None
+    metrics: Dict[str, Metric], group: Optional[Tuple[int, ...]] = None, quantize: bool = False
 ) -> List[Dict[str, Dict[str, TState]]]:
     """Every rank's states for a whole collection, in exactly two collective
     rounds (the whole world, or the ``group`` subgroup): per-rank
     ``{metric key: {state name: value}}`` in group order, each value on its
     metric's device (a CAT value as a one-element list, ``[]`` when that
-    rank's cache was empty)."""
+    rank's cache was empty). ``quantize`` encodes the additive entries
+    (module doc); the codec column of each rank's descriptors drives the
+    decode of its entries."""
     world = len(group) if group is not None else _dist.world_size()
     entries = _collection_entries(metrics)
-    desc = torch.from_numpy(_descriptor_matrix(metrics, entries))
+    encodings = [
+        _encode_sync_entry(red, local.detach().cpu().numpy(), True)
+        if quantize and _encodable(red, local)
+        else (_SYNC_CODEC_RAW, None)
+        for _, _, red, local in entries
+    ]
+    desc = torch.from_numpy(_descriptor_matrix(metrics, entries, encodings))
     all_desc = _allgather_stacked(desc, group, "descriptor", "typed").cpu().numpy()
     all_desc = all_desc.reshape(world, len(entries) + 1, _DESC_COLS).copy()
     # every rank checks the same gathered rows, so a raise happens on all
@@ -710,7 +816,13 @@ def _gather_collection_states(
     totals = [sum(_entry_nbytes(all_desc[r, e]) for e in range(len(entries))) for r in range(world)]
     max_total = max(max(totals), 1)
     coll_dev = _dist.collective_device(_torch_group(group))
-    parts = [_raw_bytes(local).to(coll_dev) for _, _, _, local in entries if local is not None]
+    parts = [
+        torch.frombuffer(bytearray(enc), dtype=torch.uint8).to(coll_dev)
+        if enc is not None
+        else _raw_bytes(local).to(coll_dev)
+        for (_, _, _, local), (_, enc) in zip(entries, encodings)
+        if local is not None
+    ]
     pad = torch.zeros(max_total - totals[my_pos], dtype=torch.uint8, device=coll_dev)
     payload = torch.cat(parts + [pad])
     all_bytes = _allgather_stacked(payload, group, "payload", "typed")
@@ -725,11 +837,17 @@ def _gather_collection_states(
                 continue
             nbytes = _entry_nbytes(d)
             device = metrics[mkey].device
+            dtype = _CAT_DTYPES[int(d[2])]
+            if int(d[7]):  # an encoded entry, decoded on the host
+                wire = all_bytes[r, offset : offset + nbytes].cpu().numpy().tobytes()
+                offset += nbytes
+                value = torch.from_numpy(_decode_sync_entry(int(d[7]), wire, dtype, _entry_shape(d)))
+                gathered[r][mkey][name] = value.to(device)
+                continue
             if device not in on_device:
                 on_device[device] = all_bytes.to(device)
             wire = on_device[device][r, offset : offset + nbytes]
             offset += nbytes
-            dtype = _CAT_DTYPES[int(d[2])]
             # view(dtype) needs the entry's start aligned to its item size;
             # only a misaligned entry is copied (a copy starts aligned)
             if wire.storage_offset() % dtype.itemsize:
@@ -770,7 +888,13 @@ def sync_and_compute_collection(
     arr_lane = {k: m for k, m in metrics.items() if k not in obj_lane}
     try:
         with _sync_deadline(timeout_s):
-            gathered = _gather_collection_states(arr_lane, group) if arr_lane else None
+            gathered = (
+                _gather_collection_states(
+                    arr_lane, group, quantize=_quant.sync_quantize_enabled(quantize)
+                )
+                if arr_lane
+                else None
+            )
             obj_gathered = (
                 _allgather_object({k: _tree_to_host(m.state_dict()) for k, m in obj_lane.items()}, group)
                 if obj_lane

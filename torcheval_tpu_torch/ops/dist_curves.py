@@ -21,16 +21,18 @@ of a JAX mesh does). The steps are the JAX package's:
    histogram kernel (``ops/hist.py``, ``csrc/hist.cu``; 2^16 bins) for a
    binary problem and, for ``C`` classes, by one segment sum of int32 ones
    over ``c * 2^16 + bin`` (``ops/scatter.py``, ``csrc/scatter.cu``), then
-   summed over the group in one int32 all-reduce. Its last bin holds
-   exactly the NaN entries (no float's key shares the pad key's top 16
-   bits), and one extra lane carries each rank's abstention (below). The
-   boundaries are the K-quantile bins of the cumulative histogram, in
+   summed over the group in one int32 all-reduce. Three exact lanes ride
+   with it: each rank's abstention (below), its row count (their sum, the
+   global ``total``, sets the capacity) and its NaN entries (the
+   histogram's last bin: no float's key shares the pad key's top 16 bits).
+   The boundaries are the K-quantile bins of the cumulative histogram, in
    float32 by ``searchsorted``, as the JAX package takes them.
 3. **Exchange**: each rank sorts its entries once (``torch.sort`` of an
    int64 of destination bucket, class and key: every class's buckets in
    destination order), cuts them into K contiguous buckets and sends each
    with one ragged all-to-all (``utils/dist.py::all_to_all_rows``) of
-   ``(key, label)`` int32 rows, every class's buckets in the same call.
+   ``(key, label)`` int32 rows (the label is tp for a binary problem and
+   ``2 * class + tp`` for several), every class's buckets in the same call.
    Equal keys share a bucket, so a tie group never spans two ranks.
 4. **Capacity**: a bucket sends at most ``ceil(F * n_local / K)`` rows
    (``F = DIST_CAPACITY_FACTOR``), with ``n_local = ceil(total / K)`` and
@@ -45,11 +47,42 @@ of a JAX mesh does). The steps are the JAX package's:
    sums the K partial integrals. The empty-target guards give 0.5 (AUROC)
    and 0.0 (AUPRC).
 
-**Collectives**: every call makes exactly five, whatever its class and row
+**Collectives**: a raw call makes exactly five, whatever its class and row
 counts: the splitter all-reduce, the count all-gather, the all-to-all, the
 totals all-gather and the integral all-reduce (the JAX program: one
 all-reduce, three all-to-alls and three more all-reduces). A call where
 some rank abstained stops after the first, on every rank.
+
+**Quantized exchange.** ``quantize`` is resolved by
+``utils/quant.py::sync_quantize_mode`` (``True`` or ``"bf16"``,
+``"int8"``, ``False``; ``None`` reads ``TORCHEVAL_TPU_SYNC_QUANTIZE``), as
+in the JAX package. Both lossy modes narrow the two large collectives:
+
+* the **splitter histogram** is summed in bfloat16 (half the int32 bytes;
+  a count above 256 rounds) or, with ``"int8"``, by an int8 block
+  reduce-scatter and all-gather (:func:`_qpsum_i8`: about a quarter of the
+  bytes) when ``C * 2^16`` divides into ``K * Q8_BLOCK`` blocks, else in
+  bfloat16 as the JAX package falls back. A lossy histogram can move the
+  splitters, never a value: equal keys still share a bucket, and the
+  capacity, the abstention and the NaN count come from the three exact
+  lanes, which travel first in a 12-byte int32 all-reduce of their own
+  (the JAX package reads none of them from its histogram: its shapes are
+  static and it sums its NaN rows in an exact psum). An abstaining call
+  therefore still stops after one collective;
+* the **exchange rows** carry a narrow label: one uint8 byte for a binary
+  problem (5 bytes a row instead of 8) and an int16 for ``C <= 16383``
+  classes (6 bytes), packed with the key into one uint8 row so that the
+  all-to-all stays one collective; the label widens to int32 before any
+  cumulative sum. With more classes the rows stay 8 bytes.
+
+A quantized call makes six collectives with ``"bf16"`` (the exact lanes
+added) and seven with ``"int8"`` (the qpsum's all-to-all and all-gather
+in place of the histogram all-reduce; each packs its int8 values and
+their float32 block scales into one byte row). The JAX int8 mode likewise
+adds collectives: two all-to-alls and two all-gathers for its one psum.
+Values stay those of the raw route up to the float32 order of the partial
+integrals: bit-identical where every partial sum is exact (quantized
+scores), within rtol 1e-5 otherwise.
 
 **Error channel**: each function returns ``(value, error_rows)``, where
 ``error_rows`` counts the rows lost to capacity overflow plus the NaN-keyed
@@ -65,12 +98,8 @@ ranks take the same branch, and none waits in a collective another skipped.
 
 **Sketch** (:func:`sharded_sketch_counts`): each rank folds its staged rows
 with the sketch folds (``sketch/histogram.py``, on the segment-sum kernel),
-then one exact int32 all-reduce of ``(tp, fp, nan)``, never quantized.
-
-``quantize=`` is accepted and changes nothing: the wire codecs
-(``utils/quant.py``) are not ported, so every collective carries raw
-words. The JAX package's quantized exchange is bit-identical to the raw
-one, so no value moves.
+then one exact int32 all-reduce of ``(tp, fp, nan)``, never quantized (as
+in the JAX package: the bucket counts are the metric's state).
 
 Not ported, by design: the JAX engine's detection of a sharded operand
 (``auroc.py::_uniform_cache_mesh``), since a torch tensor carries no
@@ -80,7 +109,7 @@ requirement that rows divide by the axis size, since ranks are ragged here.
 Counters (plain attributes until ``obs/`` is ported; the JAX names in
 brackets): ``exchange_buckets.calls`` [``dist_curves.exchanges``],
 ``exchange_buckets.send_bytes`` [``dist_curves.exchange_send_bytes``: the
-bytes that entered the all-to-all] and ``record_call.calls``
+bytes that entered the all-to-all, 8, 6 or 5 a row] and ``record_call.calls``
 [``ops.dist_curves.calls``: ``{(path, family): n}``, path ``dist``,
 ``fused`` or ``sketch``, family ``binary`` or ``multiclass``].
 """
@@ -97,6 +126,7 @@ from torcheval_tpu_torch.ops.summary import group_value, tie_groups
 from torcheval_tpu_torch.sketch.histogram import mc_score_hist_fold, score_hist_fold
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.dist import MeshAxis
+from torcheval_tpu_torch.utils.quant import Q8_BLOCK, sync_quantize_mode
 
 __all__ = [
     "DIST_CAPACITY_FACTOR",
@@ -160,6 +190,74 @@ def _all_gather(t: torch.Tensor, pg) -> torch.Tensor:
     return _dist.all_gather_stacked(t, pg).to(t.device) if _dist.initialized() else t[None]
 
 
+def _all_to_all(rows: torch.Tensor, pg) -> torch.Tensor:
+    """Row ``j`` of ``rows`` to group rank ``j``; row ``j`` of the result
+    from group rank ``j``."""
+    if not _dist.initialized():
+        return rows
+    ones = [1] * rows.shape[0]
+    return _dist.all_to_all_rows(rows, ones, ones, pg)
+
+
+def _q8_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-``Q8_BLOCK`` int8 quantization of a 1-D float32 tensor whose
+    length divides into blocks (``utils/quant.py::q8_parts`` on the
+    device): ``(scales, int8 values)``."""
+    b = x.reshape(-1, Q8_BLOCK)
+    scales = b.abs().amax(dim=1) / 127.0
+    safe = torch.where(scales == 0.0, 1.0, scales)
+    q = torch.clamp(torch.round(b / safe[:, None]), -127, 127).to(torch.int8)
+    return scales, q.reshape(-1)
+
+
+def _q8_rows(scales: torch.Tensor, q: torch.Tensor, k: int) -> torch.Tensor:
+    """``k`` uint8 rows, each a share's int8 values and then its scales'
+    bytes, so that values and scales cross in one collective."""
+    return torch.cat([q.view(torch.uint8).reshape(k, -1),
+                      scales.reshape(k, -1).contiguous().view(torch.uint8)], dim=1)
+
+
+def _bytes_as(cols: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The byte columns ``cols`` (a column slice of uint8 rows) read as
+    ``dtype``, one row each."""
+    flat = cols.reshape(-1)  # a copy unless the slice is already dense
+    if flat.storage_offset() % dtype.itemsize:
+        flat = flat.clone()
+    return flat.view(dtype).reshape(cols.shape[0], cols.shape[1] // dtype.itemsize)
+
+
+def _q8_unrows(rows: torch.Tensor, width: int) -> torch.Tensor:
+    """The float32 values of :func:`_q8_rows`' rows, one row each."""
+    q = _bytes_as(rows[:, :width], torch.int8).to(torch.float32)
+    scales = _bytes_as(rows[:, width:], torch.float32)
+    return (q.reshape(rows.shape[0], -1, Q8_BLOCK) * scales[..., None]).reshape(rows.shape[0], width)
+
+
+def _qpsum_i8(hist: torch.Tensor, pg, k: int) -> torch.Tensor:
+    """The int8 sum of a flat histogram over the group, as the JAX
+    package's ``_qpsum_i8``: quantize to int8 blocks with float32 scales;
+    one all-to-all brings every rank's copy of this rank's 1/K share here;
+    dequantize and sum in float32 (the reduce-scatter leg); quantize the
+    summed share again and all-gather it. Each leg moves a byte a bin and
+    4 bytes a block. An element is off by at most ``max|block| / 254`` a
+    leg, which can move the splitters, never a value."""
+    share = hist.numel() // k
+    scales, q = _q8_blocks(hist.to(torch.float32))
+    got = _all_to_all(_q8_rows(scales, q, k), pg)
+    reduced = _q8_unrows(got, share).sum(dim=0)
+    scales, q = _q8_blocks(reduced)
+    return _q8_unrows(_all_gather(_q8_rows(scales, q, 1)[0], pg), share).reshape(-1)
+
+
+def lossy_splitter_sum(local: torch.Tensor, mode: str, pg, k: int) -> torch.Tensor:
+    """The ``(C, 2^16)`` splitter histogram summed over the group in
+    ``mode`` (``"bf16"`` or ``"int8"``), as float32: the int8 qpsum where
+    ``C * 2^16`` divides into ``K * Q8_BLOCK`` blocks, else bfloat16."""
+    if mode == "int8" and local.numel() % (k * Q8_BLOCK) == 0:
+        return _qpsum_i8(local.reshape(-1), pg, k).reshape(local.shape)
+    return _all_reduce(local.to(torch.bfloat16), pg).to(torch.float32)
+
+
 def exchange_buckets(
     rows: torch.Tensor, send: List[int], recv: List[int], pg
 ) -> torch.Tensor:
@@ -199,11 +297,18 @@ def _splitter_counts(bins: torch.Tensor, multiclass: bool) -> torch.Tensor:
     return segment_sum(ones, combined, c * HIST_BINS).reshape(c, HIST_BINS)
 
 
-def curve_value(which: str, s_list, t_list, *, group: Group = None, abstain: bool = False):
+# up to this many classes, the 2 * class + tp labels travel as int16
+NARROW_LABEL_CLASSES = 16383
+
+
+def curve_value(
+    which: str, s_list, t_list, *, group: Group = None, abstain: bool = False, quantize=None
+):
     """One distributed curve call (``which`` is ``auroc``, ``auprc``,
     ``mc_auroc`` or ``mc_auprc``): ``(value, error_rows)``, or None on every
     rank when some rank passed ``abstain`` (the route's veto, which rides
-    the first collective)."""
+    the first collective). ``quantize`` as the module doc says."""
+    mode = sync_quantize_mode(quantize)
     multiclass = which.startswith("mc_")
     pg = _dist.process_group(group)
     k, me = _dist.world_size(pg), _dist.rank(pg)
@@ -212,17 +317,25 @@ def curve_value(which: str, s_list, t_list, *, group: Group = None, abstain: boo
     dev = key.device
     bins = splitter_bins(key)
 
-    # 1. splitter histogram, summed, with the abstention lane
-    lane = torch.tensor([int(abstain)], dtype=torch.int32, device=dev)
-    summed = _all_reduce(torch.cat([_splitter_counts(bins, multiclass).reshape(-1), lane]), pg)
-    counts = summed[:-1].reshape(c, HIST_BINS)
-    abstained, total, nan_entries = (
-        int(v) for v in torch.stack([summed[-1], counts[0].sum(), counts[:, -1].sum()]).tolist()
-    )
+    # 1. splitter histogram, summed, with the exact lanes: abstention, rows
+    # and NaN entries (the last bin)
+    local = _splitter_counts(bins, multiclass)
+    lanes = torch.cat([torch.tensor([int(abstain), n], dtype=torch.int32, device=dev),
+                       local[:, -1].sum(dtype=torch.int32)[None]])
+    if mode:
+        lanes = _all_reduce(lanes, pg)
+    else:
+        summed = _all_reduce(torch.cat([local.reshape(-1), lanes]), pg)
+        lanes = summed[-3:]
+    abstained, total, nan_entries = lanes.tolist()
     if abstained:
         return None
+    if mode:
+        cum = torch.cumsum(lossy_splitter_sum(local, mode, pg, k), dim=1)
+    else:
+        counts = summed[:-3].reshape(c, HIST_BINS)
+        cum = torch.cumsum(counts, dim=1, dtype=torch.int32).to(torch.float32)
     cap = _bucket_capacity(-(-total // k), k)
-    cum = torch.cumsum(counts, dim=1, dtype=torch.int32).to(torch.float32)
     targets = cum[:, -1:] * (torch.arange(1, k, dtype=torch.float32, device=dev) / float(k))
     boundaries = torch.searchsorted(cum, targets.contiguous(), side="left", out_int32=True)
     bucket = torch.searchsorted(boundaries, bins.contiguous(), side="right", out_int32=True)
@@ -242,7 +355,16 @@ def curve_value(which: str, s_list, t_list, *, group: Group = None, abstain: boo
     label = tp.reshape(-1)[order]
     if multiclass:
         label = label + 2 * (order // n).to(torch.int32)  # class and tp in one word
-    rows = torch.stack([((comp & 0xFFFFFFFF) - _KEY_OFFSET).to(torch.int32), label], dim=1)[keep]
+    sent_key = ((comp & 0xFFFFFFFF) - _KEY_OFFSET).to(torch.int32)
+    narrow = None
+    if mode and (not multiclass or c <= NARROW_LABEL_CLASSES):
+        narrow = torch.int16 if multiclass else torch.uint8
+        # the key's 4 bytes and the narrow label's in one uint8 row
+        rows = torch.cat([sent_key.view(torch.uint8).reshape(-1, 4),
+                          label.to(narrow).view(torch.uint8).reshape(-1, narrow.itemsize)],
+                         dim=1)[keep]
+    else:
+        rows = torch.stack([sent_key, label], dim=1)[keep]
 
     # 3. send and receive counts of every rank, the overflow with them
     matrix = _all_gather(torch.cat([sent, overflow[None]]), pg).tolist()
@@ -251,7 +373,11 @@ def curve_value(which: str, s_list, t_list, *, group: Group = None, abstain: boo
     got = exchange_buckets(rows, sent.tolist(), recv, pg)
 
     # 4. merge: class, then key; dense (C, W) rows padded with the pad key
-    r_key, r_lab = got[:, 0], got[:, 1]
+    if narrow is None:
+        r_key, r_lab = got[:, 0], got[:, 1]
+    else:  # unpack, widening the label before any cumulative sum
+        r_key = _bytes_as(got[:, :4], torch.int32).reshape(-1)
+        r_lab = _bytes_as(got[:, 4:], narrow).reshape(-1).to(torch.int32)
     r_cls = (r_lab >> 1).to(torch.int64) if multiclass else torch.zeros_like(r_lab, dtype=torch.int64)
     r_tp = r_lab & 1 if multiclass else r_lab
     _, r_order = torch.sort((r_cls << 32) + (r_key.to(torch.int64) + _KEY_OFFSET))
@@ -324,8 +450,10 @@ def sharded_binary_auroc(
     (a rank with no rows passes an empty block). Returns ``(value,
     error_rows)`` on every rank: a nonzero count means a bucket overflowed
     its send capacity or some score is NaN, and the value is not to be
-    trusted (module doc). ``quantize`` changes nothing (module doc)."""
-    return curve_value("auroc", s_list, t_list, group=group)
+    trusted (module doc). ``quantize`` narrows the splitter histogram and
+    the exchange rows (module doc, "Quantized exchange"); ``None`` reads
+    ``TORCHEVAL_TPU_SYNC_QUANTIZE``."""
+    return curve_value("auroc", s_list, t_list, group=group, quantize=quantize)
 
 
 def sharded_binary_auprc(
@@ -337,7 +465,7 @@ def sharded_binary_auprc(
 ) -> Tuple[torch.Tensor, int]:
     """Exact average precision over every rank's raw blocks; the contract
     of :func:`sharded_binary_auroc`."""
-    return curve_value("auprc", s_list, t_list, group=group)
+    return curve_value("auprc", s_list, t_list, group=group, quantize=quantize)
 
 
 def sharded_multiclass_auroc(
@@ -351,7 +479,7 @@ def sharded_multiclass_auroc(
     score blocks and ``(N_i,)`` integer labels (a rank with no rows passes
     a ``(0, C)`` block): ``((C,) values, error_rows)``, every class's
     buckets in one exchange; the contract of :func:`sharded_binary_auroc`."""
-    return curve_value("mc_auroc", s_list, t_list, group=group)
+    return curve_value("mc_auroc", s_list, t_list, group=group, quantize=quantize)
 
 
 def sharded_multiclass_auprc(
@@ -363,7 +491,7 @@ def sharded_multiclass_auprc(
 ) -> Tuple[torch.Tensor, int]:
     """Exact one-vs-all per-class average precision; see
     :func:`sharded_multiclass_auroc`."""
-    return curve_value("mc_auprc", s_list, t_list, group=group)
+    return curve_value("mc_auprc", s_list, t_list, group=group, quantize=quantize)
 
 
 def sharded_sketch_counts(

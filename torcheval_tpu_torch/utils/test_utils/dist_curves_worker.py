@@ -8,7 +8,8 @@ so its test module launches four of these workers:
     python -m torcheval_tpu_torch.utils.test_utils.dist_curves_worker <scenario> <rank> <world> <port> <outdir>
 
 ``scenario`` is ``kernels`` (the ``sharded_*`` functions on each rank's
-block of every case, even and ragged splits) or ``evaluator`` (the curve
+block of every case, even and ragged splits, raw and with each
+``quantize`` mode) or ``evaluator`` (the curve
 metrics through ``ShardedEvaluator``: the route counter, the fallbacks, a
 2 x 2 mesh's data groups, a JAX-written state). Each process writes
 ``<outdir>/rank<r>.json``; the ``evaluator`` scenario reads
@@ -26,6 +27,7 @@ import sys
 import numpy as np
 
 WORLD = 4
+QUANTIZE_MODES = ("bf16", "int8")
 SKETCH_BITS = 10
 MC_SKETCH_BITS = 10
 
@@ -233,12 +235,42 @@ def run_kernels(rank: int, world: int, outdir: str) -> dict:
             "collectives": [a - b for a, b in zip(_collectives(), before)],
             "send_bytes": dc.exchange_buckets.send_bytes - sent_before,
         }
-        quantized, q_err = fns[which](s_list, t_list, quantize=True)
-        res["even"][name]["quantized_equal"] = bool(torch.equal(quantized, value)) and q_err == err
+        for mode in QUANTIZE_MODES:
+            before = _collectives()
+            sent_before = dc.exchange_buckets.send_bytes
+            q_value, q_err = fns[which](s_list, t_list, quantize=mode)
+            res["even"][name][str(mode)] = {
+                "value": _list(q_value), "error_rows": q_err,
+                "bit_equal": bool(torch.equal(q_value, value)),
+                "collectives": [a - b for a, b in zip(_collectives(), before)],
+                "send_bytes": dc.exchange_buckets.send_bytes - sent_before,
+            }
     for name, which, (s, t) in ragged_cases() + [("auroc_overflow", "auroc", ragged_overflow())]:
-        value, err = fns[which]([torch.from_numpy(ragged_block(s, rank))],
-                                [torch.from_numpy(ragged_block(t, rank))])
-        res["ragged"][name] = {"value": _list(value), "error_rows": err}
+        for mode in (None,) + QUANTIZE_MODES:
+            value, err = fns[which]([torch.from_numpy(ragged_block(s, rank))],
+                                    [torch.from_numpy(ragged_block(t, rank))], quantize=mode or False)
+            res["ragged"][name if mode is None else f"{name}/{mode}"] = {
+                "value": _list(value), "error_rows": err}
+    # the route's veto: rank 1 abstains, every rank stops after one collective
+    res["abstain"] = {}
+    for mode in (False,) + QUANTIZE_MODES:
+        s, t = tied(WORLD * 50, 99)
+        before = _collectives()
+        out = dc.curve_value("auroc", [torch.from_numpy(even_block(s, rank))],
+                             [torch.from_numpy(even_block(t, rank))], abstain=rank == 1,
+                             quantize=mode)
+        res["abstain"][str(mode)] = {"none": out is None,
+                                     "collectives": [a - b for a, b in zip(_collectives(), before)]}
+    # the environment variable picks the mode when quantize is None
+    _, which, batches = kernel_cases()[0]
+    os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = "int8"
+    sent_before = dc.exchange_buckets.send_bytes
+    before = _collectives()
+    fns[which]([torch.from_numpy(even_block(s, rank)) for s, _ in batches],
+               [torch.from_numpy(even_block(t, rank)) for _, t in batches])
+    res["env_int8"] = {"collectives": [a - b for a, b in zip(_collectives(), before)],
+                       "send_bytes": dc.exchange_buckets.send_bytes - sent_before}
+    del os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"]
     res["low_capacity"] = {}
     dc.DIST_CAPACITY_FACTOR = LOW_CAPACITY_FACTOR
     try:
@@ -246,6 +278,11 @@ def run_kernels(rank: int, world: int, outdir: str) -> dict:
             value, err = fns[which]([torch.from_numpy(even_block(s, rank)) for s, _ in batches],
                                     [torch.from_numpy(even_block(t, rank)) for _, t in batches])
             res["low_capacity"][name] = {"value": _list(value), "error_rows": err}
+            for mode in QUANTIZE_MODES:
+                _, q_err = fns[which]([torch.from_numpy(even_block(s, rank)) for s, _ in batches],
+                                      [torch.from_numpy(even_block(t, rank)) for _, t in batches],
+                                      quantize=mode)
+                res["low_capacity"][name][mode] = q_err
     finally:
         dc.DIST_CAPACITY_FACTOR = 4
     # a DeviceMesh dim as the group
@@ -430,6 +467,7 @@ def main() -> None:
     os.environ.update(
         MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world), RANK=str(rank)
     )
+    os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE", None)
     from torcheval_tpu_torch.parallel import init_from_env
     from torcheval_tpu_torch.utils.test_utils.sharded_worker import leave_world
 
