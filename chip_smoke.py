@@ -159,6 +159,32 @@ failed check. Phases:
    ``torch.bincount``'s and the sketch AUROC equal in both, the calibration
    within ``max|block| / 254`` a rank, two rounds each, the rounds' payload
    bytes and seconds printed;
+   resilience phase (``torcheval_tpu_torch.resilience``, with the obs
+   registry on for it alone; checkpoints under a ``tempfile.mkdtemp()``
+   directory, its disk usage printed first, removed at the end): (a) right
+   after phase 3, on its chunks: ``MulticlassAccuracy(num_classes=5)`` and
+   ``BinaryAUROC(compaction_threshold=6 * 2**24)`` saved after chunks 4 and
+   8 (``keep_last=2``), a fresh pair restored from the chunk-8 generation
+   (every leaf equal to the saved one as bytes) and fed chunks 9-16, both
+   values equal to phase 3's bit for bit; (d) one payload byte of the
+   chunk-8 generation flipped by the chaos hook (``ckpt_corrupt``),
+   ``restore_latest_valid`` quarantining it and restoring the chunk-4
+   generation (every leaf equal as bytes to the pair's state at chunk 4,
+   one fallback counted); (b) right after the sliced leg: its two
+   collections saved after batch 8, restored into fresh collections of
+   the default capacity and fed batches 9-16, the counts, sketch planes
+   and maxima equal to the uninterrupted leg's and the means within rtol
+   1e-5; (c) right after the data-parallel leg, the kill drill
+   (``chip_smoke.py --drill-rank R PORT DIR fault|restart``): two ranks
+   feed 2 of their 4 chunks, save, sync once (rounds 1-2) and feed the
+   rest; rank 1, armed by ``TORCHEVAL_TPU_CHAOS*``, dies with exit 43
+   entering round 3 and rank 0's second sync (``timeout_s=30``,
+   ``on_failure="local"``) returns its local values with one failure
+   counted; both checkpoints restore on the card to the leaves saved, and
+   two fresh ranks restore them, feed their chunks 3-4 and pass the
+   data-parallel leg's gate. Each part prints its checkpoint bytes, save
+   and restore seconds (the ``resilience.checkpoint`` spans), GB/s and
+   kernel launches;
 5. one JSON line per the kernels: launches on the main path (phases 3 and
    4, the data-parallel ranks' included), time per launch, the plain
    version's and a library call's time, and the least time the card could
@@ -184,8 +210,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -260,6 +288,16 @@ R2_ROWS, R2_OUTPUTS, R2_BATCHES = 1 << 22, 8, 4
 R2_MODES = ("uniform_average", "raw_values", "variance_weighted")
 QUANT_MODES = ("bf16", "int8")
 SYNC_CAL_TASKS = 256
+# the resilience phase: (a) saves phase 3's stream after chunks 4 and 8
+# (keep_last=2) and resumes from chunk 8, (d) falls back to chunk 4; (b)
+# saves the sliced leg after batch 8 and resumes to batch 16; (c) the kill
+# drill on the data-parallel leg's data, 2 of each rank's 4 chunks before
+# the fault, rank 1 killed entering round 3 with exit code 43
+RES_FIRST_SAVE, RES_SAVE = 4, 8
+RES_SLICED_SAVE, RES_SLICED_BATCHES = 8, SLICED_BATCHES
+DRILL_PRE_CHUNKS = 2
+DRILL_TIMEOUT_S = 30.0
+DRILL_EXIT_CODE = 43
 # unit roundoff of the half types
 HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
@@ -2018,14 +2056,19 @@ def dp_worker(rank: int, port: str) -> int:
     return 0
 
 
-def spawn_ranks(flag, ranks, tag, timeout_s, *extra):
+def run_ranks(flag, ranks, timeout_s, extra=(), env_extra=None, expect=None):
     """Spawn ``chip_smoke.py <flag> R PORT *extra`` for each rank R, wait
     for them (killing all at the time limit) and return each rank's
-    ``<tag> {json}`` line; any rank's failure fails the leg."""
+    standard output. ``env_extra`` is added to the ranks' environment, from
+    which the parent's ``TORCHEVAL_TPU_CHAOS*`` are dropped; ``expect[r]``
+    is rank r's exit code (0 for every rank by default), and any other
+    exit fails the leg."""
     port = str(_free_port())
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items()
-           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+           and not k.startswith("TORCHEVAL_TPU_CHAOS")}
+    env.update(env_extra or {})
     procs = [
         subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), port, *extra],
                          cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2040,14 +2083,34 @@ def spawn_ranks(flag, ranks, tag, timeout_s, *extra):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    results = []
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
+        want = 0 if expect is None else expect[r]
+        if p.returncode != want:
             print(err[-6000:], file=sys.stderr)
-            raise RuntimeError(f"check failed: {flag} rank {r} exited {p.returncode}")
-        lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+            raise RuntimeError(f"check failed: {flag} {' '.join(extra)} rank {r} exited "
+                               f"{p.returncode}, expected {want}")
+    return [out for out, _ in outs]
+
+
+def tagged_lines(out, prefix):
+    """``{tag: [objects]}`` of the ``<tag> {json}`` lines whose tag starts
+    with ``prefix``."""
+    tagged = {}
+    for ln in out.splitlines():
+        tag, _, rest = ln.partition(" ")
+        if tag.startswith(prefix):
+            tagged.setdefault(tag, []).append(json.loads(rest))
+    return tagged
+
+
+def spawn_ranks(flag, ranks, tag, timeout_s, *extra):
+    """``run_ranks`` where every rank exits 0 and prints one ``<tag> {json}``
+    line: each rank's object."""
+    results = []
+    for r, out in enumerate(run_ranks(flag, ranks, timeout_s, extra)):
+        lines = tagged_lines(out, tag).get(tag, [])
         _require(len(lines) == 1, f"{flag} rank {r} printed its result")
-        results.append(json.loads(lines[0][len(tag) + 1:]))
+        results.append(lines[0])
     return results
 
 
@@ -2780,6 +2843,369 @@ def nccl_world_of_one(dev, gen):
     return launched
 
 
+# ------------------------------------------------ the resilience phase
+def _state_words(metrics) -> dict:
+    """Every state leaf of ``{key: metric}`` as a flat uint8 tensor on its
+    device, keyed ``key/state/i``: the bytes a checkpoint must keep."""
+    out = {}
+    for key, m in metrics.items():
+        for name, v in m.state_dict().items():
+            leaves = list(v) if isinstance(v, (list, tuple)) else [v]
+            for i, t in enumerate(leaves):
+                out[f"{key}/{name}/{i}"] = t.contiguous().reshape(-1).view(torch.uint8)
+    return out
+
+
+def _same_words(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _words_digest(metrics) -> dict:
+    """SHA-256 of every state leaf's bytes (``_state_words``), on the host."""
+    import hashlib
+
+    return {k: hashlib.sha256(w.cpu().numpy().tobytes()).hexdigest()
+            for k, w in _state_words(metrics).items()}
+
+
+class _Checkpoint:
+    """Context manager timing one ``save``/``restore`` call by the obs
+    registry's own span and byte counter (the registry is on for the
+    resilience phase only)."""
+
+    def __init__(self, span):
+        self.span = span
+
+    def __enter__(self):
+        from torcheval_tpu_torch import obs
+
+        snap = obs.snapshot()
+        self.s0 = snap["spans"].get(self.span, {}).get("total_seconds", 0.0)
+        self.b0 = snap["counters"].get("resilience.checkpoint.bytes", 0.0)
+        return self
+
+    def __exit__(self, *exc):
+        from torcheval_tpu_torch import obs
+
+        snap = obs.snapshot()
+        self.seconds = snap["spans"].get(self.span, {}).get("total_seconds", 0.0) - self.s0
+        self.bytes = int(snap["counters"].get("resilience.checkpoint.bytes", 0.0) - self.b0)
+        return False
+
+
+def _rate(nbytes, seconds) -> str:
+    return f"{nbytes / seconds / 1e9:.3f} GB/s" if seconds > 0 else "-"
+
+
+def resilience_headline(dev, chunks, want_acc, want_auroc, root):
+    """(a) phase 3's stream checkpointed at chunks 4 and 8 (``keep_last=2``),
+    a fresh pair restored from the chunk-8 generation and fed chunks 9-16:
+    both values equal phase 3's bit for bit, every restored leaf equal to
+    the saved one as bytes, and the resumed half compacts on the card. (d)
+    one payload byte of the chunk-8 generation flipped by the chaos hook;
+    ``restore_latest_valid`` quarantines it and restores the chunk-4
+    generation, equal as bytes to the pair's state at chunk 4, with one
+    fallback counted."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy
+    from torcheval_tpu_torch.ops.hist import hist
+    from torcheval_tpu_torch.ops.stream_compact import stream_compact
+    from torcheval_tpu_torch.resilience import chaos, list_checkpoints, restore, restore_latest_valid, save
+
+    def pair():
+        return {"acc": MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev),
+                "auroc": BinaryAUROC(compaction_threshold=THRESHOLD, device=dev)}
+
+    def feed(p, part):
+        for scores, labels, logits, binary in part:
+            p["acc"].update(scores, labels)
+            p["auroc"].update(logits, binary)
+
+    def values(p):
+        return float(p["acc"].compute()), float(p["auroc"].compute())
+
+    ckdir = os.path.join(root, "headline")
+    hist.launches = 0
+    stream_compact.launches = 0
+    first = pair()
+    feed(first, chunks[:RES_FIRST_SAVE])
+    with _Checkpoint("resilience.checkpoint.save") as early:
+        save(first, ckdir, keep_last=2)
+    at_first = _state_words(first)
+    feed(first, chunks[RES_FIRST_SAVE:RES_SAVE])
+    with _Checkpoint("resilience.checkpoint.save") as saved:
+        path = save(first, ckdir, keep_last=2)
+    at_save = _state_words(first)
+    del first
+    with _Checkpoint("resilience.checkpoint.restore") as restored:
+        resumed = restore(pair(), path)
+    _require(_same_words(_state_words(resumed), at_save),
+             "(a) every restored leaf equals the saved one as bytes")
+    del at_save
+    before = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    hist.launches = 0
+    stream_compact.launches = 0
+    feed(resumed, chunks[RES_SAVE:])
+    got = values(resumed)
+    _require(got == (want_acc, want_auroc),
+             f"(a) resumed accuracy and AUROC {got} equal phase 3's {(want_acc, want_auroc)} bit for bit")
+    del resumed
+    after = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    _require(after["stream_compact"] >= 1, "(a) stream_compact launched on the resumed stream")
+
+    # (d) lineage fallback: the chaos hook's own flip, armed for this one call
+    gens = list_checkpoints(ckdir)
+    _require(len(gens) == 2 and gens[-1] == path, f"(a) two generations kept: {gens}")
+    armed = {"TORCHEVAL_TPU_CHAOS": "1", "TORCHEVAL_TPU_CHAOS_ACTION": "ckpt_corrupt",
+             "TORCHEVAL_TPU_CHAOS_TENANT": path, "TORCHEVAL_TPU_CHAOS_STEP": "1"}
+    saved_env = {k: os.environ.get(k) for k in armed}
+    os.environ.update(armed)
+    chaos.reset_for_tests()
+    try:
+        chaos.on_ckpt_saved(path)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        chaos.reset_for_tests()
+    counters0 = obs.snapshot()["counters"]
+    fallback = pair()
+    with _Checkpoint("resilience.checkpoint.restore") as fell_back:
+        got_path = restore_latest_valid(fallback, ckdir)
+    counters = obs.snapshot()["counters"]
+    quarantined = [n for n in os.listdir(ckdir) if n.startswith("corrupt-")]
+
+    def delta(name):
+        return counters.get(name, 0.0) - counters0.get(name, 0.0)
+
+    _require(got_path == gens[0] and quarantined == ["corrupt-" + os.path.basename(path)],
+             f"(d) restored {got_path} past the quarantined {quarantined}")
+    _require(delta("resilience.checkpoint.fallback_restores") == 1.0
+             and delta("resilience.checkpoint.corrupt_quarantined") == 1.0,
+             "(d) one fallback restore and one quarantine counted")
+    _require(_same_words(_state_words(fallback), at_first), "(d) the chunk-4 generation's bytes")
+    return {"bytes": saved.bytes, "save_s": saved.seconds, "restore_s": restored.seconds,
+            "early_bytes": early.bytes, "early_save_s": early.seconds,
+            "fallback_restore_s": fell_back.seconds, "before": before, "after": after,
+            "launches": {k: before[k] + after[k] for k in before}}
+
+
+def resilience_sliced(dev, data, want, root):
+    """(b) the sliced leg's collections saved after batch 8, restored into
+    fresh collections of the default (smaller) capacity, fed batches 9 to
+    ``RES_SLICED_BATCHES``: every integer lane and the maxima equal ``want``
+    (the uninterrupted leg's states) exactly, the means within rtol 1e-5."""
+    from torcheval_tpu_torch.metrics import BinaryAccuracy, BinaryAUROC, Max, Mean, SlicedMetricCollection
+    from torcheval_tpu_torch.ops.scatter import segment_sum
+    from torcheval_tpu_torch.resilience import restore, save
+
+    segment_sum.launches = 0
+    acc, agg = sliced_setup(dev, data)
+    for i in range(1, RES_SLICED_SAVE + 1):
+        ids, s, t = _sliced_batch(data, i)
+        acc.update(ids, s, t)
+        agg.update(ids, s)
+    grown = acc.slice_table.capacity
+    with _Checkpoint("resilience.checkpoint.save") as saved:
+        paths = [save(acc, os.path.join(root, "sliced_acc")), save(agg, os.path.join(root, "sliced_agg"))]
+    del acc, agg
+    fresh_acc = SlicedMetricCollection(
+        {"acc": BinaryAccuracy(device=dev), "auroc": BinaryAUROC(approx=1024, device=dev)},
+        curve_bucket_bits=SLICED_BITS)
+    fresh_agg = SlicedMetricCollection({"mean": Mean(device=dev), "max": Max(device=dev)})
+    fresh_capacity = fresh_acc.slice_table.capacity
+    _require(fresh_capacity < grown, f"(b) the fresh capacity {fresh_capacity} below the grown {grown}")
+    with _Checkpoint("resilience.checkpoint.restore") as restored:
+        restore(fresh_acc, paths[0])
+        restore(fresh_agg, paths[1])
+    for i in range(RES_SLICED_SAVE + 1, RES_SLICED_BATCHES + 1):
+        ids, s, t = _sliced_batch(data, i)
+        fresh_acc.update(ids, s, t)
+        fresh_agg.update(ids, s)
+    results = {**fresh_acc.compute(), **fresh_agg.compute()}
+    torch.cuda.synchronize()
+    launches = segment_sum.launches
+    _require(launches > 0, "(b) segment_sum launched on the restored collections")
+    _require(np.array_equal(results["acc"].slice_ids, want["ids"]), "(b) slice ids in first-seen order")
+    n = len(want["ids"])
+    for key, member in (("acc", fresh_acc.metrics["acc"]), ("auroc", fresh_acc.metrics["auroc"]),
+                        ("max", fresh_agg.metrics["max"])):
+        sd = member.state_dict()
+        for name, w in want[key].items():
+            _require(torch.equal(sd[name][:n], w), f"(b) {key}.{name} equals the uninterrupted leg's")
+    got_mean = results["mean"]["values"].cpu().numpy().astype(np.float64)
+    err = np.abs(got_mean - want["mean"])
+    rel = np.divide(err, np.abs(want["mean"]), out=np.where(err == 0, 0.0, np.inf),
+                    where=want["mean"] != 0)
+    _require(bool(np.all(rel <= RTOL)), f"(b) per-cohort means within rtol 1e-5 ({rel.max():.3e})")
+    return {"bytes": saved.bytes, "save_s": saved.seconds, "restore_s": restored.seconds,
+            "launches": launches, "grown": grown, "fresh": fresh_capacity, "mean_rel": float(rel.max())}
+
+
+def sliced_want(acc, agg, results) -> dict:
+    """The uninterrupted sliced leg's integer lanes and maxima (on the card)
+    and its means (float64, host), for (b)."""
+    n = len(results["acc"].slice_ids)
+    pick = {"acc": ("num_correct", "num_total"), "auroc": ("sketch_tp", "sketch_fp", "sketch_nan_dropped")}
+    want = {"ids": results["acc"].slice_ids,
+            "mean": results["mean"]["values"].cpu().numpy().astype(np.float64)}
+    for key, names in pick.items():
+        sd = acc.metrics[key].state_dict()
+        want[key] = {name: sd[name][:n] for name in names}
+    want["max"] = {"max": agg.metrics["max"].state_dict()["max"][:n]}
+    return want
+
+
+def _drill_metrics(dev):
+    from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy, MulticlassF1Score
+
+    return {"accuracy": MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev),
+            "f1_macro": MulticlassF1Score(num_classes=HEADLINE_CLASSES, average="macro", device=dev),
+            "auroc": BinaryAUROC(compaction_threshold=DP_THRESHOLD, device=dev)}
+
+
+def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
+    """One rank of the kill drill (``chip_smoke.py --drill-rank R PORT DIR
+    PHASE``), on ``cuda:0`` over gloo, with the data-parallel leg's chunks
+    and ``dp_worker``'s metrics. ``fault``: feed 2 of its 4 chunks, save
+    to ``DIR/rank<R>`` (printing ``DRILL_SAVED`` with the saved leaves'
+    digests), sync (rounds 1-2), feed the other 2, print ``DRILL_PRE`` and
+    sync again under ``timeout_s=DRILL_TIMEOUT_S``, ``on_failure="local"``;
+    the chaos hook kills rank 1 entering round 3, and rank 0 prints its
+    degraded ``DRILL_RESULT`` and leaves with ``os._exit(0)``. ``restart``:
+    restore ``DIR/rank<R>``, feed chunks 3-4 of this rank and compute
+    through the ``ShardedEvaluator``s, as ``dp_worker`` does."""
+    from torcheval_tpu_torch.metrics import toolkit
+    from torcheval_tpu_torch.ops.hist import hist
+    from torcheval_tpu_torch.ops.stream_compact import stream_compact
+    from torcheval_tpu_torch.parallel import ShardedEvaluator, data_parallel_mesh, init_from_env, shutdown
+    from torcheval_tpu_torch.resilience import restore, save
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DP_RANKS),
+                      RANK=str(rank), LOCAL_RANK="0")
+    _require(init_from_env(backend="gloo") == (rank, DP_RANKS), "drill rank joined")
+    mesh = data_parallel_mesh()
+    dev = mesh.device
+    per_rank = DP_CHUNKS // DP_RANKS
+    mine = list(range(rank * per_rank, (rank + 1) * per_rank))
+    held = _drill_metrics(dev)
+    classification = ShardedEvaluator({k: held[k] for k in ("accuracy", "f1_macro")}, mesh=mesh)
+    auroc = ShardedEvaluator(held["auroc"], mesh=mesh)
+
+    def feed(indices):
+        for i in indices:
+            scores, labels, logits, binary = dp_chunk(dev, i)
+            classification.update(scores, labels)
+            auroc.update(logits, binary)
+
+    hist.launches = 0
+    stream_compact.launches = 0
+    ckpt = os.path.join(outdir, f"rank{rank}")
+    if phase == "fault":
+        feed(mine[:DRILL_PRE_CHUNKS])
+        save(held, ckpt)
+        print("DRILL_SAVED " + json.dumps({"rank": rank, "digest": _words_digest(held)}), flush=True)
+        toolkit.sync_and_compute_collection(held, recipient_rank="all", processes=mesh.processes,
+                                            timeout_s=DP_TIMEOUT_S)
+        feed(mine[DRILL_PRE_CHUNKS:])
+        torch.cuda.synchronize()
+        print("DRILL_PRE " + json.dumps({"rank": rank, "rounds": toolkit._allgather_stacked.rounds,
+                                         "hist_launches": hist.launches,
+                                         "stream_compact_launches": stream_compact.launches}), flush=True)
+        failures0 = toolkit._sync_failure.count
+        t0 = time.monotonic()
+        got = toolkit.sync_and_compute_collection(held, recipient_rank="all", processes=mesh.processes,
+                                                  timeout_s=DRILL_TIMEOUT_S, on_failure="local")
+        elapsed = time.monotonic() - t0
+        local = {k: m.compute() for k, m in held.items()}
+        out = {"rank": rank, "elapsed_s": elapsed, "failures": toolkit._sync_failure.count - failures0,
+               "local": all(torch.equal(got[k], local[k]) for k in held),
+               "values": {k: float(v) for k, v in got.items()},
+               "hist_launches": hist.launches, "stream_compact_launches": stream_compact.launches}
+        print("DRILL_RESULT " + json.dumps(out), flush=True)
+        sys.stderr.flush()
+        # the round thread may still be blocked on the dead peer: destroying
+        # the group could wait on it
+        os._exit(0)
+    restore(held, ckpt)
+    feed(mine[DRILL_PRE_CHUNKS:])
+    results = classification.compute()
+    auroc_v = float(auroc.compute())
+    out = {"rank": rank, "accuracy": float(results["accuracy"]), "f1_macro": float(results["f1_macro"]),
+           "auroc": auroc_v, "hist_launches": hist.launches,
+           "stream_compact_launches": stream_compact.launches}
+    for name in ("accuracy", "f1_macro"):
+        sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
+        out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
+    shutdown()
+    print("DRILL_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_drill(phase, outdir, env_extra, expect):
+    """Both drill ranks' ``DRILL_*`` lines, ``[{tag: [objects]}]``."""
+    return [tagged_lines(out, "DRILL_")
+            for out in run_ranks("--drill-rank", DP_RANKS, DP_TIMEOUT_S, (outdir, phase), env_extra, expect)]
+
+
+def resilience_drill(dev, root, counts, acc_ref, f1_ref, auroc_ref):
+    """(c) the kill drill: rank 1 dies with exit 43 entering the second
+    sync, rank 0 degrades to its local values within ``DRILL_TIMEOUT_S``
+    with one failure counted; each rank's pre-fault checkpoint restores on
+    the card to the leaves it saved; two fresh ranks restore them, feed
+    their chunks 3-4 and sync, and pass the data-parallel leg's gate."""
+    outdir = os.path.join(root, "drill")
+    os.makedirs(outdir)
+    armed = {"TORCHEVAL_TPU_CHAOS": "1", "TORCHEVAL_TPU_CHAOS_ACTION": "kill",
+             "TORCHEVAL_TPU_CHAOS_RANK": "1", "TORCHEVAL_TPU_CHAOS_ROUND": "3",
+             "TORCHEVAL_TPU_CHAOS_EXIT_CODE": str(DRILL_EXIT_CODE)}
+    t0 = time.perf_counter()
+    fault = spawn_drill("fault", outdir, armed, {0: 0, 1: DRILL_EXIT_CODE})
+    fault_s = time.perf_counter() - t0
+    for r in range(DP_RANKS):
+        _require(len(fault[r].get("DRILL_SAVED", [])) == 1 and len(fault[r].get("DRILL_PRE", [])) == 1,
+                 f"(c) rank {r} saved and synced once before the fault")
+        _require(fault[r]["DRILL_PRE"][0]["rounds"] == 2, f"(c) rank {r}: the first sync was rounds 1-2")
+    _require("DRILL_RESULT" not in fault[1], "(c) rank 1 died before its second sync returned")
+    r0 = fault[0]["DRILL_RESULT"][0]
+    _require(r0["failures"] == 1 and r0["local"], f"(c) rank 0 degraded to its local values: {r0}")
+    _require(r0["elapsed_s"] <= DRILL_TIMEOUT_S + 5.0,
+             f"(c) rank 0 returned in {r0['elapsed_s']:.3f} s, deadline {DRILL_TIMEOUT_S} s")
+    from torcheval_tpu_torch.resilience import restore
+
+    restore_s = []
+    for r in range(DP_RANKS):
+        with _Checkpoint("resilience.checkpoint.restore") as ck:
+            fresh = restore(_drill_metrics(dev), os.path.join(outdir, f"rank{r}"))
+        restore_s.append(ck.seconds)
+        _require(_words_digest(fresh) == fault[r]["DRILL_SAVED"][0]["digest"],
+                 f"(c) rank {r}'s pre-fault checkpoint restores on the card to the saved leaves")
+        del fresh
+    t0 = time.perf_counter()
+    restart = [lines["DRILL_RESULT"][0] for lines in spawn_drill("restart", outdir, {}, {0: 0, 1: 0})]
+    restart_s = time.perf_counter() - t0
+    for res in restart:
+        r = res["rank"]
+        _require(res["accuracy_counts"] == counts["accuracy"], f"(c) restarted rank {r} accuracy counts")
+        _require(res["f1_macro_counts"] == counts["f1_macro"], f"(c) restarted rank {r} F1 counts")
+        _require(_close(res["accuracy"], acc_ref) and _close(res["f1_macro"], f1_ref),
+                 f"(c) restarted rank {r} accuracy {res['accuracy']} and F1 {res['f1_macro']}")
+        _require(np.isfinite(res["auroc"]) and _close(res["auroc"], auroc_ref),
+                 f"(c) restarted rank {r} AUROC {res['auroc']} vs uncompacted {auroc_ref}")
+    pre = [fault[r]["DRILL_PRE"][0] for r in range(DP_RANKS)]
+    launches = {
+        "hist": r0["hist_launches"] + pre[1]["hist_launches"] + sum(x["hist_launches"] for x in restart),
+        "stream_compact": r0["stream_compact_launches"] + pre[1]["stream_compact_launches"]
+        + sum(x["stream_compact_launches"] for x in restart),
+    }
+    _require(launches["hist"] > 0 and launches["stream_compact"] > 0,
+             "(c) hist and stream_compact launched by the drill's ranks")
+    return {"rank0": r0, "fault_s": fault_s, "restart_s": restart_s, "restore_s": restore_s,
+            "restart": restart, "launches": launches, "pre": pre}
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -3299,6 +3725,31 @@ def main() -> int:
     small_reference_check(dev)
     del acc
 
+    from torcheval_tpu_torch import obs
+
+    # the resilience phase's checkpoints: removed at the end, or at exit
+    res_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, res_root, True)
+    usage = shutil.disk_usage(res_root)
+    print(f"resilience phase (a), (d) on phase 3's chunks, checkpoints under {res_root} (disk total "
+          f"{usage.total} B, used {usage.used} B, free {usage.free} B)")
+    obs.reset()
+    obs.enable()
+    ra = resilience_headline(dev, chunks, acc_v, auroc_v, res_root)
+    obs.disable()
+    shutil.rmtree(os.path.join(res_root, "headline"))
+    print(f"  (a) chunks 1-{RES_SAVE} saved ({ra['bytes']} B in {ra['save_s']:.4f} s, "
+          f"{_rate(ra['bytes'], ra['save_s'])}; the chunk-{RES_FIRST_SAVE} generation {ra['early_bytes']} B "
+          f"in {ra['early_save_s']:.4f} s, {_rate(ra['early_bytes'], ra['early_save_s'])}), restored into a "
+          f"fresh pair in {ra['restore_s']:.4f} s ({_rate(ra['bytes'], ra['restore_s'])}; the "
+          f"resilience.checkpoint spans), every leaf equal as bytes; chunks {RES_SAVE + 1}-"
+          f"{HEADLINE_CHUNKS} fed: accuracy and AUROC equal phase 3's bit for bit; launches before the "
+          f"save {ra['before']}, after the restore {ra['after']}")
+    print(f"  (d) one payload byte of the chunk-{RES_SAVE} generation flipped by the chaos hook: "
+          f"restore_latest_valid quarantined it and restored the chunk-{RES_FIRST_SAVE} generation in "
+          f"{ra['fallback_restore_s']:.4f} s (checksum of the corrupt one included), every leaf equal "
+          f"as bytes to the chunk-{RES_FIRST_SAVE} state, one fallback counted")
+
     print("phase 4 approximate headline leg (phase 3's data)")
     approx_headline_leg(dev, chunks[:1])  # warm-up: the first use of each PyTorch kernel
     segment_sum.launches = 0
@@ -3558,8 +4009,25 @@ def main() -> int:
     sliced_values = {"ids": results["acc"].slice_ids,
                      **{k: results[k]["values"].cpu().numpy() for k in ("acc", "auroc", "max")},
                      "mean": results["mean"]["values"].cpu().numpy().astype(np.float64)}
+    want = sliced_want(acc, agg, results)
     del acc, agg, results
     torch.cuda.empty_cache()
+
+    print(f"resilience phase (b): the sliced leg's collections saved after batch {RES_SLICED_SAVE}, "
+          f"restored into fresh ones, batches {RES_SLICED_SAVE + 1}-{RES_SLICED_BATCHES} fed")
+    obs.reset()
+    obs.enable()
+    rb = resilience_sliced(dev, data, want, res_root)
+    obs.disable()
+    shutil.rmtree(os.path.join(res_root, "sliced_acc"))
+    shutil.rmtree(os.path.join(res_root, "sliced_agg"))
+    del want
+    torch.cuda.empty_cache()
+    print(f"  (b) two checkpoints, {rb['bytes']} B, saved in {rb['save_s']:.4f} s "
+          f"({_rate(rb['bytes'], rb['save_s'])}), restored in {rb['restore_s']:.4f} s "
+          f"({_rate(rb['bytes'], rb['restore_s'])}) into capacity {rb['fresh']} (grown {rb['grown']}); "
+          f"counts, sketch planes and maxima equal the uninterrupted leg's, means within "
+          f"{rb['mean_rel']:.3e}; segment_sum launches {rb['launches']}")
 
     print(f"phase 4 sharded leg ({SHARD_RANKS} ranks on one card over gloo: the retrieval leg's "
           f"label axis and the sliced leg's cohorts split over them)")
@@ -3650,6 +4118,23 @@ def main() -> int:
         "stream_compact": sum(res["stream_compact_launches"] for res in ranks),
     }
 
+    print(f"resilience phase (c): the kill drill ({DP_RANKS} ranks on one card over gloo, the "
+          f"data-parallel leg's chunks; rank 1 killed entering round 3)")
+    obs.reset()
+    obs.enable()
+    rc = resilience_drill(dev, res_root, counts, acc_ref, f1_ref, auroc_ref)
+    obs.disable()
+    r0 = rc["rank0"]
+    print(f"  (c) rank 1 exited {DRILL_EXIT_CODE}; rank 0's second sync returned its local values in "
+          f"{r0['elapsed_s']:.4f} s (deadline {DRILL_TIMEOUT_S} s), failures counted {r0['failures']}; "
+          f"fault world {rc['fault_s']:.2f} s (processes included)")
+    print(f"  (c) both pre-fault checkpoints restored on the card to the saved leaves "
+          f"({', '.join(f'{x:.4f}' for x in rc['restore_s'])} s); restarted pair "
+          f"{rc['restart_s']:.2f} s: synced accuracy {rc['restart'][0]['accuracy']:.8f}, f1_macro "
+          f"{rc['restart'][0]['f1_macro']:.8f}, AUROC {rc['restart'][0]['auroc']:.8f} pass the "
+          f"data-parallel leg's gate; launches {rc['launches']}")
+    shutil.rmtree(res_root)
+
     print(f"phase 4 distributed-curves leg ({DIST_RANKS} ranks on one card over gloo, each "
           f"through a ShardedEvaluator: (a) {DP_CHUNKS // DIST_RANKS * HEADLINE_CHUNK} data-parallel "
           f"rows a rank, (b) the "
@@ -3736,12 +4221,16 @@ def main() -> int:
                 + curve_launches[k] for k in headline_launches}
     launches["hist"] += cm_launches + dist_launches["hist_splitter"]
     launches["stream_compact"] += dist_launches["stream_compact"]
+    res_launches = {k: ra["launches"][k] + rc["launches"][k] for k in ("hist", "stream_compact")}
+    for k, n in res_launches.items():
+        launches[k] += n
     launches["topk"] = topk_launches + retrieval_launches
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
     by_leg = {"sliced": sliced_launches, "curves": curve_launches["segment_sum"],
               "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches,
-              "dist_curves": dist_launches["segment_sum_splitter"] + dist_launches["segment_sum_sketch"]}
+              "dist_curves": dist_launches["segment_sum_splitter"] + dist_launches["segment_sum_sketch"],
+              "resilience": rb["launches"]}
     rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     rows[-1]["launches_by_leg"] = by_leg
@@ -3806,6 +4295,8 @@ def main() -> int:
           f"float32 label tile, k=10")
     print(f"  sharded leg launches: {shard_launches}; sharded segment sum's all_reduce by rank "
           f"(host clock, kernel included): {shard[-1]['all_reduce_seconds_by_rank']}")
+    print(f"  resilience phase launches: hist {res_launches['hist']}, stream_compact "
+          f"{res_launches['stream_compact']}, segment_sum {rb['launches']}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3818,6 +4309,8 @@ if __name__ == "__main__":
         sys.exit(dist_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--drill-rank":
+        sys.exit(drill_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]))
     if len(sys.argv) == 5 and sys.argv[1] == "--shard-rank":
         sys.exit(shard_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -1267,12 +1267,135 @@ def test_quantized_dist_curves_at_world_of_one_equal_raw(dev, data_of_one, which
     torch.testing.assert_close(got, raw, rtol=1e-5, atol=1e-8)
 
 
-def test_q8_blocks_on_the_card_equal_the_host_codec(dev):
+@pytest.mark.parametrize("seed", range(8))
+def test_q8_blocks_on_the_card_equal_the_host_codec(dev, seed):
     from torcheval_tpu_torch.ops.dist_curves import _q8_blocks
     from torcheval_tpu_torch.utils.quant import q8_parts
 
-    x = torch.rand(1 << 16, device=dev) * 1000
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(1 << 16, generator=g, device=dev) * 1000
     scales, q = _q8_blocks(x)
     want_s, want_q = q8_parts(x.cpu().numpy())
+    # the same bytes as the host codec: the scales too
+    assert np.array_equal(scales.cpu().numpy().view(np.int32), want_s.view(np.int32))
     assert np.array_equal(q.cpu().numpy(), want_q)
-    np.testing.assert_allclose(scales.cpu().numpy(), want_s, rtol=1e-7)
+
+
+# ------------------------------------------------ checkpoints on the card
+def _ckpt_pair(device, threshold=1 << 12):
+    from torcheval_tpu_torch.metrics import BinaryAUROC
+
+    return {"acc": MulticlassAccuracy(num_classes=5, device=device),
+            "auroc": BinaryAUROC(compaction_threshold=threshold, device=device)}
+
+
+def _ckpt_feed(pair, device, n_batches, seed=0, n=3000):
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(n_batches):
+        scores, labels = torch.rand((n, 5), generator=g), torch.randint(0, 5, (n,), generator=g)
+        logits = torch.rand(n, generator=g)
+        pair["acc"].update(scores.to(device), labels.to(device))
+        pair["auroc"].update(logits.to(device), (labels == 0).float().to(device))
+
+
+def _ckpt_states(pair):
+    """Every state leaf on the host as ``(dtype, shape, bytes)``: a NaN pad
+    of a summary compares equal as bytes, not by ``torch.equal``."""
+    out = {}
+    for k, m in pair.items():
+        for name, v in m.state_dict().items():
+            leaves = v if isinstance(v, list) else [v]
+            out[(k, name)] = [(x.dtype, tuple(x.shape), x.detach().cpu().reshape(-1).view(torch.uint8))
+                              for x in leaves]
+    return out
+
+
+def _same_states(got, want):
+    assert list(got) == list(want)
+    for key in want:
+        assert len(got[key]) == len(want[key]), key
+        for (gd, gs, gb), (wd, ws, wb) in zip(got[key], want[key]):
+            assert (gd, gs) == (wd, ws) and torch.equal(gb, wb), key
+
+
+def _leaf_devices(metric):
+    for v in metric._states().values():
+        for x in (v if isinstance(v, list) else [v]):
+            yield x.device
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cuda"), ("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_between_card_and_host(dev, tmp_path, src, dst):
+    from torcheval_tpu_torch.resilience import restore, save
+
+    source = _ckpt_pair(src)
+    _ckpt_feed(source, src, 3)
+    target = restore(_ckpt_pair(dst), save(source, str(tmp_path)))
+    _same_states(_ckpt_states(target), _ckpt_states(source))
+    for k in source:
+        assert all(d.type == dst for d in _leaf_devices(target[k]))
+        assert torch.equal(target[k].compute().cpu(), source[k].compute().cpu())
+
+
+def test_restore_stages_through_one_pinned_buffer(dev, tmp_path, monkeypatch):
+    from torcheval_tpu_torch.resilience import restore, save
+    from torcheval_tpu_torch.resilience import snapshot as snap
+
+    source = _ckpt_pair(dev)
+    _ckpt_feed(source, dev, 3)
+    path = save(source, str(tmp_path))
+    staged, copies = [], []
+    real_empty, real_to = torch.empty, torch.Tensor.to
+
+    def empty(*args, **kwargs):
+        out = real_empty(*args, **kwargs)
+        if kwargs.get("pin_memory"):
+            staged.append(out)
+        return out
+
+    def to(self, *args, **kwargs):
+        if any(self is s for s in staged):
+            copies.append(kwargs.get("non_blocking"))
+        return real_to(self, *args, **kwargs)
+
+    monkeypatch.setattr(snap.torch, "empty", empty)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    target = restore(_ckpt_pair(dev), path)
+    monkeypatch.undo()
+    assert len(staged) == 1 and staged[0].is_pinned() and copies == [True]
+    for k in source:
+        assert torch.equal(target[k].compute(), source[k].compute())
+
+
+def test_restore_placement_error_raises(dev, tmp_path, monkeypatch):
+    from torcheval_tpu_torch.resilience import restore, save
+    from torcheval_tpu_torch.resilience import snapshot as snap
+
+    source = _ckpt_pair(dev)
+    _ckpt_feed(source, dev, 1)
+    path = save(source, str(tmp_path))
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("placement refused")
+
+    monkeypatch.setattr(snap.torch, "empty", refuse)
+    target = _ckpt_pair(dev)
+    with pytest.raises(RuntimeError, match="placement refused"):
+        restore(target, path)
+    assert int(target["acc"].num_total) == 0  # nothing installed
+
+
+def test_restored_binary_auroc_compacts_on_the_card(dev, tmp_path):
+    from torcheval_tpu_torch.resilience import restore, save
+
+    source = _ckpt_pair(dev)
+    _ckpt_feed(source, dev, 2)
+    target = restore(_ckpt_pair(dev), save(source, str(tmp_path)))
+    before = stream_compact.launches
+    for pair in (source, target):
+        _ckpt_feed(pair, dev, 2, seed=1)
+        pair["auroc"].compute()
+    torch.cuda.synchronize()
+    assert stream_compact.launches >= before + 2
+    _same_states(_ckpt_states(target), _ckpt_states(source))
+    assert torch.equal(target["auroc"].compute(), source["auroc"].compute())

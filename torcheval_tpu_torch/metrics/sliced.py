@@ -437,6 +437,12 @@ class _SlicedMemberBase(DeferredFoldMixin, Metric):
         self._add_state("slice_ids_hi", torch.zeros(cap, dtype=torch.int32), reduction=Reduction.NONE)
         self._add_state("slice_ids_lo", torch.zeros(cap, dtype=torch.int32), reduction=Reduction.NONE)
         self._add_state("slice_count", torch.zeros((), dtype=torch.int32), reduction=Reduction.NONE)
+        # the checkpoint restore's contract (resilience/snapshot.py): these
+        # states' leading dim is the capacity, which differs between a fresh
+        # member and a grown checkpoint; their trailing dims must match
+        self._lead_resizable_states = frozenset(
+            self._sliced_state_names + ("slice_ids_hi", "slice_ids_lo")
+        )
 
     # ------------------------------------------------------------- re-size
     def _refit_params(self) -> None:
@@ -655,6 +661,7 @@ class _SlicedFoldMember(_SlicedMemberBase):
     def __init__(self, template: Metric, table: SliceTable, shard: Optional[MeshAxis] = None) -> None:
         super().__init__(table, device=template.device, shard=shard)
         tcls = type(template)
+        self._template_cls = tcls.__qualname__
         self._base_fold = tcls._fold_fn
         self._base_fold_params = tuple(template._fold_params)
         self._base_compute = tcls._compute_fn
@@ -679,6 +686,15 @@ class _SlicedFoldMember(_SlicedMemberBase):
             self._base_compute_params,
             len(self._sliced_state_names),
         )
+
+    @property
+    def _sync_schema_extra(self) -> Tuple:
+        # the JAX package's tuple, so that a checkpoint's schema digest
+        # matches across the packages: replicas of another template or
+        # configuration cannot add rows; the capacity is not in it (ragged
+        # per-rank cohort populations still match: alignment follows the
+        # gather)
+        return ("sliced", self._template_cls) + self._base_fold_params
 
     def _update_check(self, rows, *args) -> None:
         _check_rows_column(rows, args)
@@ -758,9 +774,10 @@ class _SlicedScoreSketchMember(_SlicedMemberBase):
         self._compute_params = (self._bits, self._kind)
 
     @property
-    def _sync_schema_extra(self):
-        # replicas with another template or width cannot add their buckets
-        return (self._template_cls, self._bits)
+    def _sync_schema_extra(self) -> Tuple:
+        # the JAX package's tuple: replicas with another template or width
+        # cannot add their buckets; the capacity is not in it
+        return ("sliced", self._template_cls, self._bits)
 
     def _update_check(self, rows, *args) -> None:
         _check_rows_column(rows, args)

@@ -61,10 +61,12 @@ host copy of the entry (what the gloo round stages anyway); under NCCL the
 encoded bytes travel as a uint8 tensor on the card, and each encoded
 entry is decoded on the host.
 
-The JAX package's observability spans and fault-injection hook are not
-ported; the rounds, their payload bytes and their seconds are counted in
+The JAX package's observability spans are not ported; the rounds, their
+payload bytes and their seconds are counted in
 ``_allgather_stacked.rounds``, ``.payload_bytes`` and ``.seconds``
-instead.
+instead. Its fault-injection hook is (``resilience/chaos.py``, called at
+the top of :func:`_allgather_stacked`), so ``TORCHEVAL_TPU_CHAOS_ROUND=3``
+means "entering the second sync's descriptor round" in both packages.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ import torch.distributed as dist
 
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, TState
+from torcheval_tpu_torch.resilience import chaos as _chaos
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils import quant as _quant
 from torcheval_tpu_torch.utils.devices import DeviceLike
@@ -433,7 +436,11 @@ def _allgather_stacked(
     """``(n_members, *x.shape)``: every member's ``x`` in group order, on the
     collective device. Every typed round goes through here, which counts
     it (``rounds``, the local ``payload_bytes``, wall ``seconds``) and runs
-    it under the active deadline."""
+    it under the active deadline. The env-gated fault-injection hook
+    (``resilience/chaos.py``) runs first: it counts rounds here and can kill
+    or delay this process at a chosen round (a ``sync_and_compute`` is two
+    rounds); disarmed, it costs one cached-config check."""
+    _chaos.on_sync_round()
     t0 = time.perf_counter()
     pg = _torch_group(group)
     out = _run_guarded(lambda: _dist.all_gather_stacked(x, pg), round_label, lane)

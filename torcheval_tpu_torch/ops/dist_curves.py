@@ -204,7 +204,11 @@ def _q8_blocks(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     length divides into blocks (``utils/quant.py::q8_parts`` on the
     device): ``(scales, int8 values)``."""
     b = x.reshape(-1, Q8_BLOCK)
-    scales = b.abs().amax(dim=1) / 127.0
+    amax = b.abs().amax(dim=1)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which can differ from the host codec's quotient in
+    # the last place, and then a value's int8 rounding with it
+    scales = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scales == 0.0, 1.0, scales)
     q = torch.clamp(torch.round(b / safe[:, None]), -127, 127).to(torch.int8)
     return scales, q.reshape(-1)
