@@ -43,6 +43,25 @@ failed check. Phases:
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` over 16 chunks of 2^24
    predictions, checked against an uncompacted ``BinaryAUROC`` and a direct
    count, plus a small stream checked against float64 numpy references;
+   the obs registry (``torcheval_tpu_torch.obs``) is on from phase 2 to the
+   end of phase 4, every launch, fold and round being read from it, and is
+   reset just before the headline leg; then the obs phase, on phase 3's
+   chunks: (a) the headline and the small-batch leg (from their own seed)
+   3 times with obs off and 3 times on, alternating, values equal bit for
+   bit, the median rates and their ratio printed; (b) one enabled headline
+   run: 16 ``metric.update`` spans and one ``metric.compute`` span a metric,
+   the launches against the C entry points' calls and phase 3's counts, at
+   most 2 first sights an entry and no storm warning, the compaction's
+   ``obs.cost.bytes_accessed`` equal to phase 5's byte count (the
+   histogram's is checked after the macro leg), a Chrome trace that parses
+   with nested spans, Prometheus sample lines in the exposition format;
+   (c) one enabled run under ``torch.profiler``: every histogram and
+   compaction kernel launched inside a ``metric.*``, ``collection.*`` or
+   ``jit/<entry>`` range, device ms by range printed; (d) in the
+   data-parallel leg, each rank's ``obs.sync_snapshot(timeout_s=30)`` (one
+   round, merged counters equal to the sum of the ranks', rank-labelled
+   gauges) and rank 0's ``MetricsServer`` (``GET /metrics`` equal to
+   ``prometheus_text()``, ``GET /health``);
    approximate headline leg (phase 4, on phase 3's data):
    ``BinaryAUROC(approx=True)``, ``BinaryAUPRC(approx=True)`` and
    ``Quantile(q=(0.5, 0.9, 0.99))`` over the same binary logits, the
@@ -159,8 +178,8 @@ failed check. Phases:
    ``torch.bincount``'s and the sketch AUROC equal in both, the calibration
    within ``max|block| / 254`` a rank, two rounds each, the rounds' payload
    bytes and seconds printed;
-   resilience phase (``torcheval_tpu_torch.resilience``, with the obs
-   registry on for it alone; checkpoints under a ``tempfile.mkdtemp()``
+   resilience phase (``torcheval_tpu_torch.resilience``; checkpoints
+   under a ``tempfile.mkdtemp()``
    directory, its disk usage printed first, removed at the end): (a) right
    after phase 3, on its chunks: ``MulticlassAccuracy(num_classes=5)`` and
    ``BinaryAUROC(compaction_threshold=6 * 2**24)`` saved after chunks 4 and
@@ -185,8 +204,9 @@ failed check. Phases:
    data-parallel leg's gate. Each part prints its checkpoint bytes, save
    and restore seconds (the ``resilience.checkpoint`` spans), GB/s and
    kernel launches;
-5. one JSON line per the kernels: launches on the main path (phases 3 and
-   4, the data-parallel ranks' included), time per launch, the plain
+5. with obs off, one JSON line per the kernels: launches on the main path
+   (phases 3 and 4, the data-parallel ranks' included; each kernel's
+   ``jit.calls{entry=}``), time per launch, the plain
    version's and a library call's time, and the least time the card could
    take (its bound); the segment sum also at the sliced leg's window and
    the binned curve's; ``hist_c2``, the histogram at config 3's 10^6 bins
@@ -212,13 +232,16 @@ from __future__ import annotations
 
 import atexit
 import json
+import logging
 import os
+import re
 import shutil
 import socket
 import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -316,17 +339,45 @@ def _close(a: float, b: float) -> bool:
 
 
 def fold_counts():
-    """The deferred folds' counters: window steps, those that folded
-    batches, their batches, solo and group folds, their batches (zeros for
-    a package without windows)."""
-    from torcheval_tpu_torch.metrics import deferred
+    """The deferred folds' counters, from the obs registry: window steps,
+    those that folded batches, their batches, solo and group folds, their
+    batches."""
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, folding_window_steps
 
-    ws = getattr(deferred, "window_step", None)
-    fp = getattr(deferred, "fold_pending", None)
     return (
-        getattr(ws, "calls", 0), getattr(ws, "windows", 0), getattr(ws, "batches", 0),
-        getattr(fp, "calls", 0), getattr(fp, "chunks", 0),
+        int(count("deferred.window_steps")), folding_window_steps(),
+        int(count("deferred.window_step_batches")), int(count("deferred.folds")),
+        int(count("deferred.folded_chunks")),
     )
+
+
+class _KernelCounts:
+    """Each hand kernel's launches since its count was last set to 0, read
+    from the obs registry (the kernel's ``jit.calls{entry=}``, which its
+    wrapper counts where it launches). ``K.hist = 0`` zeroes one count;
+    ``K.hist`` reads it. A registry reset zeroes every count."""
+
+    def __init__(self):
+        object.__setattr__(self, "_base", {})
+
+    @staticmethod
+    def _now(entry):
+        from torcheval_tpu_torch import obs
+        from torcheval_tpu_torch.utils.test_utils.obs_counts import launches
+
+        return obs.default_registry._generation, launches(entry)
+
+    def __getattr__(self, entry):
+        gen, n = self._now(entry)
+        base_gen, base = self._base.get(entry, (gen, 0))
+        return n - base if base_gen == gen else n
+
+    def __setattr__(self, entry, value):
+        _require(value == 0, "a launch count is set to 0 only")
+        self._base[entry] = self._now(entry)
+
+
+K = _KernelCounts()
 
 
 def cadence(before) -> dict:
@@ -346,9 +397,9 @@ def cadence_text(c: dict) -> str:
 class record_sketch_folds:
     """Context manager: every segment-sum launch of the sketch folds
     (``sketch/histogram.py`` and ``sketch/cache.py``) while it is open, as
-    ``(N, D, segments)``. A call is recorded only where the wrapper's own
-    ``segment_sum.launches`` rose across it: a call that ran the plain
-    version or returned early is no launch."""
+    ``(N, D, segments)``. A call is recorded only where the kernel's launch
+    count (``jit.calls{entry=segment_sum}``) rose across it: a call that ran
+    the plain version or returned early is no launch."""
 
     def __enter__(self):
         from torcheval_tpu_torch.sketch import cache, histogram
@@ -359,9 +410,9 @@ class record_sketch_folds:
         real = self.saved[0]
 
         def counted(vals, rows, num_segments):
-            before = real.launches
+            before = K.segment_sum
             out = real(vals, rows, num_segments)
-            if real.launches > before:
+            if K.segment_sum > before:
                 d = 1 if vals.ndim == 1 else int(np.prod(vals.shape[1:]))
                 self.shapes.append((int(vals.shape[0]), d, int(num_segments)))
             return out
@@ -987,6 +1038,224 @@ def small_reference_check(dev):
     for name, (got, want) in checks.items():
         _require(np.isfinite(got) and _close(got, want), f"small {name}: {got} vs {want}")
         print(f"  small stream {name}: {got:.8f} vs float64 numpy {want:.8f}")
+
+
+# ------------------------------------------------ the obs phase
+OBS_RUNS = 3
+# the obs phase's small-batch data comes from its own seed: the legs after
+# it keep the batches phase 4 has always made
+OBS_SMALL_SEED = SEED + 1400
+# a Prometheus text-format sample line: name, optional labels, one value
+_PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+    r'(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*"(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\\n]|\\.)*")*\})?'
+    r' (?:[-+]?(?:\d+\.?\d*(?:e[-+]?\d+)?|\.\d+(?:e[-+]?\d+)?|Inf|NaN))$')
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def obs_on_off(dev, chunks, want, small):
+    """(a) The headline run ``OBS_RUNS`` times with obs off and as often on,
+    alternating, timed with CUDA events: both values equal phase 3's bit
+    for bit in every run; then the same for the small-batch leg (its values
+    equal in every run). Returns the preds/s (rows/s) of each."""
+    from torcheval_tpu_torch import obs
+
+    total = HEADLINE_CHUNKS * HEADLINE_CHUNK
+    n_small = SMALL_BATCHES * SMALL_ROWS
+    rates = {"headline": {False: [], True: []}, "small": {False: [], True: []}}
+    small_batch_leg(dev, small)  # warm-up
+    small_want = None
+    try:
+        for i in range(2 * OBS_RUNS):
+            on = bool(i % 2)
+            (obs.enable if on else obs.disable)()
+            acc, acc_v, auroc_v, seconds, _, _ = headline_leg(dev, chunks)
+            del acc
+            _require((acc_v, auroc_v) == want,
+                     f"(a) obs {'on' if on else 'off'}: accuracy and AUROC {(acc_v, auroc_v)} equal "
+                     f"phase 3's {want} bit for bit")
+            rates["headline"][on].append(total / seconds)
+        for i in range(2 * OBS_RUNS):
+            on = bool(i % 2)
+            (obs.enable if on else obs.disable)()
+            col, out, seconds, _ = small_batch_leg(dev, small)
+            got = (float(out["accuracy"]), float(out["f1_macro"]))
+            small_want = small_want or got
+            _require(got == small_want, f"(a) small-batch values {got} equal {small_want} bit for bit")
+            rates["small"][on].append(n_small / seconds)
+            del col, out
+    finally:
+        obs.enable()
+    return rates
+
+
+class _CountedEntries:
+    """Context manager: the calls of the kernels' C entry points (an
+    independent count of launches, below the wrappers) and each compaction
+    launch's row count."""
+
+    NAMES = ("tc_hist_i32", "tc_hist_i64", "tc_stream_compact")
+
+    def __enter__(self):
+        from torcheval_tpu_torch import _build
+
+        self.lib = _build.library()
+        self.calls = {n: 0 for n in self.NAMES}
+        self.compact_rows = []
+        self.saved = {n: getattr(self.lib, n) for n in self.NAMES}
+
+        def counting(name, fn):
+            def call(*args):
+                self.calls[name] += 1
+                if name == "tc_stream_compact":
+                    self.compact_rows.append(int(args[1]))
+                return fn(*args)
+
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(self.lib, n, counting(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.lib, n, fn)
+        return False
+
+
+class _Warnings(logging.Handler):
+    """The warnings the telemetry logger emits while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def obs_registry_check(dev, chunks, want, headline_launches):
+    """(b) What the registry holds after one enabled headline run (reset
+    first): the per-metric spans, the launches (against the C entry points'
+    calls and phase 3's counts), the watchdog's first sights and no storm,
+    the compaction's cost gauge against phase 5's byte count, a Chrome trace
+    that parses with nested spans, and Prometheus text in the exposition
+    format."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, parse_key
+
+    obs.reset()
+    logger = logging.getLogger("torcheval_tpu_torch.api_usage")
+    warned = _Warnings()
+    logger.addHandler(warned)
+    try:
+        with _CountedEntries() as entries:
+            acc, acc_v, auroc_v, _, _, _ = headline_leg(dev, chunks)
+    finally:
+        logger.removeHandler(warned)
+    del acc
+    _require((acc_v, auroc_v) == want, "(b) the enabled run's values equal phase 3's")
+    snap = obs.snapshot()
+    spans = snap["spans"]
+    for cls in ("MulticlassAccuracy", "BinaryAUROC"):
+        n_update = spans.get(f"metric.update/{cls}", {}).get("count", 0)
+        n_compute = spans.get(f"metric.compute/{cls}", {}).get("count", 0)
+        _require(n_update == HEADLINE_CHUNKS and n_compute == 1,
+                 f"(b) {cls}: {n_update} update spans (want {HEADLINE_CHUNKS}), {n_compute} compute")
+    c_hist = entries.calls["tc_hist_i32"] + entries.calls["tc_hist_i64"]
+    got = {"hist": launches("hist", snap), "stream_compact": launches("stream_compact", snap),
+           "compact_summary_rows": int(count("jit.calls", snap, entry="compact_summary_rows"))}
+    _require(got["hist"] == c_hist == headline_launches["hist"],
+             f"(b) jit.calls{{entry=hist}} {got['hist']}, C entry calls {c_hist}, phase 3 "
+             f"{headline_launches['hist']}")
+    _require(got["compact_summary_rows"] == 2
+             and got["stream_compact"] == entries.calls["tc_stream_compact"] == 2,
+             f"(b) the headline's two compactions: {got}, C entry calls {entries.calls}")
+    traces = {parse_key(k)[1]["entry"]: int(v) for k, v in snap["counters"].items()
+              if parse_key(k)[0] == "recompile.traces"}
+    _require(traces and max(traces.values()) <= 2, f"(b) at most 2 first sights an entry: {traces}")
+    storms = [m for m in warned.messages if "Retrace storm" in m]
+    _require(not storms, f"(b) no storm warning: {storms}")
+    n = entries.compact_rows[-1]
+    compact_bytes = n * (1 + 3 * 4 + 3 * 4) + 4  # phase 5's byte count, a bool mask
+    gauges = snap["gauges"]
+    for entry in ("compact_summary_rows", "stream_compact"):
+        g = gauges.get(f"obs.cost.bytes_accessed{{entry={entry}}}")
+        _require(g == compact_bytes, f"(b) obs.cost.bytes_accessed{{entry={entry}}} {g} vs {compact_bytes}")
+    trace = json.loads(obs.chrome_trace())
+    spans_x = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    inner = [e for e in spans_x if e["name"] == "metric.update/BinaryAUROC/jit/compact_summary_rows"]
+    outer = [e for e in spans_x if e["name"] == "metric.update/BinaryAUROC"]
+    _require(len(inner) == 2 and all(
+        any(o["tid"] == e["tid"] and o["ts"] <= e["ts"] and e["ts"] + e["dur"] <= o["ts"] + o["dur"]
+            for o in outer) for e in inner),
+        f"(b) the compaction spans nest inside BinaryAUROC's update spans ({len(inner)} of them)")
+    text = obs.prometheus_text()
+    samples = [line for line in text.splitlines() if line and not line.startswith("#")]
+    bad = [line for line in samples if not _PROM_SAMPLE.match(line)]
+    _require(samples and not bad, f"(b) Prometheus sample lines in the exposition format: {bad[:3]}")
+    return {"spans": len(spans), "launches": got, "c_entry_calls": dict(entries.calls),
+            "compact_rows": list(entries.compact_rows), "traces": traces,
+            "compact_bytes": compact_bytes, "trace_events": len(trace["traceEvents"]),
+            "prometheus_lines": len(samples)}
+
+
+_RANGES = ("metric.", "collection.", "jit/")
+
+
+def obs_profile(dev, chunks):
+    """(c) One enabled headline run under ``torch.profiler`` (CUDA activity
+    on): every histogram and compaction kernel was launched (its CUDA
+    runtime call, matched by correlation id) inside a ``metric.*``,
+    ``collection.*`` or ``jit/<entry>`` range; device ms of the kernels,
+    copies and fills by the outermost such range (per metric) and by the
+    innermost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        acc, *_ = headline_leg(dev, chunks)
+        del acc
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = [e for e in events if e.device_type == cpu and e.name.startswith(_RANGES)]
+    # a device event and the runtime call that enqueued it share an id
+    calls = {e.id: e.time_range.start for e in events
+             if e.device_type == cpu and e.name.startswith("cu")}
+    watched = ("hist_kernel", "compact_kernel")
+    outer_ms, inner_ms, unranged = defaultdict(float), defaultdict(float), defaultdict(float)
+    kernels, outside, device_ms = 0, [], 0.0
+    for d in events:
+        # the profiler mirrors each range onto the device timeline under the
+        # range's own name (a span over its kernels): not work of its own
+        if d.device_type != cuda or d.name.startswith(_RANGES):
+            continue
+        ms = d.time_range.elapsed_us() / 1e3
+        device_ms += ms
+        t = calls.get(d.id)
+        around = [] if t is None else sorted(
+            (r for r in ranges if r.time_range.start <= t <= r.time_range.end),
+            key=lambda r: r.time_range.elapsed_us())
+        if around:
+            inner_ms[around[0].name] += ms
+            outer_ms[around[-1].name] += ms
+        else:
+            inner_ms["(no range)"] += ms
+            outer_ms["(no range)"] += ms
+            key = d.name[:48] + ("" if t is not None else " (no runtime call found)")
+            unranged[key] += ms
+        if any(w in d.name for w in watched):
+            kernels += 1
+            if not around:
+                outside.append(d.name[:60])
+    _require(kernels >= 2 and not outside,
+             f"(c) {kernels - len(outside)} of {kernels} hist/compaction kernels launched inside a "
+             f"metric, collection or jit range; outside: {outside[:3]}")
+    top = sorted(unranged.items(), key=lambda kv: -kv[1])[:6]
+    return {"kernels": kernels, "outer_ms": dict(outer_ms), "inner_ms": dict(inner_ms),
+            "device_ms": device_ms, "unranged": {k: round(v, 3) for k, v in top}}
 
 
 # ------------------------------------------------ phase 4, approximate legs
@@ -1964,17 +2233,47 @@ def dp_chunk(dev, i):
     return scores, labels, logits, (labels == 0).to(torch.float32)
 
 
+def _wire():
+    """The toolkit's sync counters so far: rounds, payload bytes sent and
+    the rounds' seconds (the ``toolkit.sync.round_seconds`` histograms)."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, parse_key
+
+    snap = obs.snapshot()
+    seconds = sum(h["sum"] for k, h in snap["histograms"].items()
+                  if parse_key(k)[0] == "toolkit.sync.round_seconds")
+    return {"rounds": int(count("toolkit.sync.rounds", snap)),
+            "payload_bytes": int(count("toolkit.sync.payload_bytes", snap)), "seconds": seconds}
+
+
+def _wire_since(mark):
+    return {k: v - mark[k] for k, v in _wire().items()}
+
+
+def _routes_since(counters0) -> dict:
+    """``{"path/family": n}``: the curve metrics' routes counted
+    (``ops.dist_curves.calls``) since the counters ``counters0``."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import parse_key
+
+    out = {}
+    for key, n in obs.snapshot()["counters"].items():
+        name, labels = parse_key(key)
+        if name == "ops.dist_curves.calls" and n != counters0.get(key, 0.0):
+            out[f"{labels['path']}/{labels['family']}"] = int(n - counters0.get(key, 0.0))
+    return out
+
+
 def dp_worker(rank: int, port: str) -> int:
     """One rank of the data-parallel leg (``chip_smoke.py --dp-rank R
     PORT``): its block of the chunks through two ``ShardedEvaluator``s on
     ``cuda:0``, synced over gloo; prints one ``DP_RESULT`` JSON line."""
     import torch.distributed as dist
 
+    from torcheval_tpu_torch import obs
     from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy, MulticlassF1Score
     from torcheval_tpu_torch.metrics import toolkit
     from torcheval_tpu_torch.ops import stream_compact as stream_compact_module
-    from torcheval_tpu_torch.ops.hist import hist
-    from torcheval_tpu_torch.ops.stream_compact import stream_compact
     from torcheval_tpu_torch.parallel import (
         ShardedEvaluator,
         data_parallel_mesh,
@@ -1984,6 +2283,7 @@ def dp_worker(rank: int, port: str) -> int:
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DP_RANKS),
                       RANK=str(rank), LOCAL_RANK="0")
+    obs.enable()  # every count this rank reports is the registry's
     _require(init_from_env(backend="gloo") == (rank, DP_RANKS), "data-parallel rank joined")
     mesh = data_parallel_mesh()
     dev = mesh.device
@@ -2014,10 +2314,9 @@ def dp_worker(rank: int, port: str) -> int:
     stream_compact_module.compact_summary_rows = recording_compact
     torch.cuda.synchronize()
     dist.barrier()
-    hist.launches = 0
-    stream_compact.launches = 0
-    wire = toolkit._allgather_stacked
-    wire.rounds, wire.payload_bytes, wire.seconds = 0, 0, 0.0
+    K.hist = 0
+    K.stream_compact = 0
+    wire0 = _wire()
     folds0 = fold_counts()
     t0 = time.perf_counter()
     for scores, labels, logits, binary in chunks:
@@ -2039,21 +2338,80 @@ def dp_worker(rank: int, port: str) -> int:
         "accuracy": float(results["accuracy"]),
         "f1_macro": float(results["f1_macro"]),
         "auroc": auroc_v,
-        "hist_launches": hist.launches,
-        "stream_compact_launches": stream_compact.launches,
+        "hist_launches": K.hist,
+        "stream_compact_launches": K.stream_compact,
         "fold_rows": fold_rows,
-        "sync_rounds": wire.rounds,
-        "sync_payload_bytes": wire.payload_bytes,
-        "sync_seconds": wire.seconds,
+        **{f"sync_{k}": v for k, v in _wire_since(wire0).items()},
         "cadence": cadence(folds0),
     }
     # the synced counts, for the exact check (two more small syncs)
     for name in ("accuracy", "f1_macro"):
         sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
         out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
+    out["obs"] = dp_obs_snapshot(rank)
     shutdown()
     print("DP_RESULT " + json.dumps(out), flush=True)
     return 0
+
+
+def check_dp_obs(ranks) -> dict:
+    """The obs phase's part (d) gates over both ranks' ``DP_RESULT``s."""
+    summed = defaultdict(float)
+    for res in ranks:
+        for k, v in res["obs"]["local_counters"].items():
+            summed[k] += v
+    for res in ranks:
+        o, r = res["obs"], res["rank"]
+        _require(o["extra_rounds"] == 1, f"(d) rank {r}: sync_snapshot took {o['extra_rounds']} rounds")
+        _require(o["world"] == DP_RANKS and o["ranks"] == list(range(DP_RANKS)) and not o["degraded"]
+                 and not o["truncated_ranks"], f"(d) rank {r}: a whole view {o['ranks']}")
+        _require(o["merged_counters"] == dict(summed),
+                 f"(d) rank {r}: merged counters equal the sum of the ranks' local snapshots")
+        _require(o["merged_gauges"] and all("rank=" in g for g in o["merged_gauges"]),
+                 f"(d) rank {r}: every merged gauge carries rank=")
+    o = ranks[0]["obs"]
+    _require(o["metrics_equal"] and o["metrics_type"].startswith("text/plain"),
+             "(d) GET /metrics answers prometheus_text()'s bytes")
+    _require(o["health"] == {"ok": True}, f"(d) GET /health answers {o['health']}")
+    return o
+
+
+def dp_obs_snapshot(rank: int) -> dict:
+    """The obs phase's part (d), on a data-parallel rank after its synced
+    computes: ``obs.sync_snapshot(timeout_s=30)`` merges both ranks'
+    registries in one round; rank 0 also serves ``GET /metrics`` and
+    ``GET /health`` from a ``MetricsServer`` on an ephemeral port."""
+    import urllib.request
+
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, rounds
+
+    local = obs.snapshot()
+    r0, b0 = rounds(), count("toolkit.sync.payload_bytes")
+    t0 = time.perf_counter()
+    merged = obs.sync_snapshot(timeout_s=30)
+    res = {"seconds": time.perf_counter() - t0, "extra_rounds": rounds() - r0,
+           "buffer_bytes": int(count("toolkit.sync.payload_bytes") - b0),
+           "local_counters": local["counters"], "merged_counters": merged["counters"],
+           "merged_gauges": sorted(merged["gauges"]), "world": merged["world_size"],
+           "ranks": merged["ranks"], "degraded": merged["degraded"],
+           "truncated_ranks": merged["truncated_ranks"], "merged_events": len(merged["events"])}
+    if rank == 0:
+        srv = obs.MetricsServer(port=0).start()
+        try:
+            base = f"http://127.0.0.1:{srv.port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                body, ctype = r.read(), r.headers.get("Content-Type", "")
+            text = obs.prometheus_text().encode()
+            with urllib.request.urlopen(base + "/health", timeout=30) as r:
+                health = json.loads(r.read())
+        finally:
+            srv.close()
+        res["metrics_equal"] = body == text
+        res["metrics_bytes"] = len(body)
+        res["metrics_type"] = ctype
+        res["health"] = health
+    return res
 
 
 def run_ranks(flag, ranks, timeout_s, extra=(), env_extra=None, expect=None):
@@ -2179,8 +2537,9 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    from torcheval_tpu_torch import obs
     from torcheval_tpu_torch.metrics import NDCG
-    from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain, sharded_segment_sum
+    from torcheval_tpu_torch.ops.scatter import segment_sum_plain, sharded_segment_sum
     from torcheval_tpu_torch.ops.topk import sharded_label_topk, sharded_topk_kernel, topk_kernel
     from torcheval_tpu_torch.parallel import (
         block_bounds,
@@ -2193,6 +2552,7 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(SHARD_RANKS),
                       RANK=str(rank), LOCAL_RANK="0")
+    obs.enable()  # every count this rank reports is the registry's
     _require(init_from_env(backend="gloo") == (rank, SHARD_RANKS), "sharded rank joined")
     dev = torch.device("cuda", 0)
     label_mesh = init_device_mesh("cuda", (SHARD_RANKS,), mesh_dim_names=("label",))
@@ -2215,7 +2575,7 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
     torch.cuda.synchronize()
     dist.barrier()
     for k in RETRIEVAL_KS:
-        topk_kernel.launches = 0
+        K.topk_kernel = 0
         mark = _collectives()
         folds0 = fold_counts()
         t0 = time.perf_counter()
@@ -2225,7 +2585,7 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
         value = float(ndcg.compute())
         seconds = time.perf_counter() - t0
         out["retrieval"][str(k)] = {"value": value, "num_valid": int(ndcg.num_valid),
-                                    "seconds": seconds, "topk_launches": topk_kernel.launches,
+                                    "seconds": seconds, "topk_launches": K.topk_kernel,
                                     "cadence": cadence(folds0), **_since(mark)}
     for k in RETRIEVAL_KS:
         for b, (ts, _) in enumerate(tiles):
@@ -2234,13 +2594,13 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
                      f"rank {rank}: merged top-{k} indices of batch {b} equal the one-process top-k")
     # --- the row-sharded top-k: this rank's rows of each batch, no collective
     lo, hi = block_bounds(RETRIEVAL_ROWS, SHARD_RANKS, rank)
-    topk_kernel.launches = 0
+    K.topk_kernel = 0
     mark = _collectives()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = [sharded_topk_kernel(blk, RETRIEVAL_KS[-1])[1] for blk in blocks]
     torch.cuda.synchronize()
-    out["row_topk"] = {"seconds": time.perf_counter() - t0, "topk_launches": topk_kernel.launches,
+    out["row_topk"] = {"seconds": time.perf_counter() - t0, "topk_launches": K.topk_kernel,
                        **_since(mark)}
     for b, idx in enumerate(got):
         _require(torch.equal(idx, want[RETRIEVAL_KS[-1]][b][lo:hi]),
@@ -2254,13 +2614,13 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
     sliced_epoch(dev, data, *sliced_setup(dev, data, **mesh_kw))  # warm-up
     acc, agg = sliced_setup(dev, data, **mesh_kw)
     dist.barrier()
-    segment_sum.launches = 0
+    K.segment_sum = 0
     mark = _collectives()
     folds0 = fold_counts()
     with record_sketch_folds() as rec:
         results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
     out["sliced"] = {"seconds": sliced_s, "wall_seconds": sliced_wall, "peak_bytes": sliced_peak,
-                     "segment_sum_launches": segment_sum.launches, "cadence": cadence(folds0),
+                     "segment_sum_launches": K.segment_sum, "cadence": cadence(folds0),
                      "sketch_folds": rec.count(n=SLICED_BATCHES * SLICED_ROWS,
                                                segments=SHARD_COHORTS * SLICED_PLANES),
                      **_since(mark)}
@@ -2285,14 +2645,14 @@ def shard_worker(rank: int, port: str, outdir: str) -> int:
     correct = ((data[1][window] >= 0.5).to(torch.float32) == data[2][window]).to(torch.int32)
     deltas = torch.stack([correct, torch.ones_like(correct)], dim=-1)
     lo, hi = block_bounds(rows.shape[0], SHARD_RANKS, rank)
-    segment_sum.launches = 0
+    K.segment_sum = 0
     mark = _collectives()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     total = sharded_segment_sum(deltas[lo:hi], rows[lo:hi], SLICED_COHORTS)
     torch.cuda.synchronize()
     out["sharded_segment_sum"] = {"seconds": time.perf_counter() - t0,
-                                  "segment_sum_launches": segment_sum.launches, **_since(mark)}
+                                  "segment_sum_launches": K.segment_sum, **_since(mark)}
     _require(torch.equal(total, segment_sum_plain(deltas, rows, SLICED_COHORTS)),
              f"rank {rank}: sharded segment sum equals the plain sum of the whole window")
     shutdown()
@@ -2388,6 +2748,8 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
     global sketch counts to ``OUTDIR/rank<R>_sketch.npz``."""
     import torch.distributed as dist
 
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
     from torcheval_tpu_torch.metrics import (
         BinaryAUPRC,
         BinaryAUROC,
@@ -2396,17 +2758,14 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
         toolkit,
     )
     from torcheval_tpu_torch.ops import dist_curves as dc
-    from torcheval_tpu_torch.ops.hist import hist
-    from torcheval_tpu_torch.ops.scatter import segment_sum
-    from torcheval_tpu_torch.ops.stream_compact import stream_compact
     from torcheval_tpu_torch.parallel import ShardedEvaluator, data_parallel_mesh, init_from_env, shutdown
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DIST_RANKS),
                       RANK=str(rank), LOCAL_RANK="0")
+    obs.enable()  # every count this rank reports is the registry's
     _require(init_from_env(backend="gloo") == (rank, DIST_RANKS), "distributed-curves rank joined")
     mesh = data_parallel_mesh()
     dev = mesh.device
-    wire = toolkit._allgather_stacked
     # where a distributed call's host seconds go: each collective of
     # ops/dist_curves.py timed between two synchronisations (the exchange
     # with its host staging); the rest is the rank's own device work. The
@@ -2425,7 +2784,6 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
                 reduces.append((t.numel() * t.element_size(), dt))
             return out
 
-        run.__dict__ = fn.__dict__  # the exchange's counters stay one object
         return run
 
     dc._all_reduce = timed("all_reduce", dc._all_reduce)
@@ -2451,10 +2809,9 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
         ev = ShardedEvaluator(members, mesh=mesh)
         torch.cuda.synchronize()
         dist.barrier()
-        hist.launches = segment_sum.launches = stream_compact.launches = 0
-        dc.record_call.calls = {}
-        dc.exchange_buckets.calls = dc.exchange_buckets.send_bytes = 0
-        rounds, mark = wire.rounds, _dist_collectives()
+        K.hist = K.segment_sum = K.stream_compact = 0
+        counters0 = obs.snapshot()["counters"]
+        wire0, mark = _wire(), _dist_collectives()
         reduces.clear()
         splitters.clear()
         spent.clear()
@@ -2470,11 +2827,12 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
         res = {
             "values": {k: v.double().reshape(-1).cpu().tolist() for k, v in out.items()},
             "update_seconds": t1 - t0, "compute_seconds": t2 - t1,
-            "routes": {f"{p}/{f}": n for (p, f), n in dc.record_call.calls.items()},
-            "gather_rounds": wire.rounds - rounds, "collectives": _dist_since(mark),
-            "exchange_send_bytes": dc.exchange_buckets.send_bytes,
-            "launches": {"hist": hist.launches, "segment_sum": segment_sum.launches,
-                         "stream_compact": stream_compact.launches},
+            "routes": _routes_since(counters0),
+            "gather_rounds": _wire_since(wire0)["rounds"], "collectives": _dist_since(mark),
+            "exchange_send_bytes": int(count("dist_curves.exchange_send_bytes")
+                                       - count("dist_curves.exchange_send_bytes", {"counters": counters0})),
+            "launches": {"hist": K.hist, "segment_sum": K.segment_sum,
+                         "stream_compact": K.stream_compact},
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "largest_all_reduce": max(reduces) if reduces else None,
             "splitter_rounds": list(splitters) if splitters else None,
@@ -2482,13 +2840,13 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
         }
         if gather:
             clones = {k: toolkit.clone_metric(m) for k, m in ev.metrics.items()}
-            rounds, mark = wire.rounds, _dist_collectives()
+            wire0, mark = _wire(), _dist_collectives()
             dist.barrier()
             t0 = time.perf_counter()
             got = toolkit.sync_and_compute_collection(clones, recipient_rank="all")
             torch.cuda.synchronize()
             res["gather"] = {
-                "compute_seconds": time.perf_counter() - t0, "rounds": wire.rounds - rounds,
+                "compute_seconds": time.perf_counter() - t0, "rounds": _wire_since(wire0)["rounds"],
                 "collectives": _dist_since(mark),
                 "values": {k: v.double().reshape(-1).cpu().tolist() for k, v in got.items()},
             }
@@ -2618,7 +2976,6 @@ def quantized_sync(dev, rank, outdir, toolkit):
         rounds_log.append((round_label, x.numel() * x.element_size(), time.perf_counter() - t0))
         return got
 
-    logged.__dict__ = inner.__dict__  # the counters stay one object
     toolkit._allgather_stacked = logged
     res, local = {}, {}
     try:
@@ -2815,7 +3172,7 @@ def nccl_world_of_one(dev, gen):
     counts run one histogram launch and one NCCL all_reduce there."""
     import torch.distributed as dist
 
-    from torcheval_tpu_torch.ops.hist import hist, hist_plain, sharded_class_counts
+    from torcheval_tpu_torch.ops.hist import hist_plain, sharded_class_counts
     from torcheval_tpu_torch.parallel import init_from_env, shutdown
 
     keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
@@ -2826,10 +3183,10 @@ def nccl_world_of_one(dev, gen):
         _require(init_from_env() == (0, 1), "NCCL world of one joined")
         _require(dist.get_backend() == "nccl", f"backend {dist.get_backend()} is nccl")
         labels = torch.randint(-3, HEADLINE_CLASSES + 3, (HEADLINE_CHUNK,), generator=gen, device=dev)
-        before = hist.launches
+        before = K.hist
         counts = sharded_class_counts(labels, HEADLINE_CLASSES)
         torch.cuda.synchronize()
-        launched = hist.launches - before
+        launched = K.hist - before
         _require(launched == 1, f"sharded class counts launched hist {launched} time(s)")
         _require(counts.device == dev and torch.equal(counts, hist_plain(labels, HEADLINE_CLASSES)),
                  "sharded class counts over NCCL equal the plain histogram")
@@ -2870,8 +3227,8 @@ def _words_digest(metrics) -> dict:
 
 class _Checkpoint:
     """Context manager timing one ``save``/``restore`` call by the obs
-    registry's own span and byte counter (the registry is on for the
-    resilience phase only)."""
+    registry's own span and byte counter (the registry is on in every
+    phase but phase 5)."""
 
     def __init__(self, span):
         self.span = span
@@ -2908,8 +3265,6 @@ def resilience_headline(dev, chunks, want_acc, want_auroc, root):
     fallback counted."""
     from torcheval_tpu_torch import obs
     from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAccuracy
-    from torcheval_tpu_torch.ops.hist import hist
-    from torcheval_tpu_torch.ops.stream_compact import stream_compact
     from torcheval_tpu_torch.resilience import chaos, list_checkpoints, restore, restore_latest_valid, save
 
     def pair():
@@ -2925,8 +3280,8 @@ def resilience_headline(dev, chunks, want_acc, want_auroc, root):
         return float(p["acc"].compute()), float(p["auroc"].compute())
 
     ckdir = os.path.join(root, "headline")
-    hist.launches = 0
-    stream_compact.launches = 0
+    K.hist = 0
+    K.stream_compact = 0
     first = pair()
     feed(first, chunks[:RES_FIRST_SAVE])
     with _Checkpoint("resilience.checkpoint.save") as early:
@@ -2942,15 +3297,15 @@ def resilience_headline(dev, chunks, want_acc, want_auroc, root):
     _require(_same_words(_state_words(resumed), at_save),
              "(a) every restored leaf equals the saved one as bytes")
     del at_save
-    before = {"hist": hist.launches, "stream_compact": stream_compact.launches}
-    hist.launches = 0
-    stream_compact.launches = 0
+    before = {"hist": K.hist, "stream_compact": K.stream_compact}
+    K.hist = 0
+    K.stream_compact = 0
     feed(resumed, chunks[RES_SAVE:])
     got = values(resumed)
     _require(got == (want_acc, want_auroc),
              f"(a) resumed accuracy and AUROC {got} equal phase 3's {(want_acc, want_auroc)} bit for bit")
     del resumed
-    after = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    after = {"hist": K.hist, "stream_compact": K.stream_compact}
     _require(after["stream_compact"] >= 1, "(a) stream_compact launched on the resumed stream")
 
     # (d) lineage fallback: the chaos hook's own flip, armed for this one call
@@ -2998,10 +3353,9 @@ def resilience_sliced(dev, data, want, root):
     ``RES_SLICED_BATCHES``: every integer lane and the maxima equal ``want``
     (the uninterrupted leg's states) exactly, the means within rtol 1e-5."""
     from torcheval_tpu_torch.metrics import BinaryAccuracy, BinaryAUROC, Max, Mean, SlicedMetricCollection
-    from torcheval_tpu_torch.ops.scatter import segment_sum
     from torcheval_tpu_torch.resilience import restore, save
 
-    segment_sum.launches = 0
+    K.segment_sum = 0
     acc, agg = sliced_setup(dev, data)
     for i in range(1, RES_SLICED_SAVE + 1):
         ids, s, t = _sliced_batch(data, i)
@@ -3026,7 +3380,7 @@ def resilience_sliced(dev, data, want, root):
         fresh_agg.update(ids, s)
     results = {**fresh_acc.compute(), **fresh_agg.compute()}
     torch.cuda.synchronize()
-    launches = segment_sum.launches
+    launches = K.segment_sum
     _require(launches > 0, "(b) segment_sum launched on the restored collections")
     _require(np.array_equal(results["acc"].slice_ids, want["ids"]), "(b) slice ids in first-seen order")
     n = len(want["ids"])
@@ -3077,14 +3431,15 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
     degraded ``DRILL_RESULT`` and leaves with ``os._exit(0)``. ``restart``:
     restore ``DIR/rank<R>``, feed chunks 3-4 of this rank and compute
     through the ``ShardedEvaluator``s, as ``dp_worker`` does."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, rounds
     from torcheval_tpu_torch.metrics import toolkit
-    from torcheval_tpu_torch.ops.hist import hist
-    from torcheval_tpu_torch.ops.stream_compact import stream_compact
     from torcheval_tpu_torch.parallel import ShardedEvaluator, data_parallel_mesh, init_from_env, shutdown
     from torcheval_tpu_torch.resilience import restore, save
 
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(DP_RANKS),
                       RANK=str(rank), LOCAL_RANK="0")
+    obs.enable()  # every count this rank reports is the registry's
     _require(init_from_env(backend="gloo") == (rank, DP_RANKS), "drill rank joined")
     mesh = data_parallel_mesh()
     dev = mesh.device
@@ -3100,8 +3455,8 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
             classification.update(scores, labels)
             auroc.update(logits, binary)
 
-    hist.launches = 0
-    stream_compact.launches = 0
+    K.hist = 0
+    K.stream_compact = 0
     ckpt = os.path.join(outdir, f"rank{rank}")
     if phase == "fault":
         feed(mine[:DRILL_PRE_CHUNKS])
@@ -3111,19 +3466,19 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
                                             timeout_s=DP_TIMEOUT_S)
         feed(mine[DRILL_PRE_CHUNKS:])
         torch.cuda.synchronize()
-        print("DRILL_PRE " + json.dumps({"rank": rank, "rounds": toolkit._allgather_stacked.rounds,
-                                         "hist_launches": hist.launches,
-                                         "stream_compact_launches": stream_compact.launches}), flush=True)
-        failures0 = toolkit._sync_failure.count
+        print("DRILL_PRE " + json.dumps({"rank": rank, "rounds": rounds(),
+                                         "hist_launches": K.hist,
+                                         "stream_compact_launches": K.stream_compact}), flush=True)
+        failures0 = count("toolkit.sync.timeouts")
         t0 = time.monotonic()
         got = toolkit.sync_and_compute_collection(held, recipient_rank="all", processes=mesh.processes,
                                                   timeout_s=DRILL_TIMEOUT_S, on_failure="local")
         elapsed = time.monotonic() - t0
         local = {k: m.compute() for k, m in held.items()}
-        out = {"rank": rank, "elapsed_s": elapsed, "failures": toolkit._sync_failure.count - failures0,
+        out = {"rank": rank, "elapsed_s": elapsed, "failures": int(count("toolkit.sync.timeouts") - failures0),
                "local": all(torch.equal(got[k], local[k]) for k in held),
                "values": {k: float(v) for k, v in got.items()},
-               "hist_launches": hist.launches, "stream_compact_launches": stream_compact.launches}
+               "hist_launches": K.hist, "stream_compact_launches": K.stream_compact}
         print("DRILL_RESULT " + json.dumps(out), flush=True)
         sys.stderr.flush()
         # the round thread may still be blocked on the dead peer: destroying
@@ -3134,8 +3489,8 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
     results = classification.compute()
     auroc_v = float(auroc.compute())
     out = {"rank": rank, "accuracy": float(results["accuracy"]), "f1_macro": float(results["f1_macro"]),
-           "auroc": auroc_v, "hist_launches": hist.launches,
-           "stream_compact_launches": stream_compact.launches}
+           "auroc": auroc_v, "hist_launches": K.hist,
+           "stream_compact_launches": K.stream_compact}
     for name in ("accuracy", "f1_macro"):
         sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
         out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
@@ -3665,11 +4020,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs one CUDA device.",
               file=sys.stderr)
         return 1
-    from torcheval_tpu_torch import _build
-    from torcheval_tpu_torch.ops.hist import hist
-    from torcheval_tpu_torch.ops.scatter import segment_sum
-    from torcheval_tpu_torch.ops.stream_compact import stream_compact
-    from torcheval_tpu_torch.ops.topk import topk_kernel
+    from torcheval_tpu_torch import _build, obs
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -3690,6 +4041,9 @@ def main() -> int:
     chunks = headline_data(dev, gen)
     fold_scores, fold_t, fold = first_fold_inputs(chunks)
 
+    # the obs registry counts every launch, fold and round from here on
+    # (phase 5 times its kernels with it off)
+    obs.enable()
     print("phase 2 kernels against their plain versions")
     errs = {"hist": check_hist(dev, gen), "stream_compact": check_compaction(dev, gen),
             "topk": check_topk(dev, gen), "segment_sum": check_segment_sum(dev)}
@@ -3703,14 +4057,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     print("phase 3 headline leg")
-    hist.launches = 0
-    stream_compact.launches = 0
+    obs.reset()  # every count 0 just before the main path
+    K.hist = 0
+    K.stream_compact = 0
     folds0 = fold_counts()
     acc, acc_v, auroc_v, seconds, host_seconds, peak = headline_leg(dev, chunks)
-    headline_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    headline_launches = {"hist": K.hist, "stream_compact": K.stream_compact}
     headline_cadence = cadence(folds0)
     total = HEADLINE_CHUNKS * HEADLINE_CHUNK
-    _require(stream_compact.launches >= 2, f"stream_compact launches {stream_compact.launches} >= 2")
+    _require(K.stream_compact >= 2, f"stream_compact launches {K.stream_compact} >= 2")
     correct, auroc_ref = headline_reference(dev, chunks)
     _require(int(acc.num_correct) == correct and int(acc.num_total) == total, "headline accuracy counts")
     _require(_close(acc_v, correct / total), "headline accuracy value")
@@ -3725,7 +4080,31 @@ def main() -> int:
     small_reference_check(dev)
     del acc
 
-    from torcheval_tpu_torch import obs
+    print("obs phase on phase 3's data (headline; small-batch leg from its own seed)")
+    small = small_batch_data(dev, torch.Generator(device=dev).manual_seed(OBS_SMALL_SEED))
+    rates = obs_on_off(dev, chunks, (acc_v, auroc_v), small)
+    del small
+    obs_ratios = {}
+    for leg, unit in (("headline", "preds/s"), ("small", "rows/s")):
+        off, on = _median(rates[leg][False]), _median(rates[leg][True])
+        obs_ratios[leg] = on / off
+        print(f"  (a) {leg}: median {off:.1f} {unit} with obs off, {on:.1f} with obs on: on/off "
+              f"{on / off:.4f} (runs off {[round(x, 1) for x in rates[leg][False]]}, on "
+              f"{[round(x, 1) for x in rates[leg][True]]}); values equal bit for bit in every run")
+    ob = obs_registry_check(dev, chunks, (acc_v, auroc_v), headline_launches)
+    print(f"  (b) one enabled run: {ob['spans']} span paths; launches {ob['launches']} (C entry calls "
+          f"{ob['c_entry_calls']}); first sights by entry {ob['traces']}, no storm warning; "
+          f"compactions at {ob['compact_rows']} rows, obs.cost.bytes_accessed {ob['compact_bytes']} B "
+          f"(phase 5's count); Chrome trace of {ob['trace_events']} events parses with nested spans; "
+          f"{ob['prometheus_lines']} Prometheus sample lines in the exposition format")
+    oc = obs_profile(dev, chunks)
+    print(f"  (c) under torch.profiler: {oc['kernels']} hist/compaction kernels, each inside a "
+          f"metric/collection/jit range; device {oc['device_ms']:.3f} ms in all")
+    print(f"  (c) device ms by metric (outermost range): "
+          f"{ {k: round(v, 3) for k, v in sorted(oc['outer_ms'].items(), key=lambda kv: -kv[1])} }")
+    print(f"  (c) device ms by innermost range: "
+          f"{ {k: round(v, 3) for k, v in sorted(oc['inner_ms'].items(), key=lambda kv: -kv[1])} }")
+    print(f"  (c) outside every range, the largest device events (information): {oc['unranged']}")
 
     # the resilience phase's checkpoints: removed at the end, or at exit
     res_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -3733,10 +4112,7 @@ def main() -> int:
     usage = shutil.disk_usage(res_root)
     print(f"resilience phase (a), (d) on phase 3's chunks, checkpoints under {res_root} (disk total "
           f"{usage.total} B, used {usage.used} B, free {usage.free} B)")
-    obs.reset()
-    obs.enable()
     ra = resilience_headline(dev, chunks, acc_v, auroc_v, res_root)
-    obs.disable()
     shutil.rmtree(os.path.join(res_root, "headline"))
     print(f"  (a) chunks 1-{RES_SAVE} saved ({ra['bytes']} B in {ra['save_s']:.4f} s, "
           f"{_rate(ra['bytes'], ra['save_s'])}; the chunk-{RES_FIRST_SAVE} generation {ra['early_bytes']} B "
@@ -3752,10 +4128,10 @@ def main() -> int:
 
     print("phase 4 approximate headline leg (phase 3's data)")
     approx_headline_leg(dev, chunks[:1])  # warm-up: the first use of each PyTorch kernel
-    segment_sum.launches = 0
+    K.segment_sum = 0
     with record_sketch_folds() as rec:
         metrics, values, ah_s, ah_host, ah_peak = approx_headline_leg(dev, chunks)
-    approx_headline_launches = segment_sum.launches
+    approx_headline_launches = K.segment_sum
     sketch_launches = {"binary": rec.count(n=HEADLINE_CHUNK, d=2, segments=1 << SKETCH_BITS),
                        "quantile": rec.count(n=QUANTILE_STACK * HEADLINE_CHUNK, d=1,
                                              segments=QUANTILE_STACK << SKETCH_BITS)}
@@ -3783,30 +4159,35 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 4 macro leg")
-    hist.launches = 0
-    stream_compact.launches = 0
+    K.hist = 0
+    K.stream_compact = 0
     folds0 = fold_counts()
     macro_v, update_ms = macro_leg(dev, gen)
-    macro_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    macro_launches = {"hist": K.hist, "stream_compact": K.stream_compact}
     macro_cadence = cadence(folds0)
-    _require(hist.launches > 0, "hist launched on the macro leg")
+    _require(K.hist > 0, "hist launched on the macro leg")
+    hist_bytes = MACRO_CHUNK * 8 + MACRO_CLASSES * 4  # phase 5's byte count at this shape
+    hist_gauge = obs.snapshot()["gauges"].get("obs.cost.bytes_accessed{entry=hist}")
+    _require(hist_gauge == hist_bytes,
+             f"(b) obs.cost.bytes_accessed{{entry=hist}} {hist_gauge} vs phase 5's {hist_bytes}")
     macro_total = MACRO_CHUNKS * MACRO_CHUNK
     print(f"  macro accuracy {macro_v:.8f} over {macro_total} rows (counts equal the plain "
           f"histogram); update time {update_ms:.3f} ms: {macro_total / update_ms * 1e3:.1f} "
-          f"preds/s; launches {macro_launches}")
+          f"preds/s; launches {macro_launches}; obs.cost.bytes_accessed{{entry=hist}} "
+          f"{hist_gauge:.0f} B, phase 5's count")
     print(f"  fold cadence: {cadence_text(macro_cadence)}")
 
     print("phase 4 small-batch leg (BASELINE config 1, with distinct batches)")
     batches = small_batch_data(dev, gen)
     small_batch_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
     small_batch_standalone(dev, batches)
-    hist.launches = 0
-    stream_compact.launches = 0
+    K.hist = 0
+    K.stream_compact = 0
     folds0 = fold_counts()
     col, out, small_s, small_host = small_batch_leg(dev, batches)
-    small_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches}
+    small_launches = {"hist": K.hist, "stream_compact": K.stream_compact}
     small_cadence = cadence(folds0)
-    _require(hist.launches > 0, "hist launched on the small-batch leg")
+    _require(K.hist > 0, "hist launched on the small-batch leg")
     small_acc, small_f1 = check_small_batch(col, out, batches)
     folds0 = fold_counts()
     alone_v, alone_s = small_batch_standalone(dev, batches)
@@ -3826,14 +4207,14 @@ def main() -> int:
     for collection in (True, False):  # warm-up: the first use of each PyTorch kernel
         cm_leg(dev, batches, collection)
     cm_total = CM_BATCHES * CM_ROWS
-    hist.launches = 0
+    K.hist = 0
     cm_launches = 0
     for collection, form in ((True, "MetricCollection (bench.py's _fused)"), (False, "standalone")):
-        before = hist.launches
+        before = K.hist
         folds0 = fold_counts()
         mat, f1_v, cm_s = cm_leg(dev, batches, collection)
         form_cadence = cadence(folds0)
-        launched = hist.launches - before
+        launched = K.hist - before
         _require(launched > 0, f"hist launched on the config-3 leg ({form})")
         cm_ref = check_cm_leg(batches, mat, f1_v)
         print(f"  {form}: confusion matrix (equal to torch.bincount's) and macro F1 {f1_v:.8f} "
@@ -3841,7 +4222,7 @@ def main() -> int:
               f"{cm_s:.6f} s (CUDA events): {cm_total / cm_s:.1f} preds/s; hist launches {launched}")
         print(f"  {form}: fold cadence: {cadence_text(form_cadence)}")
     info = cm_information(dev, batches, cm_ref)
-    cm_launches = hist.launches
+    cm_launches = K.hist
     print(f"  macro precision {info['precision']:.8f} and recall {info['recall']:.8f} on the same "
           f"batches (information; float64 from the matrix {cm_ref['precision']:.8f}, "
           f"{cm_ref['recall']:.8f}); hist launches over the leg {cm_launches}")
@@ -3853,13 +4234,13 @@ def main() -> int:
           f"{REC_WINDOW}; R2Score over {R2_BATCHES} x ({R2_ROWS}, {R2_OUTPUTS}))")
     batches = rec_leg_data(dev)
     rec_leg(dev, batches[:2])  # warm-up: the first use of each PyTorch kernel
-    launched0 = (hist.launches, segment_sum.launches, stream_compact.launches, topk_kernel.launches)
+    launched0 = (K.hist, K.segment_sum, K.stream_compact, K.topk_kernel)
     rec = rec_leg(dev, batches)
     rec_errs = check_rec_leg(rec, rec_reference(batches))
     del batches
     r2 = r2_leg(dev)
-    launched = [a - b for a, b in zip((hist.launches, segment_sum.launches, stream_compact.launches,
-                                       topk_kernel.launches), launched0)]
+    launched = [a - b for a, b in zip((K.hist, K.segment_sum, K.stream_compact,
+                                       K.topk_kernel), launched0)]
     print(f"  {rec['preds']} predictions in {rec['elapsed_s']:.6f} s (CUDA events; host "
           f"{rec['host_s']:.6f} s): Throughput {rec['rate']:.1f} preds/s; peak memory "
           f"{rec['peak_bytes'] / 2**30:.2f} GiB; windows hold {rec['windows']} batches")
@@ -3877,15 +4258,15 @@ def main() -> int:
     print(f"phase 4 ImageNet-val curve leg ({CURVE_BATCHES} x ({CURVE_ROWS}, {CURVE_CLASSES}) "
           f"softmax scores)")
     batches = curve_leg_data(dev, gen)
-    hist.launches = 0
-    stream_compact.launches = 0
-    segment_sum.launches = 0
+    K.hist = 0
+    K.stream_compact = 0
+    K.segment_sum = 0
     folds0 = fold_counts()
     binned, curve_out, curve_s, curve_peak, curve_folds = curve_leg(dev, batches)
-    curve_launches = {"hist": hist.launches, "stream_compact": stream_compact.launches,
-                      "segment_sum": segment_sum.launches}
+    curve_launches = {"hist": K.hist, "stream_compact": K.stream_compact,
+                      "segment_sum": K.segment_sum}
     curve_cadence = cadence(folds0)
-    _require(stream_compact.launches >= 4 and segment_sum.launches > 0,
+    _require(K.stream_compact >= 4 and K.segment_sum > 0,
              f"the curve leg launched stream_compact and segment_sum: {curve_launches}")
     worst = check_curve_leg(batches, binned, curve_out)
     points = check_exact_curve(batches)
@@ -3903,10 +4284,10 @@ def main() -> int:
 
     print("phase 4 ImageNet-val curve leg, approximate twin (2^12 buckets)")
     approx_curve_leg(dev, batches[:1])  # warm-up
-    segment_sum.launches = 0
+    K.segment_sum = 0
     with record_sketch_folds() as rec:
         ac_metrics, ac_out, ac_s, ac_peak = approx_curve_leg(dev, batches)
-    approx_curve_launches = segment_sum.launches
+    approx_curve_launches = K.segment_sum
     sketch_launches["multiclass"] = rec.count(n=CURVE_ROWS * CURVE_CLASSES, d=2,
                                               segments=CURVE_CLASSES << MC_SKETCH_BITS)
     _require(sketch_launches["multiclass"] == 2 * CURVE_BATCHES,
@@ -3926,10 +4307,10 @@ def main() -> int:
     print("phase 4 top-k leg (BASELINE config 4)")
     batches = topk_leg_data(dev, gen)
     topk_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
-    topk_kernel.launches = 0
+    K.topk_kernel = 0
     folds0 = fold_counts()
     _, topk_v, topk_s, topk_peak = topk_leg(dev, batches)
-    topk_launches = topk_kernel.launches
+    topk_launches = K.topk_kernel
     topk_cadence = cadence(folds0)
     _require(topk_launches > 0, "topk launched on the top-k leg")
     n_rows = TOPK_BATCHES * TOPK_ROWS
@@ -3948,10 +4329,10 @@ def main() -> int:
     retrieval_values = {}
     for k in RETRIEVAL_KS:
         retrieval_leg(dev, batches, k)  # warm-up
-        topk_kernel.launches = 0
+        K.topk_kernel = 0
         folds0 = fold_counts()
         ndcg, value, seconds = retrieval_leg(dev, batches, k)
-        launched = topk_kernel.launches
+        launched = K.topk_kernel
         ndcg_cadence = cadence(folds0)
         retrieval_launches += launched
         _require(launched > 0 and np.isfinite(value), f"NDCG@{k} launched the kernel, finite")
@@ -3972,11 +4353,11 @@ def main() -> int:
     n_rows = SLICED_BATCHES * SLICED_ROWS
     sliced_epoch(dev, data, *sliced_setup(dev, data))  # warm-up: first use of each kernel
     acc, agg = sliced_setup(dev, data)
-    segment_sum.launches = 0
+    K.segment_sum = 0
     folds0 = fold_counts()
     with record_sketch_folds() as rec:
         results, sliced_s, sliced_wall, sliced_peak = sliced_epoch(dev, data, acc, agg)
-    sliced_launches = segment_sum.launches
+    sliced_launches = K.segment_sum
     sliced_cadence = cadence(folds0)
     sketch_launches["sliced"] = rec.count(n=n_rows, segments=SLICED_COHORTS * SLICED_PLANES)
     _require(sliced_launches > 0 and sketch_launches["sliced"] == 1,
@@ -4015,10 +4396,7 @@ def main() -> int:
 
     print(f"resilience phase (b): the sliced leg's collections saved after batch {RES_SLICED_SAVE}, "
           f"restored into fresh ones, batches {RES_SLICED_SAVE + 1}-{RES_SLICED_BATCHES} fed")
-    obs.reset()
-    obs.enable()
     rb = resilience_sliced(dev, data, want, res_root)
-    obs.disable()
     shutil.rmtree(os.path.join(res_root, "sliced_acc"))
     shutil.rmtree(os.path.join(res_root, "sliced_agg"))
     del want
@@ -4102,6 +4480,15 @@ def main() -> int:
               f"fold, the sync and the sort of the synced summaries) "
               f"{res['auroc_compute_seconds']:.4f} s")
         print(f"  rank {r}: fold cadence: {cadence_text(res['cadence'])}")
+    od = check_dp_obs(ranks)
+    for res in ranks:
+        o = res["obs"]
+        print(f"  rank {res['rank']}: obs.sync_snapshot(timeout_s=30): {o['seconds']:.4f} s, one round "
+              f"of {o['buffer_bytes']} buffer bytes; {len(o['merged_counters'])} merged counters, "
+              f"{len(o['merged_gauges'])} rank-labelled gauges, {o['merged_events']} timeline events")
+    print(f"  (d) merged counters equal the sum of both ranks' local snapshots; rank 0's "
+          f"MetricsServer: GET /metrics {od['metrics_bytes']} bytes equal to prometheus_text() "
+          f"({od['metrics_type']}), GET /health {od['health']}")
     slowest = max(res["seconds"] for res in ranks)
     print(f"  synced on every rank: accuracy {ranks[0]['accuracy']:.8f}, f1_macro "
           f"{ranks[0]['f1_macro']:.8f} (counts equal torch.bincount's over all chunks: "
@@ -4120,10 +4507,7 @@ def main() -> int:
 
     print(f"resilience phase (c): the kill drill ({DP_RANKS} ranks on one card over gloo, the "
           f"data-parallel leg's chunks; rank 1 killed entering round 3)")
-    obs.reset()
-    obs.enable()
     rc = resilience_drill(dev, res_root, counts, acc_ref, f1_ref, auroc_ref)
-    obs.disable()
     r0 = rc["rank0"]
     print(f"  (c) rank 1 exited {DRILL_EXIT_CODE}; rank 0's second sync returned its local values in "
           f"{r0['elapsed_s']:.4f} s (deadline {DRILL_TIMEOUT_S} s), failures counted {r0['failures']}; "
@@ -4216,7 +4600,8 @@ def main() -> int:
     }
     sketch_launches["binary"] += dist_launches["segment_sum_sketch"]
 
-    print("phase 5 kernel timings at the main path's shapes")
+    print("phase 5 kernel timings at the main path's shapes (obs off)")
+    obs.disable()
     launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
                 + curve_launches[k] for k in headline_launches}
     launches["hist"] += cm_launches + dist_launches["hist_splitter"]

@@ -28,7 +28,16 @@ from torcheval_tpu_torch.metrics.functional import (
     multilabel_accuracy,
     topk_multilabel_accuracy,
 )
-from torcheval_tpu_torch.ops.topk import topk_kernel
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-8
 
@@ -206,9 +215,9 @@ def test_streaming_multilabel_matches_jax(criteria):
 
 @pytest.mark.parametrize("criteria", CRITERIA)
 @pytest.mark.parametrize("k", [2, 5])
-def test_streaming_topk_multilabel_matches_jax(criteria, k):
+def test_streaming_topk_multilabel_matches_jax(criteria, k, obs_on):
     scores, target = _multilabel_data(seed=12 + k, ties=True)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     ours = TopKMultilabelAccuracy(criteria=criteria, k=k, device="cpu")
     theirs = J.TopKMultilabelAccuracy(criteria=criteria, k=k)
     for i in range(0, 400, 150):
@@ -219,7 +228,7 @@ def test_streaming_topk_multilabel_matches_jax(criteria, k):
     assert int(mine["num_correct"]) == int(folded["num_correct"])
     assert int(mine["num_total"]) == int(folded["num_total"])
     _close(ours.compute(), theirs.compute())
-    assert topk_kernel.launches == before  # CPU tensors: the plain versions
+    assert launches("topk_kernel") == before  # CPU tensors: the plain versions
 
 
 def test_topk_multilabel_all_equal_scores():

@@ -27,8 +27,17 @@ from torcheval_tpu_torch.metrics import (
     MulticlassAccuracy,
 )
 from torcheval_tpu_torch.metrics.functional import binary_auprc, binary_auroc
-from torcheval_tpu_torch.ops.stream_compact import stream_compact
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-8
 N, BATCH, THRESHOLD = 4000, 500, 1200  # the threshold fires three times
@@ -234,7 +243,7 @@ def test_state_carried_across(direction):
         _close(tail[name].compute(), reference[name].compute())
 
 
-def test_compaction_launch_count_untouched_on_cpu():
-    before = stream_compact.launches
+def test_compaction_launch_count_untouched_on_cpu(obs_on):
+    before = launches("stream_compact")
     _feed(_ours(), _slice_stream(seed=7))
-    assert stream_compact.launches == before  # the plain version ran
+    assert launches("stream_compact") == before  # the plain version ran

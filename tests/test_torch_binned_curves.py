@@ -33,7 +33,6 @@ from torcheval_tpu_torch.metrics import (
     MulticlassAccuracy,
     MulticlassBinnedPrecisionRecallCurve,
 )
-from torcheval_tpu_torch.metrics import deferred as D
 from torcheval_tpu_torch.metrics.functional import (
     binary_binned_precision_recall_curve,
     multiclass_binned_precision_recall_curve,
@@ -45,6 +44,16 @@ from torcheval_tpu_torch.metrics.functional.classification.binned_precision_reca
 )
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
 from torcheval_tpu_torch.utils.test_utils import NUM_TOTAL_UPDATES, MetricClassTester
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, folding_window_steps, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -272,7 +281,7 @@ def test_empty_metrics_match_jax():
                    np.stack([np.asarray(v) for v in w]) if isinstance(w, list) else w)
 
 
-def test_window_stacks_the_batches_under_vmap():
+def test_window_stacks_the_batches_under_vmap(obs_on):
     # uniform batches of a per-chunk fold: one stacked, vmapped fold a window
     x, t = _stream(seed=9, classes=C)
     col = MetricCollection({
@@ -282,14 +291,14 @@ def test_window_stacks_the_batches_under_vmap():
     ref = J.MulticlassBinnedPrecisionRecallCurve(C, threshold=6)
     alone = BinaryBinnedPrecisionRecallCurve(threshold=6, device=CPU)
     ref_alone = J.BinaryBinnedPrecisionRecallCurve(threshold=6)
-    before = (D.window_step.windows, D.window_step.batches)
+    before = (folding_window_steps(), count("deferred.window_step_batches"))
     for i in range(NUM_TOTAL_UPDATES):
         col.update(torch.from_numpy(x[i]), torch.from_numpy(t[i]))
         ref.update(x[i], t[i])
         alone.update(torch.from_numpy(x[i, :, 0]), torch.from_numpy((t[i] == 0).astype(np.int32)))
         ref_alone.update(x[i, :, 0], (t[i] == 0).astype(np.int32))
     out = col.compute()
-    assert (D.window_step.windows, D.window_step.batches) == (before[0] + 1, before[1] + NUM_TOTAL_UPDATES)
+    assert (folding_window_steps(), count("deferred.window_step_batches")) == (before[0] + 1, before[1] + NUM_TOTAL_UPDATES)
     got = col["binned"].state_dict()
     for name in COUNTERS:
         _equal(got[name], ref.state_dict()[name])

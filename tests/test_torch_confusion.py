@@ -30,9 +30,18 @@ from torcheval_tpu_torch.metrics.functional import (
     multiclass_confusion_matrix,
 )
 from torcheval_tpu_torch.ops.confusion import class_counts, confusion_matrix_counts
-from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
 from torcheval_tpu_torch.utils.test_utils import NUM_TOTAL_UPDATES, MetricClassTester
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -111,14 +120,14 @@ def test_normalize_matches_jax(normalize):
         _close(got, want)
 
 
-def test_confusion_counts_run_on_the_histogram_and_vmap():
-    before = hist.launches
+def test_confusion_counts_run_on_the_histogram_and_vmap(obs_on):
+    before = launches("hist")
     pred, target = _labels(64, 4, seed=3)
     p, t = torch.from_numpy(pred).reshape(4, 16), torch.from_numpy(target).reshape(4, 16)
     got = torch.func.vmap(lambda a, b: confusion_matrix_counts(a, b, 4))(p, t)
     for i in range(4):
         _equal(got[i], jax_cm(jnp.asarray(pred[16 * i:16 * i + 16]), jnp.asarray(target[16 * i:16 * i + 16]), 4))
-    assert hist.launches == before  # CPU tensors: the plain version
+    assert launches("hist") == before  # CPU tensors: the plain version
 
 
 def test_weighted_class_counts_batch_under_vmap():

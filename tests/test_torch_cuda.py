@@ -32,8 +32,17 @@ from torcheval_tpu_torch.metrics import (
     TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel, topk_kernel_plain
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, recording
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _obs_on():
+    """A kernel's launches are its ``jit.calls{entry=}`` in the obs
+    registry, which counts while it is enabled."""
+    with recording():
+        yield
 
 
 @pytest.fixture
@@ -48,10 +57,10 @@ def dev():
 def test_hist_kernel_matches_plain(dev, n, c, dtype):
     g = torch.Generator(device=dev).manual_seed(n)
     labels = torch.randint(-2, c + 2, (n,), generator=g, device=dev, dtype=dtype)
-    before = hist.launches
+    before = launches("hist")
     got = hist(labels, c)
     torch.cuda.synchronize()
-    assert hist.launches == before + 1
+    assert launches("hist") == before + 1
     assert torch.equal(got, hist_plain(labels, c))
 
 
@@ -63,10 +72,10 @@ _HIST_EDGES = [1, 2, 5, 8, 9, 128, 129, 1024, 1025, 2048, 2049, 20_000, 58_112, 
 
 
 def _hist_case(labels, c):
-    before = hist.launches
+    before = launches("hist")
     got = hist(labels, c)
     torch.cuda.synchronize()
-    assert hist.launches == before + 1
+    assert launches("hist") == before + 1
     assert torch.equal(got, hist_plain(labels, c))
 
 
@@ -106,10 +115,10 @@ def test_compaction_kernel_matches_plain(dev, n, density):
     s[::11] = -0.0
     tp = torch.randint(0, 2**31 - 1, (n,), generator=g, device=dev, dtype=torch.int32)
     keep = torch.rand(n, generator=g, device=dev) < density
-    before = stream_compact.launches
+    before = launches("stream_compact")
     got = compact_summary_rows(s, tp, tp.flip(0).contiguous(), keep)
     torch.cuda.synchronize()
-    assert stream_compact.launches == before + 1
+    assert launches("stream_compact") == before + 1
     want = compact_summary_rows_plain(s, tp, tp.flip(0).contiguous(), keep)
     assert int(got[3]) == int(want[3]) == int(keep.sum())
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
@@ -119,7 +128,7 @@ def test_compaction_kernel_matches_plain(dev, n, density):
     (b,), nb = stream_compact_plain(keep, [tp])
     k = int(nb)
     assert int(na) == k and torch.equal(a[:k], b[:k])
-    assert stream_compact.launches == before + 2
+    assert launches("stream_compact") == before + 2
 
 
 def test_compaction_kernel_takes_unaligned_columns_and_mask(dev):
@@ -180,10 +189,10 @@ def test_topk_kernel_matches_plain_bit_for_bit(dev, n, l, k):
     g = torch.Generator(device=dev).manual_seed(l + k)
     for x in (torch.rand((n, l), generator=g, device=dev), _special_rows(n, l, g),
               _ideal_ranking_rows(n, l, g)):
-        before = topk_kernel.launches
+        before = launches("topk_kernel")
         v, i = topk_kernel(x, k)
         torch.cuda.synchronize()
-        assert topk_kernel.launches == before + 1
+        assert launches("topk_kernel") == before + 1
         pv, pi = topk_kernel_plain(x, k)
         assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
         assert torch.equal(i, pi)
@@ -207,12 +216,12 @@ def test_topk_kernel_on_all_equal_long_rows(dev, k):
 
 def test_topk_auto_launches_the_kernel(dev):
     x = torch.rand((3, 2000), device=dev)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     topk(x, 5)
-    assert topk_kernel.launches == before + 1
+    assert launches("topk_kernel") == before + 1
     topk(x[:, :1000], 5)  # L <= 1024: dense
     topk(x, 129)  # k > 128: dense
-    assert topk_kernel.launches == before + 1
+    assert launches("topk_kernel") == before + 1
 
 
 @pytest.mark.parametrize("criteria", ["exact_match", "hamming", "overlap", "contain", "belong"])
@@ -223,11 +232,11 @@ def test_topk_multilabel_on_the_card_equals_the_cpu(dev, criteria):
     target[:, :4] = 1
     on_card = TopKMultilabelAccuracy(k=5, criteria=criteria, device=dev)
     on_cpu = TopKMultilabelAccuracy(k=5, criteria=criteria, device="cpu")
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     on_card.update(scores, target)
     on_cpu.update(scores.cpu(), target.cpu())
     card_sd, cpu_sd = on_card.state_dict(), on_cpu.state_dict()  # the deferred folds
-    assert topk_kernel.launches == before + 1
+    assert launches("topk_kernel") == before + 1
     assert int(card_sd["num_correct"]) == int(cpu_sd["num_correct"])
     assert int(card_sd["num_total"]) == int(cpu_sd["num_total"])
 
@@ -237,10 +246,10 @@ def test_ranking_on_the_card_equals_the_cpu(dev, k):
     g = torch.Generator(device=dev).manual_seed(k)
     scores = torch.rand((16, 50_000), generator=g, device=dev)
     rel = (torch.rand((16, 50_000), generator=g, device=dev) < 0.001).to(torch.float32)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     on_card = NDCG(k=k, device=dev).update(scores, rel)
     card_valid = int(on_card.state_dict()["num_valid"])  # the deferred fold
-    assert topk_kernel.launches == before + 2  # the scores and the ideal ranking
+    assert launches("topk_kernel") == before + 2  # the scores and the ideal ranking
     on_cpu = NDCG(k=k, device="cpu").update(scores.cpu(), rel.cpu())
     assert card_valid == int(on_cpu.state_dict()["num_valid"])
     assert torch.allclose(on_card.compute().cpu(), on_cpu.compute(), rtol=1e-5, atol=1e-8)
@@ -300,10 +309,10 @@ def test_segment_sum_kernel_matches_plain(dev, dtype, d, s, kind):
         big = 2**31 - 1 if dtype == torch.int32 else 2**62
         vals = torch.from_numpy(rng.integers(-big, big, (n, d))).to(dev, dtype)  # wraps
     for r in (rows, rows.to(torch.int32)):
-        before = segment_sum.launches
+        before = launches("segment_sum")
         got = segment_sum(vals, r, s)
         torch.cuda.synchronize()
-        assert segment_sum.launches == before + 1
+        assert launches("segment_sum") == before + 1
         _assert_sum_matches(got, vals, r, s)
 
 
@@ -330,10 +339,10 @@ def test_segment_sum_half_precision_on_the_card(dev, dtype):
     rng = np.random.default_rng(11)
     vals = torch.from_numpy(rng.standard_normal((n, 2))).to(dev, dtype)
     rows = _rows("zipf", n, s, 11).to(dev, torch.int32)
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = segment_sum(vals, rows, s)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert launches("segment_sum") == before + 1
     assert got.dtype == dtype and got.shape == (s, 2)
     ref = segment_sum_plain(vals.double(), rows, s)
     mag = segment_sum_plain(vals.double().abs(), rows, s)
@@ -359,12 +368,12 @@ def test_half_precision_compacting_curves_on_the_card_equal_the_cpu(dev, name, k
     targets = rng.integers(0, 2, (3, 300)).astype(np.float32)
     card = getattr(T, name)(compaction_threshold=100, device=dev)
     cpu = getattr(T, name)(compaction_threshold=100, device="cpu")
-    before = stream_compact.launches
+    before = launches("stream_compact")
     for sc, t in zip(scores, targets):
         card.update(torch.tensor(sc).to(dtype).to(dev), torch.tensor(t).to(dev))
         cpu.update(torch.tensor(sc).to(dtype), torch.tensor(t))
     got = float(card.compute())
-    assert stream_compact.launches - before >= 3
+    assert launches("stream_compact") - before >= 3
     assert got == pytest.approx(float(cpu.compute()), rel=1e-5)
     if kind == "bfloat16":
         want = 0.48699 if name == "BinaryAUROC" else 0.51331
@@ -395,10 +404,10 @@ def _sum_vals(dtype, n, d, rng):
 
 
 def _sum_case(vals, rows, s):
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = segment_sum(vals, rows, s)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert launches("segment_sum") == before + 1
     _assert_sum_matches(got, vals, rows, s)
 
 
@@ -443,13 +452,13 @@ def test_segment_sum_kernel_unaligned_views(dev, dtype, d, shift):
 
 
 def test_segment_sum_empty_and_tail_shape(dev):
-    before = segment_sum.launches
+    before = launches("segment_sum")
     out = segment_sum(torch.zeros((0, 3), device=dev), torch.zeros(0, dtype=torch.int32, device=dev), 5)
-    assert torch.equal(out, torch.zeros((5, 3), device=dev)) and segment_sum.launches == before
+    assert torch.equal(out, torch.zeros((5, 3), device=dev)) and launches("segment_sum") == before
     vals = torch.randint(0, 9, (500, 3, 4), device=dev, dtype=torch.int32)
     rows = torch.randint(-1, 12, (500,), device=dev)
     got = segment_scatter(vals, rows, 11)
-    assert segment_sum.launches == before + 1
+    assert launches("segment_sum") == before + 1
     assert torch.equal(got, segment_sum_plain(vals, rows, 11))
 
 
@@ -478,7 +487,7 @@ def test_sliced_collections_on_the_card_equal_the_cpu(dev):
         )
 
     card, cpu = make(dev), make("cpu")
-    before = segment_sum.launches
+    before = launches("segment_sum")
     for _ in range(3):
         ids = (rng.zipf(1.3, 5000) - 1) % 300 * 7919 + 13
         s = rng.random(5000).astype(np.float32)
@@ -489,10 +498,10 @@ def test_sliced_collections_on_the_card_equal_the_cpu(dev):
             acc.update(ids, s, t)
             agg.update(ids, s)
             macro.update(ids, scores, labels)
-    assert segment_sum.launches == before  # deferred to the windows' folds
+    assert launches("segment_sum") == before  # deferred to the windows' folds
     for got_col, want_col in zip(card, cpu):
         got, want = got_col.compute(), want_col.compute()
-        assert segment_sum.launches > before
+        assert launches("segment_sum") > before
         for key in got:
             np.testing.assert_array_equal(got[key].slice_ids, want[key].slice_ids)
             g, w = got[key]["values"].cpu(), want[key]["values"]
@@ -519,11 +528,11 @@ def test_sliced_macro_accuracy_at_many_classes_equals_the_cpu(dev):
         col = SlicedMetricCollection(
             {"macro": MulticlassAccuracy(average="macro", num_classes=c, device=device)}, capacity=64
         )
-        before = segment_sum.launches
+        before = launches("segment_sum")
         col.update(ids, torch.from_numpy(scores).to(device), torch.from_numpy(labels).to(device))
         col.state_dicts()  # the window's fold
         if device == dev:
-            assert segment_sum.launches > before
+            assert launches("segment_sum") > before
         cols[device] = col
     got, want = cols[dev].compute()["macro"], cols["cpu"].compute()["macro"]
     np.testing.assert_array_equal(got.slice_ids, want.slice_ids)
@@ -544,10 +553,10 @@ def test_match_triple_counts_on_the_card_is_two_histograms(dev, n, c):
     pred = torch.randint(-2, c + 2, (n,), generator=g, device=dev)
     target = torch.where(torch.rand(n, generator=g, device=dev) < 0.3, pred,
                          torch.randint(-2, c + 2, (n,), generator=g, device=dev))
-    before = hist.launches
+    before = launches("hist")
     got = match_triple_counts(pred, target, c)
     torch.cuda.synchronize()
-    assert hist.launches == before + 2
+    assert launches("hist") == before + 2
     for x, w in zip(got, match_triple_counts(pred.cpu(), target.cpu(), c)):
         assert x.dtype == torch.int32 and torch.equal(x.cpu(), w)
 
@@ -574,10 +583,10 @@ def test_sharded_class_counts_at_world_size_one_equal_hist(dev):
     from torcheval_tpu_torch.ops.hist import sharded_class_counts
 
     labels = torch.randint(-3, 12, (100_003,), device=dev)
-    before = hist.launches
+    before = launches("hist")
     got = sharded_class_counts(labels, 9)
     torch.cuda.synchronize()
-    assert hist.launches == before + 1 and got.device == labels.device
+    assert launches("hist") == before + 1 and got.device == labels.device
     assert torch.equal(got.cpu(), hist_plain(labels.cpu(), 9))
 
 
@@ -587,7 +596,6 @@ def test_window_step_on_the_card_equals_the_cpu(dev):
     counts exactly, the values within rtol 1e-5; F1's concat fold is two
     histogram launches for the whole window."""
     from torcheval_tpu_torch.metrics import MetricCollection, MulticlassF1Score
-    from torcheval_tpu_torch.metrics import deferred
 
     rng = np.random.default_rng(3)
     batches = [(rng.random((2048, 5)).astype(np.float32), rng.integers(0, 5, 2048)) for _ in range(20)]
@@ -604,13 +612,13 @@ def test_window_step_on_the_card_equals_the_cpu(dev):
         card.update(torch.from_numpy(scores).to(dev), torch.from_numpy(labels).to(dev))
         cpu.update(scores, labels)
     assert len(card._window.chunks) == len(cpu._window.chunks) == 20
-    hists, steps = hist.launches, deferred.window_step.calls
+    hists, steps = launches("hist"), count("deferred.window_steps")
     got, want = card.compute(), cpu.compute()
     torch.cuda.synchronize()
-    assert deferred.window_step.calls == steps + 2
+    assert count("deferred.window_steps") == steps + 2
     # F1's two over the window (the stacked macro accuracy's counts run the
     # class counts' vmap rule, a segment sum)
-    assert hist.launches == hists + 2
+    assert launches("hist") == hists + 2
     for name in got:
         assert torch.allclose(got[name].cpu(), want[name], rtol=1e-5, atol=1e-8), name
         for state, value in card[name].state_dict().items():
@@ -625,9 +633,9 @@ def test_ndcg_window_on_the_card_equals_the_cpu(dev):
         rel = (torch.rand((16, 20_000), generator=g, device=dev) < 0.002).to(torch.float32)
         card.update(scores, rel)
         cpu.update(scores.cpu(), rel.cpu())
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     got = card.compute()
-    assert topk_kernel.launches == before + 6  # the batches fold one by one
+    assert launches("topk_kernel") == before + 6  # the batches fold one by one
     assert int(card.num_valid) == int(cpu.state_dict()["num_valid"])
     assert torch.allclose(got.cpu(), cpu.compute(), rtol=1e-5, atol=1e-8)
 
@@ -641,11 +649,11 @@ def test_sliced_window_is_one_segment_sum_per_group_on_the_card(dev):
     for ids, s, t in stream:
         card.update(ids, torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
         cpu.update(ids, s, t)
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got, want = card.compute(), cpu.compute()
     # the accuracy's (N, 2) int32 pair; the Mean's (N, 1) float32 delta pair
     # is a (weighted_sum, weights) group of one shape and type
-    assert segment_sum.launches == before + 2
+    assert launches("segment_sum") == before + 2
     for key in got:
         np.testing.assert_array_equal(got[key].slice_ids, want[key].slice_ids)
         assert torch.allclose(got[key]["values"].cpu(), want[key]["values"], rtol=1e-5)
@@ -702,10 +710,10 @@ def test_hist_at_the_small_batch_window_shape(dev):
     """F1's window of 200 batches of 8192 labels: 1,638,400 labels, 10 bins."""
     g = torch.Generator(device=dev).manual_seed(8)
     labels = torch.randint(-1, 11, (200 * 8192,), generator=g, device=dev)
-    before = hist.launches
+    before = launches("hist")
     got = hist(labels, 10)
     torch.cuda.synchronize()
-    assert hist.launches == before + 1
+    assert launches("hist") == before + 1
     assert torch.equal(got, hist_plain(labels, 10))
 
 
@@ -722,10 +730,10 @@ def test_confusion_matrix_at_1000_classes_equals_bincount(dev):
     want = torch.bincount(
         (target.long() * c + pred.long())[(pred >= 0) & (pred < c)], minlength=c * c
     ).reshape(c, c)
-    before = hist.launches
+    before = launches("hist")
     got = confusion_matrix_counts(pred, target, c)
     torch.cuda.synchronize()
-    assert hist.launches == before + 1 and got.dtype == torch.int32
+    assert launches("hist") == before + 1 and got.dtype == torch.int32
     assert torch.equal(got.long(), want)
     m = MulticlassConfusionMatrix(c, device=dev)
     for i in range(3):
@@ -753,7 +761,7 @@ def test_binned_curves_on_the_card_equal_the_cpu(dev, spec):
             m.update(x[:, 0].contiguous().to(device), (t == 0).to(torch.int32).to(device))
         return m.state_dict()
 
-    before = segment_sum.launches
+    before = launches("segment_sum")
     mc_card = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device=dev)
     mc_cpu = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device="cpu")
     for x, t in batches:
@@ -761,16 +769,16 @@ def test_binned_curves_on_the_card_equal_the_cpu(dev, spec):
         mc_cpu.update(x, t)
     card, cpu = mc_card.state_dict(), mc_cpu.state_dict()
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert launches("segment_sum") == before + 1
     for name in ("num_tp", "num_fp", "num_fn"):
         assert torch.equal(card[name].cpu(), cpu[name])
     card, cpu = binary(dev), binary("cpu")
     for name in ("num_tp", "num_fp", "num_fn"):
         assert torch.equal(card[name].cpu(), cpu[name])
     one = MulticlassBinnedPrecisionRecallCurve(7, threshold=spec, device=dev)
-    h = hist.launches
+    h = launches("hist")
     one.update(batches[0][0].to(dev), batches[0][1].to(dev)).compute()
-    assert hist.launches == h + 1  # one batch: one histogram over 2 * C * (T + 1) bins
+    assert launches("hist") == h + 1  # one batch: one histogram over 2 * C * (T + 1) bins
 
 
 def test_multiclass_compaction_kernel_route_is_bit_equal_to_the_two_sort(dev):
@@ -787,11 +795,11 @@ def test_multiclass_compaction_kernel_route_is_bit_equal_to_the_two_sort(dev):
     fp = torch.randint(0, 3, (c, m), generator=g, device=dev, dtype=torch.int32)
     tp[:, -100:] = 0
     fp[:, -100:] = 0
-    before = stream_compact.launches
+    before = launches("stream_compact")
     a = compact_count_rows(s, tp, fp)
     b = compact_count_rows_fast(s, tp, fp)
     torch.cuda.synchronize()
-    assert stream_compact.launches == before + 1
+    assert launches("stream_compact") == before + 1
     assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
     for x, y in zip(a[1:], b[1:]):
         assert torch.equal(x, y)
@@ -809,13 +817,13 @@ def test_multiclass_auroc_on_the_card_equals_the_cpu(dev, threshold):
     for cls in (MulticlassAUROC, MulticlassAUPRC):
         card = cls(num_classes=10, average=None, compaction_threshold=threshold, device=dev)
         cpu = cls(num_classes=10, average=None, compaction_threshold=threshold, device="cpu")
-        before = stream_compact.launches
+        before = launches("stream_compact")
         for x, t in batches:
             card.update(x.to(dev), t.to(dev))
             cpu.update(x, t)
         got, want = card.compute(), cpu.compute()
         torch.cuda.synchronize()
-        assert stream_compact.launches == before + (0 if threshold is None else 2)
+        assert launches("stream_compact") == before + (0 if threshold is None else 2)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-8)
 
 
@@ -856,10 +864,10 @@ def test_segment_sum_at_the_sketch_fold_shapes(dev, n, d, segments, what):
     rows = torch.randint(-1, segments, (n,), generator=g, device=dev, dtype=torch.int32)
     vals = torch.randint(0, 2, (n, d), generator=g, device=dev, dtype=torch.int32)
     vals = vals[:, 0] if d == 1 else vals
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = segment_sum(vals, rows, segments)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1, what
+    assert launches("segment_sum") == before + 1, what
     assert torch.equal(got, segment_sum_plain(vals, rows, segments)), what
 
 
@@ -887,14 +895,14 @@ def test_binary_sketch_on_the_card_equals_the_cpu(dev, cls):
     s = torch.randn(300_000, generator=g)
     t = (torch.rand(300_000, generator=g) < 0.4).float()
     on, off = (getattr(TM, cls)(approx=True, device=d) for d in (dev, "cpu"))
-    before = segment_sum.launches
+    before = launches("segment_sum")
     for a, b in zip(s.split(100_000), t.split(100_000)):
         on.update(a, b)
         off.update(a, b)
     got, want = on.compute(), off.compute()
     on._compact()
     off._compact()
-    assert segment_sum.launches > before
+    assert launches("segment_sum") > before
     assert torch.equal(on.sketch_tp.cpu(), off.sketch_tp) and torch.equal(on.sketch_fp.cpu(), off.sketch_fp)
     assert float(got) == pytest.approx(float(want), rel=1e-5, abs=1e-8)
 
@@ -969,10 +977,10 @@ def test_sharded_label_topk_at_world_of_one_launches_the_kernel(dev, mesh_of_one
     g = torch.Generator(device=dev).manual_seed(k)
     x = torch.randint(0, 50, (16, 60_000), generator=g, device=dev).to(torch.float32)
     t = torch.rand((16, 60_000), generator=g, device=dev)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     v, i, c = sharded_label_topk(x, k, mesh=label, label_axis="label", gather=t)
     torch.cuda.synchronize()
-    assert topk_kernel.launches == before + 1
+    assert launches("topk_kernel") == before + 1
     want_v, want_i = topk(x, k, method="dense")
     assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
     assert torch.equal(i, want_i) and torch.equal(c, torch.gather(t, 1, want_i))
@@ -982,10 +990,10 @@ def test_row_sharded_topk_launches_the_kernel(dev):
     from torcheval_tpu_torch.ops.topk import sharded_topk_kernel
 
     x = torch.rand((32, 20_000), device=dev)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     v, i = sharded_topk_kernel(x, 7)
     torch.cuda.synchronize()
-    assert topk_kernel.launches == before + 1 and v.device == x.device
+    assert launches("topk_kernel") == before + 1 and v.device == x.device
     assert torch.equal(i, topk(x, 7, method="dense")[1])
 
 
@@ -995,10 +1003,10 @@ def test_tile_segment_scatter_at_world_of_one(dev, mesh_of_one, reduce):
     g = torch.Generator(device=dev).manual_seed(1)
     vals = torch.randint(0, 9, (100_000, 2), generator=g, device=dev, dtype=torch.int32)
     rows = torch.randint(-5, 5005, (100_000,), generator=g, device=dev, dtype=torch.int32)
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = segment_scatter(vals, rows, 5000, reduce=reduce, mesh=slices, axis="slices")
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + (reduce == "sum")
+    assert launches("segment_sum") == before + (reduce == "sum")
     assert torch.equal(got.cpu(), segment_scatter(vals.cpu(), rows.cpu(), 5000, reduce=reduce))
 
 
@@ -1007,10 +1015,10 @@ def test_sharded_segment_sum_at_world_of_one(dev, mesh_of_one):
 
     vals = torch.randint(0, 9, (100_000, 2), device=dev, dtype=torch.int32)
     rows = torch.randint(-5, 1005, (100_000,), device=dev)
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = sharded_segment_sum(vals, rows, 1000)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1 and got.device == vals.device
+    assert launches("segment_sum") == before + 1 and got.device == vals.device
     assert torch.equal(got.cpu(), segment_sum_plain(vals.cpu(), rows.cpu(), 1000))
 
 
@@ -1029,11 +1037,11 @@ def test_sharded_sliced_collection_at_world_of_one_equals_the_cpu(dev, mesh_of_o
             capacity=1024, curve_bucket_bits=6, **kw)
 
     card = make(dev, mesh=slices, mesh_axis="slices")
-    before = segment_sum.launches
+    before = launches("segment_sum")
     card.update(ids, s.to(dev), t.to(dev))
     got = card.compute()
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 2
+    assert launches("segment_sum") == before + 2
     want = make("cpu").update(ids, s, t).compute()
     for name in ("acc", "auroc"):
         np.testing.assert_array_equal(got[name].slice_ids, want[name].slice_ids)
@@ -1046,11 +1054,11 @@ def test_label_mesh_ndcg_on_the_card_equals_the_cpu(dev, mesh_of_one):
     s = torch.rand((64, 50_000), generator=g, device=dev)
     t = (torch.rand((64, 50_000), generator=g, device=dev) < 1e-3).to(torch.float32)
     card = NDCG(k=10, label_mesh=(label, "label"), device=dev)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     card.update(s[:32], t[:32]).update(s[32:], t[32:])
     value = card.compute()
     torch.cuda.synchronize()
-    assert topk_kernel.launches == before + 4  # the ranking and the ideal, per batch
+    assert launches("topk_kernel") == before + 4  # the ranking and the ideal, per batch
     cpu = NDCG(k=10, device="cpu").update(s.cpu()[:32], t.cpu()[:32]).update(s.cpu()[32:], t.cpu()[32:])
     torch.testing.assert_close(value.cpu(), cpu.compute(), rtol=1e-5, atol=1e-8)
 
@@ -1085,11 +1093,11 @@ def test_dist_binary_curve_at_world_of_one_equals_the_cpu(dev, data_of_one, whic
     fn = dc.sharded_binary_auroc if which == "auroc" else dc.sharded_binary_auprc
     s, t = _tied_scores(1 << 20, 3, dev)
     s[:1000] = -0.0
-    before = (hist.launches, dc.exchange_buckets.calls)
+    before = (launches("hist"), count("dist_curves.exchanges"))
     value, err = fn([s[:300_000], s[300_000:]], [t[:300_000], t[300_000:]],
                     group=mesh_axis(data_of_one, "data"))
     torch.cuda.synchronize()
-    assert (hist.launches, dc.exchange_buckets.calls) == (before[0] + 1, before[1] + 1)
+    assert (launches("hist"), count("dist_curves.exchanges")) == (before[0] + 1, before[1] + 1)
     assert err == 0 and value.device == s.device
     want = (binary_auroc_kernel if which == "auroc" else binary_auprc_kernel)(s.cpu(), t.cpu())
     torch.testing.assert_close(value.cpu(), want, rtol=1e-5, atol=1e-8)
@@ -1104,10 +1112,10 @@ def test_dist_multiclass_curve_at_world_of_one_equals_the_cpu(dev, data_of_one, 
     x = torch.softmax(torch.randn((20_000, 100), generator=g, device=dev) * 3, dim=1)
     y = torch.randint(0, 100, (20_000,), generator=g, device=dev)
     fn = dc.sharded_multiclass_auroc if which == "mc_auroc" else dc.sharded_multiclass_auprc
-    before = segment_sum.launches
+    before = launches("segment_sum")
     value, err = fn([x], [y])
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1 and err == 0
+    assert launches("segment_sum") == before + 1 and err == 0
     want = (multiclass_auroc_kernel if which == "mc_auroc" else multiclass_auprc_kernel)(x.cpu(), y.cpu())
     torch.testing.assert_close(value.cpu(), want, rtol=1e-5, atol=1e-8)
 
@@ -1118,9 +1126,9 @@ def test_dist_nan_and_abstention_at_world_of_one(dev, data_of_one):
     s, t = _tied_scores(10_000, 6, dev)
     s[7] = float("nan")
     assert dc.sharded_binary_auroc([s], [t])[1] == 1
-    before = dc.exchange_buckets.calls
+    before = count("dist_curves.exchanges")
     assert dc.curve_value("auroc", [s], [t], abstain=True) is None
-    assert dc.exchange_buckets.calls == before  # stood down after the splitter
+    assert count("dist_curves.exchanges") == before  # stood down after the splitter
 
 
 def test_splitter_histogram_kernels_equal_their_plain_versions(dev):
@@ -1148,11 +1156,11 @@ def test_dist_sketch_counts_at_world_of_one_equal_the_cpu(dev, data_of_one, clas
         t = torch.randint(0, classes, (50_000,), generator=g, device=dev)
         bits = 12
     base = dc.sharded_sketch_counts([s.cpu()], [t.cpu()], bucket_bits=bits, num_classes=classes)
-    before = segment_sum.launches
+    before = launches("segment_sum")
     got = dc.sharded_sketch_counts([s], [t], bucket_bits=bits, num_classes=classes,
                                    base=tuple(x.to(dev) for x in base))
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert launches("segment_sum") == before + 1
     for a, b in zip(got, base):
         assert torch.equal(a.cpu(), 2 * b)
 
@@ -1259,11 +1267,11 @@ def test_quantized_dist_curves_at_world_of_one_equal_raw(dev, data_of_one, which
         fn = dc.sharded_multiclass_auprc
         row = 6
     raw, raw_err = fn([s], [t], quantize=False)
-    sent = dc.exchange_buckets.send_bytes
+    sent = count("dist_curves.exchange_send_bytes")
     got, err = fn([s], [t], quantize=mode)
     torch.cuda.synchronize()
     assert err == raw_err == 0
-    assert (dc.exchange_buckets.send_bytes - sent) == row * s.shape[0] * (1 if s.ndim == 1 else s.shape[1])
+    assert (count("dist_curves.exchange_send_bytes") - sent) == row * s.shape[0] * (1 if s.ndim == 1 else s.shape[1])
     torch.testing.assert_close(got, raw, rtol=1e-5, atol=1e-8)
 
 
@@ -1391,11 +1399,11 @@ def test_restored_binary_auroc_compacts_on_the_card(dev, tmp_path):
     source = _ckpt_pair(dev)
     _ckpt_feed(source, dev, 2)
     target = restore(_ckpt_pair(dev), save(source, str(tmp_path)))
-    before = stream_compact.launches
+    before = launches("stream_compact")
     for pair in (source, target):
         _ckpt_feed(pair, dev, 2, seed=1)
         pair["auroc"].compute()
     torch.cuda.synchronize()
-    assert stream_compact.launches >= before + 2
+    assert launches("stream_compact") >= before + 2
     _same_states(_ckpt_states(target), _ckpt_states(source))
     assert torch.equal(target["auroc"].compute(), source["auroc"].compute())

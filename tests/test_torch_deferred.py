@@ -10,9 +10,9 @@ pending batches on both sides, pickling and deepcopy mid-stream,
 folds, and the number of window steps per budget window. The same numpy
 inputs, made from a seed, go through both packages (``device="cpu"`` on the
 port's metrics). Integer states must match exactly and floats within rtol
-1e-5; the valve cadence of the port (``window_step.calls`` and
-``fold_pending.calls``) must equal the JAX package's, read from its obs
-counters. The in-place-mutation guard and the eager fold under
+1e-5; the valve cadence of the port (``deferred.window_steps`` and
+``deferred.folds`` in its obs registry) must equal the JAX package's, read
+from its obs counters. The in-place-mutation guard and the eager fold under
 ``torch.func`` have no JAX counterpart.
 """
 
@@ -28,7 +28,7 @@ import torch
 import torcheval_tpu.metrics as J
 import torcheval_tpu_torch.metrics as T
 from torcheval_tpu import obs as jobs
-from torcheval_tpu_torch.metrics import deferred as D
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, recording
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -55,6 +55,13 @@ def _equal_states(port_metric, jax_metric):
             _close(g, w)
 
 
+@pytest.fixture(autouse=True)
+def _obs_on():
+    """The port's fold counters live in its obs registry: on for every case."""
+    with recording():
+        yield
+
+
 class _Counts:
     """Deltas of the port's fold counters since construction."""
 
@@ -64,10 +71,10 @@ class _Counts:
     @staticmethod
     def _now():
         return (
-            D.window_step.calls,
-            D.window_step.batches,
-            D.fold_pending.calls,
-            D.fold_pending.grouped,
+            count("deferred.window_steps"),
+            count("deferred.window_step_batches"),
+            count("deferred.folds"),
+            count("deferred.folds", entry="group_fold"),
         )
 
     def __call__(self):

@@ -24,9 +24,18 @@ from torcheval_tpu_torch.metrics import BinaryF1Score, MulticlassF1Score, Sliced
 from torcheval_tpu_torch.metrics.functional import binary_f1_score, multiclass_f1_score
 from torcheval_tpu_torch.utils.tracing import join_pending
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
-from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
 from torcheval_tpu_torch.utils.test_utils import NUM_TOTAL_UPDATES, MetricClassTester
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -121,12 +130,12 @@ def test_match_triple_counts_equals_both_jax_branches(n, classes):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_match_triple_counts_is_two_histograms():
-    before = hist.launches
+def test_match_triple_counts_is_two_histograms(obs_on):
+    before = launches("hist")
     pred, target = _triple_case(500, 4, seed=5)
     got = match_triple_counts(torch.from_numpy(pred).long(), torch.from_numpy(target).long(), 4)
     # a CPU tensor runs the plain version: no launch, the same counts
-    assert hist.launches == before
+    assert launches("hist") == before
     valid = (target >= 0) & (target < 4)
     np.testing.assert_array_equal(got[1].numpy(), np.bincount(target[valid], minlength=4))
     hits = valid & (pred == target)

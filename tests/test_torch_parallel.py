@@ -29,9 +29,17 @@ from torcheval_tpu_torch.parallel import (
 )
 from torcheval_tpu_torch.parallel import bootstrap
 from torcheval_tpu_torch.parallel.bootstrap import _resolve_env
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, recording
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-8
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset): the port's one counter."""
+    with recording():
+        yield
 
 
 def jax_example_numbers():
@@ -139,11 +147,11 @@ def world_env(clean_env, monkeypatch):
         monkeypatch.setenv(k, v)
 
 
-def test_connection_failure_retries_then_succeeds(world_env, monkeypatch):
+def test_connection_failure_retries_then_succeeds(world_env, monkeypatch, obs_on):
     fake = _FakeDist(monkeypatch, failures=2)
-    before = init_from_env.retries
+    before = count("bootstrap.retries")
     assert init_from_env(device="cpu", connect_backoff_s=1.0) == (1, 4)
-    assert fake.calls == 3 and init_from_env.retries - before == 2
+    assert fake.calls == 3 and count("bootstrap.retries") - before == 2
     # exponential base with 0.5-1.5x jitter: 1 s then 2 s nominal
     assert len(fake.sleeps) == 2
     assert 0.5 <= fake.sleeps[0] <= 1.5 and 1.0 <= fake.sleeps[1] <= 3.0

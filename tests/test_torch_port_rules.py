@@ -37,6 +37,7 @@ from torcheval_tpu_torch.ops.hist import hist, sharded_class_counts
 from torcheval_tpu_torch.ops.scatter import segment_scatter, segment_sum
 from torcheval_tpu_torch.ops.stream_compact import compact_summary_rows, stream_compact
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "torcheval_tpu_torch"
@@ -135,6 +136,14 @@ def test_sliced_members_live_on_their_templates_device(monkeypatch):
 
 
 @pytest.fixture
+def obs_on():
+    """The obs registry on (and reset): a kernel's launches are its
+    ``jit.calls{entry=}`` there."""
+    with recording():
+        yield
+
+
+@pytest.fixture
 def no_library(monkeypatch, tmp_path):
     """A machine where the kernels' library is neither built nor buildable,
     and the wrappers believe their tensors are not on the CPU."""
@@ -148,8 +157,8 @@ def no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "runs_plain", lambda t: False)
 
 
-def test_wrappers_raise_instead_of_falling_back(no_library):
-    before = (hist.launches, stream_compact.launches)
+def test_wrappers_raise_instead_of_falling_back(no_library, obs_on):
+    before = (launches("hist"), launches("stream_compact"))
     labels = torch.tensor([0, 1, 1, 5])
     with pytest.raises(RuntimeError, match="nvcc"):
         hist(labels, 3)
@@ -163,11 +172,11 @@ def test_wrappers_raise_instead_of_falling_back(no_library):
         MulticlassAccuracy(average="macro", num_classes=3, device="cpu").update(
             torch.rand(4, 3), labels.clamp(max=2)
         ).compute()  # the fold, deferred to the read, reaches the kernel
-    assert (hist.launches, stream_compact.launches) == before
+    assert (launches("hist"), launches("stream_compact")) == before
 
 
-def test_topk_wrapper_raises_instead_of_falling_back(no_library):
-    before = topk_kernel.launches
+def test_topk_wrapper_raises_instead_of_falling_back(no_library, obs_on):
+    before = launches("topk_kernel")
     x = torch.rand(4, 2000)
     with pytest.raises(RuntimeError, match="nvcc"):
         topk_kernel(x, 5)
@@ -181,11 +190,11 @@ def test_topk_wrapper_raises_instead_of_falling_back(no_library):
         ).compute()
     with pytest.raises(RuntimeError, match="nvcc"):
         NDCG(k=5, topk_method="kernel", device="cpu").update(x, torch.rand(4, 2000)).compute()
-    assert topk_kernel.launches == before
+    assert launches("topk_kernel") == before
 
 
-def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library):
-    before = (segment_sum.launches, hist.launches)
+def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library, obs_on):
+    before = (launches("segment_sum"), launches("hist"))
     vals = torch.ones(4, 2, dtype=torch.int32)
     rows = torch.tensor([0, 1, 1, 5])
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -205,7 +214,7 @@ def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library):
         SlicedMetricCollection(
             {"acc": MulticlassAccuracy(average="macro", num_classes=3, device="cpu")}
         ).update(ids, torch.rand(4, 3), torch.tensor([0, 1, 2, 1])).compute()
-    assert (segment_sum.launches, hist.launches) == before
+    assert (launches("segment_sum"), launches("hist")) == before
 
 
 def test_batched_tensors_never_reach_a_kernel_wrapper():
@@ -271,8 +280,8 @@ def test_f1_metrics_default_to_cuda(monkeypatch, make):
     assert make(device="cpu").device == torch.device("cpu")
 
 
-def test_f1_and_sharded_counts_raise_instead_of_falling_back(no_library):
-    before = hist.launches
+def test_f1_and_sharded_counts_raise_instead_of_falling_back(no_library, obs_on):
+    before = launches("hist")
     labels = torch.tensor([0, 1, 1, 2])
     with pytest.raises(RuntimeError, match="nvcc"):
         match_triple_counts(labels, labels, 3)
@@ -282,7 +291,7 @@ def test_f1_and_sharded_counts_raise_instead_of_falling_back(no_library):
         MulticlassF1Score(num_classes=3, average="macro", device="cpu").update(
             torch.rand(4, 3), labels
         ).compute()
-    assert hist.launches == before
+    assert launches("hist") == before
 
 
 def _host_moves(path: Path):
@@ -416,6 +425,37 @@ def test_classification_slice_modules_are_checked(name):
     assert not FORBIDDEN.intersection(_imported_roots(path))
 
 
+# ------------------------------------------------------ the obs slice
+OBS_SLICE_MODULES = [
+    "torcheval_tpu_torch.obs",
+    "torcheval_tpu_torch.obs.annotate",
+    "torcheval_tpu_torch.obs.cost",
+    "torcheval_tpu_torch.obs.distributed",
+    "torcheval_tpu_torch.obs.export",
+    "torcheval_tpu_torch.obs.httpd",
+    "torcheval_tpu_torch.obs.inventory",
+    "torcheval_tpu_torch.obs.recompile",
+    "torcheval_tpu_torch.obs.slo",
+    "torcheval_tpu_torch.obs.stream",
+    "torcheval_tpu_torch.utils.telemetry",
+    "torcheval_tpu_torch.utils.test_utils.obs_counts",
+    "torcheval_tpu_torch.utils.test_utils.obs_worker",
+]
+
+
+@pytest.mark.parametrize("name", OBS_SLICE_MODULES)
+def test_obs_slice_modules_are_checked(name):
+    # each is one of the modules the no-JAX and counterpart rules above
+    # walk, and imports neither jax nor the JAX package (not even its
+    # framework-free obs modules: the port keeps its own copies)
+    assert name in _modules() or name == "torcheval_tpu_torch.obs"
+    rel = name.split(".")[1:]
+    path = PACKAGE.joinpath(*rel, "__init__.py") if name == "torcheval_tpu_torch.obs" else (
+        PACKAGE.joinpath(*rel).with_suffix(".py"))
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
 # the fold functions of the new metrics and everything they call: a window
 # step runs them, and it makes no host sync (see above)
 _FOLD_FUNCTIONS = {
@@ -507,7 +547,7 @@ def test_classification_slice_metrics_default_to_cuda(monkeypatch, i):
     assert make(device="cpu").device == torch.device("cpu")
 
 
-def test_classification_slice_raises_instead_of_falling_back(no_library):
+def test_classification_slice_raises_instead_of_falling_back(no_library, obs_on):
     from torcheval_tpu_torch.metrics import (
         MulticlassAUROC,
         MulticlassBinnedPrecisionRecallCurve,
@@ -515,7 +555,7 @@ def test_classification_slice_raises_instead_of_falling_back(no_library):
         MulticlassPrecision,
     )
 
-    before = (hist.launches, segment_sum.launches, stream_compact.launches)
+    before = (launches("hist"), launches("segment_sum"), launches("stream_compact"))
     labels = torch.tensor([0, 1, 1, 2])
     scores = torch.rand(4, 3)
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -532,7 +572,7 @@ def test_classification_slice_raises_instead_of_falling_back(no_library):
     # the per-class compaction reaches the compaction kernel
     with pytest.raises(RuntimeError, match="nvcc"):
         MulticlassAUROC(num_classes=3, compaction_threshold=4, device="cpu").update(scores, labels)
-    assert (hist.launches, segment_sum.launches, stream_compact.launches) == before
+    assert (launches("hist"), launches("segment_sum"), launches("stream_compact")) == before
 
 
 # ------------------------------------------------------ the sharded forms
@@ -591,14 +631,14 @@ def test_sharded_sliced_members_live_on_their_templates_device(monkeypatch, worl
     assert col.metrics["acc"].device == torch.device("cpu")
 
 
-def test_sharded_forms_raise_instead_of_falling_back(no_library, world_of_one):
+def test_sharded_forms_raise_instead_of_falling_back(no_library, world_of_one, obs_on):
     from torcheval_tpu_torch.ops.scatter import sharded_segment_sum
     from torcheval_tpu_torch.ops.topk import sharded_label_topk, sharded_topk_kernel
     from torcheval_tpu_torch.sketch.cache import sliced_score_hist_fold
     from torcheval_tpu_torch.utils.dist import mesh_axis
 
     label, slices = world_of_one
-    before = (topk_kernel.launches, segment_sum.launches)
+    before = (launches("topk_kernel"), launches("segment_sum"))
     x = torch.rand(4, 2000)
     with pytest.raises(RuntimeError, match="nvcc"):
         sharded_topk_kernel(x, 5)
@@ -621,7 +661,7 @@ def test_sharded_forms_raise_instead_of_falling_back(no_library, world_of_one):
         SlicedMetricCollection(
             {"acc": BinaryAccuracy(device="cpu")}, mesh=slices, mesh_axis="slices"
         ).update(torch.tensor([7, 8, 7, 9]), torch.rand(4), torch.ones(4)).compute()
-    assert (topk_kernel.launches, segment_sum.launches) == before
+    assert (launches("topk_kernel"), launches("segment_sum")) == before
 
 
 def test_mesh_axis_names_are_checked(world_of_one):
@@ -673,10 +713,10 @@ def test_dist_curves_count_with_the_kernels_not_a_library_op():
 
 
 @pytest.mark.parametrize("which", ["binary", "multiclass", "sketch"])
-def test_dist_curves_raise_instead_of_falling_back(no_library, which):
+def test_dist_curves_raise_instead_of_falling_back(no_library, which, obs_on):
     from torcheval_tpu_torch.ops import dist_curves as dc
 
-    before = (hist.launches, segment_sum.launches)
+    before = (launches("hist"), launches("segment_sum"))
     s, t = torch.rand(8), (torch.rand(8) < 0.5).to(torch.float32)
     x, y = torch.rand(8, 3), torch.tensor([0, 1, 2, 0, 1, 2, 0, 1])
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -686,7 +726,7 @@ def test_dist_curves_raise_instead_of_falling_back(no_library, which):
             dc.sharded_multiclass_auprc([x], [y])
         else:
             dc.sharded_sketch_counts([s], [t], bucket_bits=10)
-    assert (hist.launches, segment_sum.launches) == before
+    assert (launches("hist"), launches("segment_sum")) == before
 
 
 def test_dist_curve_metrics_default_to_cuda(monkeypatch):
@@ -782,9 +822,9 @@ def test_async_value_warn_never_blocks_the_caller(rel):
 def test_quantized_dist_curves_raise_instead_of_falling_back(no_library):
     from torcheval_tpu_torch.ops import dist_curves as dc
 
-    before = (hist.launches, segment_sum.launches)
+    before = (launches("hist"), launches("segment_sum"))
     s, t = torch.rand(8), (torch.rand(8) < 0.5).to(torch.float32)
     for mode in ("bf16", "int8"):
         with pytest.raises(RuntimeError, match="nvcc"):
             dc.sharded_binary_auroc([s], [t], quantize=mode)
-    assert (hist.launches, segment_sum.launches) == before
+    assert (launches("hist"), launches("segment_sum")) == before

@@ -17,7 +17,16 @@ import torch
 import torcheval_tpu.metrics as JM
 from torcheval_tpu_torch import metrics as TM
 from torcheval_tpu_torch import sketch as T
-from torcheval_tpu_torch.metrics import deferred
+from torcheval_tpu_torch.utils.test_utils.obs_counts import folding_window_steps, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-8
 CPU = "cpu"
@@ -96,7 +105,7 @@ def test_quantile_scalar_q_validation_empty_nan_and_inf():
     assert lo == -np.inf and hi == np.inf
 
 
-def test_quantile_merge_window_state_dict_and_schema():
+def test_quantile_merge_window_state_dict_and_schema(obs_on):
     rng = np.random.default_rng(2)
     v = rng.lognormal(1, 2, 9000).astype(np.float32)
     solo, a, b = (TM.Quantile(0.5, device=CPU) for _ in range(3))
@@ -110,11 +119,11 @@ def test_quantile_merge_window_state_dict_and_schema():
     # one window step for the whole collection: the sketch is plain state
     col = TM.MetricCollection({"q": TM.Quantile(0.5, device=CPU), "m": TM.Mean(device=CPU)})
     w = rng.random(6000).astype(np.float32)
-    steps = deferred.window_step.windows
+    steps = folding_window_steps()
     for chunk in np.array_split(w, 4):
         col.update(chunk)
     out = col.compute()
-    assert deferred.window_step.windows - steps == 1
+    assert folding_window_steps() - steps == 1
     assert abs(float(out["q"]) - _true_quantile(w, 0.5)) <= T.relative_error(16)
     m = TM.Quantile((0.1, 0.9), device=CPU)
     m.update(rng.random(1000).astype(np.float32))

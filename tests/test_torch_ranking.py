@@ -17,8 +17,17 @@ import torcheval_tpu.metrics as J
 import torcheval_tpu.metrics.functional as JF
 import torcheval_tpu_torch.metrics as P
 import torcheval_tpu_torch.metrics.functional as PF
-from torcheval_tpu_torch.ops.topk import topk_kernel
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-8
 N, L = 48, 1300  # past the top-k engine's dense threshold of 1024 labels
@@ -234,9 +243,9 @@ def test_state_dict_reset_and_topk_method_check():
 
 
 @pytest.mark.parametrize("method", ["dense", "prune", "kernel"])
-def test_ndcg_forced_methods_launch_nothing_on_cpu(method):
+def test_ndcg_forced_methods_launch_nothing_on_cpu(method, obs_on):
     batches = _stream("NDCG", 12)
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     ours = _feed(P.NDCG(k=10, topk_method=method, device="cpu"), batches)
     _close(ours.compute(), _feed(J.NDCG(k=10), batches).compute())
-    assert topk_kernel.launches == before
+    assert launches("topk_kernel") == before

@@ -22,9 +22,18 @@ from torcheval_tpu.sketch import histogram as JH
 from torcheval_tpu_torch import _build
 from torcheval_tpu_torch import metrics as TM
 from torcheval_tpu_torch import sketch as T
-from torcheval_tpu_torch.ops.scatter import segment_sum
 from torcheval_tpu_torch.sketch import cache as TC
 from torcheval_tpu_torch.sketch import histogram as TH
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 RTOL, ATOL = 1e-5, 1e-8
 CPU = "cpu"
@@ -485,8 +494,8 @@ def no_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "runs_plain", lambda t: False)
 
 
-def test_sketch_folds_raise_instead_of_falling_back(no_library):
-    before = segment_sum.launches
+def test_sketch_folds_raise_instead_of_falling_back(no_library, obs_on):
+    before = launches("segment_sum")
     s = torch.rand(64)
     t = (torch.rand(64) < 0.5).float()
     folds = [
@@ -501,4 +510,4 @@ def test_sketch_folds_raise_instead_of_falling_back(no_library):
     for fold in folds:
         with pytest.raises(RuntimeError, match="nvcc"):
             fold()
-    assert segment_sum.launches == before
+    assert launches("segment_sum") == before

@@ -37,9 +37,17 @@ from torcheval_tpu_torch.metrics import (
 from torcheval_tpu_torch.metrics import toolkit as tk
 from torcheval_tpu_torch.metrics.state import Reduction
 from torcheval_tpu_torch.utils.test_utils import DummySumDictStateMetric, DummySumMetric
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, recording, rounds
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset): the port's one counter."""
+    with recording():
+        yield
 
 
 def _np(x):
@@ -278,9 +286,9 @@ def stalled_world(monkeypatch):
     release.set()
 
 
-def test_on_failure_local_returns_the_local_result_on_a_stalled_round(stalled_world, caplog):
+def test_on_failure_local_returns_the_local_result_on_a_stalled_round(stalled_world, caplog, obs_on):
     m = Sum(device=CPU).update(torch.tensor([1.0, 2.0]))
-    before = tk._sync_failure.count
+    before = count("toolkit.sync.timeouts", policy="local")
     synced = tk.get_synced_metric(m, recipient_rank=1, timeout_s=0.2, on_failure="local")
     assert synced is not m and float(synced.compute()) == 3.0
     assert float(tk.sync_and_compute(m, timeout_s=0.2, on_failure="local")) == 3.0
@@ -288,7 +296,7 @@ def test_on_failure_local_returns_the_local_result_on_a_stalled_round(stalled_wo
         {"s": m, "d": DummySumDictStateMetric(device=CPU)}, timeout_s=0.2, on_failure="local"
     )
     assert float(out["s"]) == 3.0
-    assert tk._sync_failure.count - before == 3
+    assert count("toolkit.sync.timeouts", policy="local") - before == 3
 
 
 def test_on_failure_raise_names_the_stalled_round(stalled_world):
@@ -324,11 +332,11 @@ def echo_world(monkeypatch):
     monkeypatch.setattr(tk._dist, "collective_device", lambda pg: torch.device("cpu"))
 
 
-def test_echo_world_doubles_counts_and_keeps_device_and_types(echo_world):
+def test_echo_world_doubles_counts_and_keeps_device_and_types(echo_world, obs_on):
     port, _ = _twin_collections()
-    before = tk._allgather_stacked.rounds
+    before = rounds()
     out = tk.sync_and_compute_collection(port, recipient_rank="all")
-    assert tk._allgather_stacked.rounds - before == 2
+    assert rounds() - before == 2
     for name in ("acc", "f1", "sum", "max"):
         local = port[name].compute()
         assert out[name].dtype == local.dtype and out[name].device == local.device

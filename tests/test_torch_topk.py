@@ -29,6 +29,16 @@ from torcheval_tpu_torch.ops.topk import (
     topk_kernel_plain,
     topk_values,
 )
+from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+
+
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset) for a test that counts launches,
+    folds or rounds: the registry is the port's one counter."""
+    with recording():
+        yield
+
 
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda", 0)  # only compared, never allocated on
@@ -231,12 +241,12 @@ def test_pick_method_table():
         _pick_method(10_000, 5, f32, "pallas", CPU)
 
 
-def test_auto_on_cpu_runs_dense_and_launches_nothing():
+def test_auto_on_cpu_runs_dense_and_launches_nothing(obs_on):
     x = _case("ties", np.random.default_rng(5))
-    before = topk_kernel.launches
+    before = launches("topk_kernel")
     _assert_same(topk(torch.from_numpy(x), 5), *_lax(x, 5))
     _assert_same(topk(torch.from_numpy(x), 5, method="kernel"), *_lax(x, 5))
-    assert topk_kernel.launches == before
+    assert launches("topk_kernel") == before
 
 
 def test_values_indices_helpers_and_other_dtypes():

@@ -31,6 +31,7 @@ import torcheval_tpu_torch.metrics as T
 from torcheval_tpu_torch.metrics import deferred as D
 from torcheval_tpu_torch.metrics import sliced as S
 from torcheval_tpu_torch.metrics import toolkit as tk
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, recording
 
 CPU = "cpu"
 RTOL, ATOL = 1e-5, 1e-8
@@ -181,15 +182,22 @@ def test_member_state_dict_mid_window_drains_the_window():
     _check(col, ref)  # the sibling's contribution survived
 
 
-def test_member_compute_mid_window_rides_the_window_close():
+@pytest.fixture
+def obs_on():
+    """The obs registry on (and reset): it counts the window steps."""
+    with recording():
+        yield
+
+
+def test_member_compute_mid_window_rides_the_window_close(obs_on):
     rng = np.random.default_rng(7)
     x, t = _batch(rng)
     col, ref = _twins(["acc", "f1"])
     col.update(x, t)
     ref.update(x, t)
-    steps = D.window_step.calls
+    steps = count("deferred.window_steps")
     _close(col["acc"].compute(), ref["acc"].compute())
-    assert D.window_step.calls == steps + 1 and col._window.chunks == []
+    assert count("deferred.window_steps") == steps + 1 and col._window.chunks == []
     _check(col, ref)
 
 
@@ -410,7 +418,7 @@ def _check_sliced(got, want):
         _close(got[name]["values"].numpy(), np.asarray(want[name]["values"]))
 
 
-def test_sliced_collection_rides_one_window_with_one_scatter_per_group(monkeypatch):
+def test_sliced_collection_rides_one_window_with_one_scatter_per_group(monkeypatch, obs_on):
     """Five batches, three members: the window folds once, with one segment
     scatter per delta group (the accuracy pair, the Mean pair, the Max)."""
     calls = []
@@ -428,7 +436,7 @@ def test_sliced_collection_rides_one_window_with_one_scatter_per_group(monkeypat
     agg = T.SlicedMetricCollection({"mean": T.Mean(device=CPU), "max": T.Max(device=CPU)}, capacity=64)
     jport = J.SlicedMetricCollection({"acc": J.BinaryAccuracy()}, capacity=64)
     jagg = J.SlicedMetricCollection({"mean": J.Mean(), "max": J.Max()}, capacity=64)
-    steps = D.window_step.calls
+    steps = count("deferred.window_steps")
     for ids, s, t in stream:
         port.update(ids, s, t)
         agg.update(ids, s)
@@ -438,7 +446,7 @@ def test_sliced_collection_rides_one_window_with_one_scatter_per_group(monkeypat
     _check_sliced({**port.compute(), **agg.compute()}, {**jport.compute(), **jagg.compute()})
     rows = sum(len(ids) for ids, _, _ in stream)
     assert sorted(calls) == sorted([(rows, 2), (rows, 2), (rows,)])
-    assert D.window_step.calls == steps + 2  # one window step per collection
+    assert count("deferred.window_steps") == steps + 2  # one window step per collection
 
 
 def test_sliced_capacity_growth_mid_window_matches_jax():

@@ -167,6 +167,11 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def loaded() -> bool:
+    """True once this process has loaded the kernels' library."""
+    return _loaded.lib is not None
+
+
 def build_report() -> tuple:
     """``(seconds, log)`` of this process's build; seconds is None when an
     earlier build was reused."""

@@ -25,11 +25,11 @@ from torcheval_tpu_torch.metrics.state import Reduction
 from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, representatives_on
 from torcheval_tpu_torch.sketch.cache import (
     ValueSketchCacheMixin,
-    _log_once,
     raise_sketch_overflow,
     resolve_approx,
 )
 from torcheval_tpu_torch.utils.devices import DeviceLike
+from torcheval_tpu_torch.utils.telemetry import log_once
 
 
 class Cat(ValueSketchCacheMixin, SampleCacheMetric[torch.Tensor]):
@@ -46,7 +46,7 @@ class Cat(ValueSketchCacheMixin, SampleCacheMetric[torch.Tensor]):
         bits = resolve_approx(approx, default_bits=DEFAULT_BUCKET_BITS)
         if bits is not None and dim != 0:
             if approx is None:
-                _log_once(
+                log_once(
                     "cat_approx_needs_dim0",
                     "TORCHEVAL_TPU_APPROX is set but Cat(dim=%d) cannot sketch (the "
                     "sketch pools elements; higher-dimension concat structure is not "

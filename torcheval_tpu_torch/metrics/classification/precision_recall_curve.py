@@ -33,7 +33,6 @@ from torcheval_tpu_torch.metrics.sample_cache import SampleCacheMetric
 from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_BUCKET_BITS
 from torcheval_tpu_torch.sketch.cache import (
     ScoreSketchCacheMixin,
-    _log_once,
     raise_sketch_overflow,
     resolve_approx,
     sketch_mc_prc_from_parts,
@@ -41,6 +40,7 @@ from torcheval_tpu_torch.sketch.cache import (
 )
 from torcheval_tpu_torch.sketch.histogram import trim_hist_curve
 from torcheval_tpu_torch.utils.devices import DeviceLike
+from torcheval_tpu_torch.utils.telemetry import log_once
 
 _CurveResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -106,7 +106,7 @@ class MulticlassPrecisionRecallCurve(
             if approx is None:
                 # the environment cannot size the (C, B) state: stay exact,
                 # loudly, rather than raise in code that never asked
-                _log_once(
+                log_once(
                     "mc_prc_approx_needs_num_classes",
                     "TORCHEVAL_TPU_APPROX is set but MulticlassPrecisionRecallCurve "
                     "was built without num_classes; the sketch state cannot be "

@@ -24,6 +24,10 @@ A window owns its batches when the collection placed each one itself (from
 numpy, or a CPU tensor copied to the card); only then may it release them
 before the fold math runs. ``update_placed`` (batches placed by an ingest
 pipeline) is not ported.
+
+``update`` and ``compute`` are annotated for the profiler and the obs
+registry (``collection.update``, ``collection.compute``); the valve lands a
+``deferred.window.valve`` instant on the timeline while obs is enabled.
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.metrics.deferred import EvalWindow, _under_transform, _versions
+from torcheval_tpu_torch.metrics.deferred import EvalWindow, _versions
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs import trace as _obs_trace
+from torcheval_tpu_torch.obs.annotate import _under_transform, traced
 
 _PACKAGE = "torcheval_tpu_torch."
 
@@ -134,6 +141,7 @@ class MetricCollection:
         new.__dict__.update(copy.deepcopy(self.__dict__, memo))
         return new
 
+    @traced("collection.update")
     def update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
         return self._update_impl(args, kwargs)
 
@@ -230,8 +238,17 @@ class MetricCollection:
             window.nbytes + probe._pending_bytes >= probe._DEFER_BUDGET_BYTES
             or len(window.chunks) + len(probe._pending) >= probe._DEFER_MAX_CHUNKS
         ):
+            if _obs._enabled:
+                # the valve firing explains every fold before a compute()
+                _obs_trace.instant(
+                    "deferred.window.valve",
+                    kind="window",
+                    chunks=len(window.chunks),
+                    bytes=window.nbytes,
+                )
             window.close()
 
+    @traced("collection.compute")
     def compute(self) -> Any:
         out: Dict[str, Any] = {}
         if self._window is not None:

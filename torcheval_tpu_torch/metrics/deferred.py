@@ -64,12 +64,27 @@ through a numpy or DLPack view, and tensors made under
 ``torch.func`` transform or while ``torch.compile`` traces folds at once, so
 no wrapped or captured tensor outlives its transform in a pending list.
 
-**Counters.** :func:`window_step` counts its calls, those that folded
-batches and the batches they folded (``window_step.calls``,
-``window_step.windows``, ``window_step.batches``); :func:`fold_pending`
-counts the solo and group folds (``fold_pending.calls``,
-``fold_pending.chunks``, ``fold_pending.grouped``), as the kernel wrappers
-count their launches.
+**Observability** (``obs/``, while enabled), at the JAX package's call
+sites and under its names: :func:`window_step` counts
+``deferred.window_steps{path=stacked|concat|compute}``, the batches it
+folds (``deferred.window_step_batches``, the ``deferred.window_occupancy``
+histogram) and lands a ``deferred.window_step.dispatch`` bar on the
+timeline; :func:`fold_pending` counts ``deferred.folds{entry=fold|
+group_fold,path=}`` and ``deferred.folded_chunks{entry=}`` with a
+``deferred.fold.dispatch`` instant; a window lands
+``deferred.window.open/append/close`` instants, and the collection's valve
+``deferred.window.valve``. ``path`` follows the JAX gate: ``stacked``
+unless a batch holds a tensor subclass (the JAX package's mesh-sharded
+chunks), whatever each member's fold shape. The overlap of a window's fill
+with the previous window step's execution is the
+``deferred.window.overlap_ms`` histogram: each window step on the card
+records a CUDA event after its work, and the next window's appends poll it
+with ``Event.query()``, which never blocks (the JAX package polls its
+output's ``is_ready()``); no event is recorded under a transform or a
+graph capture. The three entry points are watched by the recompile
+watchdog (``deferred.fold_pending``, ``deferred.group_fold``,
+``deferred.window_step``). Labels are built behind a call-site
+``if _obs._enabled`` guard, so the disabled path allocates nothing.
 
 Contract for subclasses::
 
@@ -111,10 +126,16 @@ the folded-so-far value; ``state_dict()`` and ``compute()`` fold first.
 from __future__ import annotations
 
 import itertools
+import time
 import weakref
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs import trace as _trace
+from torcheval_tpu_torch.obs.annotate import _under_transform
+from torcheval_tpu_torch.obs.recompile import watched
 
 Chunk = Tuple[torch.Tensor, ...]
 Versions = Tuple[Optional[int], ...]
@@ -126,7 +147,15 @@ Versions = Tuple[Optional[int], ...]
 _live_deferred: "weakref.WeakSet" = weakref.WeakSet()
 _defer_seq = itertools.count(1)
 
-_is_functorch_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+# a CUDA event recorded after the last window step on the card (obs
+# enabled): the anchor of the fill/execute overlap histogram
+_last_window_event: Optional[torch.cuda.Event] = None
+
+
+def _window_step_running() -> bool:
+    """True while the last window step's work is still on the card
+    (``Event.query()`` never blocks)."""
+    return _last_window_event is not None and not _last_window_event.query()
 
 
 def _chunks_identical(a: Sequence[Chunk], b: Sequence[Chunk]) -> bool:
@@ -173,20 +202,6 @@ def _amin0(v: torch.Tensor) -> torch.Tensor:
 
 # _fold_reduce -> its reduction over the stacked batch axis
 _AXIS_REDUCERS = {None: _sum0, torch.maximum: _amax0, torch.minimum: _amin0}
-
-
-def _under_transform(args: Sequence[Any]) -> bool:
-    """True while ``torch.compile`` traces, under a ``torch.func`` transform,
-    or while the current CUDA stream captures a graph."""
-    if torch.compiler.is_compiling():
-        return True
-    cuda = False
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            if _is_functorch_wrapped(a):
-                return True
-            cuda = cuda or a.is_cuda
-    return cuda and torch.cuda.is_current_stream_capturing()
 
 
 def _versions(args: Sequence[torch.Tensor]) -> Versions:
@@ -279,22 +294,35 @@ def _combine(
             m._apply_deltas(deltas)
 
 
-def fold_pending(members: Sequence["DeferredFoldMixin"], chunks: Sequence[Chunk]) -> None:
+def _stack_allowed(chunks: Sequence[Chunk]) -> bool:
+    """The JAX package's gate for its stacked path: plain tensors only (a
+    tensor subclass, such as a ``DTensor``, stands where the JAX package's
+    mesh-sharded chunks stand). The count label only: each member's fold
+    shape is picked by :func:`_member_deltas`."""
+    return all(type(a) is torch.Tensor for a in chunks[0])
+
+
+@watched(name="deferred.fold_pending")
+def fold_pending(
+    members: Sequence["DeferredFoldMixin"], chunks: Sequence[Chunk], entry: str = "fold"
+) -> None:
     """Fold ``chunks`` into every metric of ``members`` (one metric's own
-    pending batches, or a group's shared prefix): the solo and group lane.
-    The callers check the version counters and clear the pending lists."""
+    pending batches, or a group's shared prefix): the solo and group lane,
+    counted under ``entry`` (``fold`` or ``group_fold``, the JAX package's
+    dispatchers). The callers check the version counters and clear the
+    pending lists."""
     pairs = [(str(i), m) for i, m in enumerate(members)]
     _combine(pairs, _member_deltas(pairs, chunks))
-    fold_pending.calls += 1
-    fold_pending.chunks += len(chunks)
-    fold_pending.grouped += len(pairs) > 1
+    if _obs._enabled:
+        path = "stacked" if _stack_allowed(chunks) else "concat"
+        _obs.counter("deferred.folds", entry=entry, path=path)
+        _obs.counter("deferred.folded_chunks", float(len(chunks)), entry=entry)
+        _trace.instant(
+            "deferred.fold.dispatch", kind="window", entry=entry, path=path, chunks=len(chunks)
+        )
 
 
-fold_pending.calls = 0
-fold_pending.chunks = 0
-fold_pending.grouped = 0
-
-
+@watched(name="deferred.group_fold")
 def group_fold(members: Dict[str, "DeferredFoldMixin"]) -> None:
     """Fold every member's own pending batches at once when they hold the
     same tensors (members each fed the same batches through their own
@@ -312,11 +340,12 @@ def group_fold(members: Dict[str, "DeferredFoldMixin"]) -> None:
         return
     for m in pending:
         _check_unchanged(type(m).__name__, m._pending, m._pending_versions)
-    fold_pending(pending, head)
+    fold_pending(pending, head, "group_fold")
     for m in pending:
         m._clear_pending()
 
 
+@watched(name="deferred.window_step")
 def window_step(
     members: Dict[str, "DeferredFoldMixin"],
     chunks: Sequence[Chunk],
@@ -344,6 +373,12 @@ def window_step(
     n = len(chunks)
     if not n and not computing:
         return {}
+    path, cuda, t0 = None, False, 0.0
+    if _obs._enabled:
+        # read before the fold: an owned list of batches is emptied by it
+        path = ("stacked" if _stack_allowed(chunks) else "concat") if n else "compute"
+        cuda = bool(n) and chunks[0][0].is_cuda and not _under_transform(chunks[0])
+        t0 = time.perf_counter()
     if n:
         if versions is not None:
             names = ", ".join(type(m).__name__ for m in members.values())
@@ -357,15 +392,33 @@ def window_step(
         )
         for name, m in computing
     }
-    window_step.calls += 1
-    window_step.windows += n > 0
-    window_step.batches += n
+    if path is not None:
+        _count_window_step(path, n, len(computing), t0)
+        if cuda:
+            # the overlap anchor: this step's work, enqueued on the stream
+            global _last_window_event
+            _last_window_event = torch.cuda.Event()
+            _last_window_event.record()
     return results
 
 
-window_step.calls = 0
-window_step.windows = 0
-window_step.batches = 0
+def _count_window_step(path: str, n: int, computes: int, t0: float) -> None:
+    _obs.counter("deferred.window_steps", path=path)
+    if n:
+        _obs.counter("deferred.window_step_batches", float(n))
+        # batches per window as a distribution: the valve cadence's health
+        _obs.histo("deferred.window_occupancy", float(n))
+    # host-side dispatch duration (the work runs asynchronously)
+    _trace.complete(
+        "deferred.window_step.dispatch",
+        t0,
+        time.perf_counter() - t0,
+        kind="window",
+        path=path,
+        batches=n,
+        computes=computes,
+        donated=False,
+    )
 
 
 class EvalWindow:
@@ -387,6 +440,9 @@ class EvalWindow:
         "sig_nbytes",
         "owned",
         "owner",
+        "_fill_t0",
+        "_ov_open",
+        "_ov_last",
         "__weakref__",
     )
 
@@ -400,12 +456,59 @@ class EvalWindow:
         self.owned = True
         # a window built without a collection counts as alive
         self.owner = weakref.ref(owner) if owner is not None else (lambda: self)
+        # the overlap watermark (obs enabled): this window's fill start,
+        # whether the last window step was still running when it began and
+        # has been seen running at every append since, and the last moment
+        # it was seen running
+        self._fill_t0 = 0.0
+        self._ov_open = False
+        self._ov_last = 0.0
 
     def append(self, chunk: Chunk, versions: Versions, nbytes: int, owned: bool) -> None:
+        if _obs._enabled:
+            # the labels are built behind this call-site guard: the armed
+            # update path allocates nothing while obs is disabled
+            _trace.instant(
+                "deferred.window.append" if self.chunks else "deferred.window.open",
+                kind="window",
+                chunks=len(self.chunks) + 1,
+                bytes=nbytes,
+            )
+            self._track_overlap(bool(self.chunks))
         self.chunks.append(chunk)
         self.versions.append(versions)
         self.nbytes += nbytes
         self.owned = self.owned and owned
+
+    def _track_overlap(self, filling: bool) -> None:
+        """Advance the fill/execute overlap watermark: on a window's first
+        append, open it if the last window step is still running; on later
+        appends, move it while that work runs, and close it once it ran."""
+        now = time.perf_counter()
+        running = _window_step_running()
+        if not filling:
+            self._fill_t0 = now
+            self._ov_open = running
+            self._ov_last = now if running else 0.0
+        elif self._ov_open:
+            if running:
+                self._ov_last = now
+            else:
+                self._ov_open = False
+
+    def _record_overlap(self) -> None:
+        """Record the closing window's fill/execute overlap in
+        ``deferred.window.overlap_ms`` (before its own step runs)."""
+        if not self._ov_last:
+            return
+        if self._ov_open and _window_step_running():
+            # still running as this window closes: the whole fill overlapped
+            self._ov_last = time.perf_counter()
+        overlap_s = self._ov_last - self._fill_t0
+        if overlap_s > 0.0:
+            _obs.histo("deferred.window.overlap_ms", overlap_s * 1e3)
+        self._ov_open = False
+        self._ov_last = 0.0
 
     def clear(self) -> None:
         self.chunks = []
@@ -420,6 +523,13 @@ class EvalWindow:
         and the members' own pending batches (a member streamed into
         directly), in one group fold where those align."""
         compute_keys = tuple(compute_keys)
+        if _obs._enabled:
+            _trace.instant(
+                "deferred.window.close",
+                kind="window",
+                chunks=len(self.chunks),
+                computes=len(compute_keys),
+            )
         for key in compute_keys:
             m = self.members.get(key)
             if m is None:
@@ -429,6 +539,8 @@ class EvalWindow:
                     w.close()
         if any(m._pending for m in self.members.values()):
             group_fold(self.members)
+        if _obs._enabled and self.chunks:
+            self._record_overlap()
         results = window_step(
             self.members,
             self.chunks,
@@ -589,7 +701,7 @@ class DeferredFoldMixin:
             return
         for m in group:
             _check_unchanged(type(m).__name__, chunks, m._pending_versions[:common])
-        fold_pending(group, chunks)
+        fold_pending(group, chunks, "group_fold")
         for m in group:
             m._pending = m._pending[common:]
             m._pending_versions = m._pending_versions[common:]

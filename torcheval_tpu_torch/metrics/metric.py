@@ -14,6 +14,13 @@ Every read of the logical state calls it first: ``state_dict``,
 ``load_state_dict`` (so a partial load keeps the pending contribution of the
 states it does not name), ``to`` and ``_prepare_for_merge_state`` (every
 sync); the mixin adds pickling and deepcopy.
+
+Every subclass's ``update``/``compute``/``merge_state`` is annotated for the
+profiler and the obs registry under the runtime class's name
+(``metric.update/BinaryAUROC``, ``obs/annotate.py``), and the first
+construction of each class is logged once
+(``torcheval_tpu_torch.metrics.<class>``, ``utils/telemetry.py``), as in the
+JAX package. Both cost one global read or one set lookup while obs is off.
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from torcheval_tpu_torch.metrics.state import (
     copy_state,
     put_state,
 )
+from torcheval_tpu_torch.obs.annotate import instrument_protocol
 from torcheval_tpu_torch.utils.convert import as_tensor
 from torcheval_tpu_torch.utils.devices import DeviceLike, canonical_device
+from torcheval_tpu_torch.utils.telemetry import log_api_usage_once
 
 
 def _zero_scalar() -> torch.Tensor:
@@ -48,7 +57,13 @@ class Metric(Generic[TComputeReturn], ABC):
     """Abstract streaming metric. ``compute()`` must be idempotent and must
     not mutate state."""
 
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        # per-class span names: "metric.update/BinaryAUROC"
+        super().__init_subclass__(**kwargs)
+        instrument_protocol(cls)
+
     def __init__(self, *, device: DeviceLike = None) -> None:
+        log_api_usage_once(f"torcheval_tpu_torch.metrics.{type(self).__name__}")
         self._device = canonical_device(device)
         self._state_name_to_default: Dict[str, TState] = {}
         self._state_name_to_reduction: Dict[str, Reduction] = {}

@@ -52,8 +52,7 @@ descriptors alone (ranks that disagree on the knob still interoperate):
   ``Q8_MIN_ELEMENTS`` (64) elements, int8 blocks of 256 with a float32
   scale each; an element is off by at most ``max|block| / 254`` for each
   rank that contributes it. A lane with a non-finite value ships raw, and
-  ``_encode_sync_entry.quantize_fallbacks`` counts it
-  (``toolkit.sync.quantize_fallbacks`` in the JAX package).
+  ``toolkit.sync.quantize_fallbacks{reason=nonfinite}`` counts it.
 
 An encoder that would not shrink an entry leaves it raw, so the codecs
 only ever remove bytes. The sync stays two rounds. The encoding runs on a
@@ -61,12 +60,21 @@ host copy of the entry (what the gloo round stages anyway); under NCCL the
 encoded bytes travel as a uint8 tensor on the card, and each encoded
 entry is decoded on the host.
 
-The JAX package's observability spans are not ported; the rounds, their
-payload bytes and their seconds are counted in
-``_allgather_stacked.rounds``, ``.payload_bytes`` and ``.seconds``
-instead. Its fault-injection hook is (``resilience/chaos.py``, called at
-the top of :func:`_allgather_stacked`), so ``TORCHEVAL_TPU_CHAOS_ROUND=3``
-means "entering the second sync's descriptor round" in both packages.
+Observability (``obs/``, while enabled) keeps the JAX package's names and
+call sites. Every round goes through :func:`_allgather_stacked`, which
+counts ``toolkit.sync.rounds`` and ``toolkit.sync.payload_bytes``, records
+the ``toolkit.sync.round{lane=,round=}`` span and the
+``toolkit.sync.round_seconds{lane=}`` histogram and sets
+``toolkit.sync.world_size``; the object lane's ``all_gather_object`` counts
+its two rounds there too, and ``toolkit.sync.object_lane_bytes``. The
+collection gather counts ``toolkit.sync.lane_bytes{lane=}`` and
+``toolkit.sync.lane_bytes_encoded{lane=,codec=}``; a failed sync counts
+``toolkit.sync.timeouts{policy=}``. The three entry points are annotated
+(``toolkit.get_synced_metric``, ``toolkit.sync_and_compute``,
+``toolkit.sync_and_compute_collection``). The fault-injection hook
+(``resilience/chaos.py``) is called at the top of
+:func:`_allgather_stacked`, so ``TORCHEVAL_TPU_CHAOS_ROUND=3`` means
+"entering the second sync's descriptor round" in both packages.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ import copy
 import hashlib
 import logging
 import math
+import pickle
 import threading
 import time
 from collections import defaultdict, deque
@@ -87,10 +96,13 @@ import torch.distributed as dist
 
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.state import Reduction, TState
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs.annotate import traced
 from torcheval_tpu_torch.resilience import chaos as _chaos
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils import quant as _quant
 from torcheval_tpu_torch.utils.devices import DeviceLike
+from torcheval_tpu_torch.utils.telemetry import log_once
 
 _logger = logging.getLogger(__name__)
 
@@ -215,27 +227,19 @@ def _run_guarded(fn: Callable[[], Any], round_label: str, lane: str) -> Any:
     return box["value"]
 
 
-_degraded_warned = False
-
-
 def _sync_failure(err: SyncError, on_failure: str) -> None:
-    """Apply the failure policy: re-raise, or warn once per process and let
-    the caller return its local result."""
-    global _degraded_warned
-    _sync_failure.count += 1
+    """Count the failure and apply the policy: re-raise, or warn once
+    (until ``obs.reset()``) and let the caller return its local result."""
+    _obs.counter("toolkit.sync.timeouts", policy=on_failure)
     if on_failure == "raise":
         raise err
-    if not _degraded_warned:
-        _degraded_warned = True
-        _logger.warning(
-            "explicit sync failed (%s); continuing with LOCAL (unsynced) results under "
-            "on_failure='local'. Later syncs may degrade the same way; this warning is "
-            "emitted once per process.",
-            err,
-        )
-
-
-_sync_failure.count = 0
+    log_once(
+        "toolkit.sync.degraded",
+        "explicit sync failed (%s); continuing with LOCAL (unsynced) results under "
+        "on_failure='local'. Later syncs may degrade the same way; this warning is "
+        "emitted once per process.",
+        err,
+    )
 
 
 # --------------------------------------------------------------------- local
@@ -332,6 +336,8 @@ _DESC_COLS = 9
 # codec ids are wire format, the JAX package's (module doc)
 _SYNC_CODEC_RAW, _SYNC_CODEC_NARROW, _SYNC_CODEC_Q8, _SYNC_CODEC_BUCKET = 0, 1, 2, 3
 _QUANT_LANES = (Reduction.SUM, Reduction.MAX, Reduction.MIN)
+# the codecs' names on the lane counters, by codec id
+_SYNC_CODEC_NAMES = ("raw", "narrow", "q8", "bucket")
 
 
 def _encodable(red: Reduction, local: Optional[torch.Tensor]) -> bool:
@@ -351,7 +357,7 @@ def _encode_sync_entry(red: Reduction, local: Optional[np.ndarray], quantize: bo
     lane is not additive, or no encoding would shrink the entry. Integer
     lanes race the lossless narrow and bucket codecs and the smaller ships;
     a non-finite float32 lane ships raw and is counted in
-    ``quantize_fallbacks``."""
+    ``toolkit.sync.quantize_fallbacks{reason=nonfinite}``."""
     if not quantize or local is None or red not in _QUANT_LANES:
         return _SYNC_CODEC_RAW, None
     if local.dtype.kind in "iu":
@@ -363,15 +369,13 @@ def _encode_sync_entry(red: Reduction, local: Optional[np.ndarray], quantize: bo
             return _SYNC_CODEC_NARROW, enc
     elif red is Reduction.SUM and local.dtype == np.float32 and local.size >= _quant.Q8_MIN_ELEMENTS:
         if not np.isfinite(local).all():
-            _encode_sync_entry.quantize_fallbacks += 1
+            _obs.counter("toolkit.sync.quantize_fallbacks", reason="nonfinite")
             return _SYNC_CODEC_RAW, None
         enc = _quant.q8_encode(local, check_finite=False)  # checked just above
         if enc is not None:
             return _SYNC_CODEC_Q8, enc
     return _SYNC_CODEC_RAW, None
 
-
-_encode_sync_entry.quantize_fallbacks = 0
 
 
 def _decode_sync_entry(codec: int, wire: bytes, dtype: torch.dtype, shape: tuple) -> np.ndarray:
@@ -434,25 +438,30 @@ def _allgather_stacked(
     lane: str = "typed",
 ) -> torch.Tensor:
     """``(n_members, *x.shape)``: every member's ``x`` in group order, on the
-    collective device. Every typed round goes through here, which counts
-    it (``rounds``, the local ``payload_bytes``, wall ``seconds``) and runs
-    it under the active deadline. The env-gated fault-injection hook
+    collective device. Every typed round goes through here, which runs it
+    under the active deadline and, while obs is enabled, counts it
+    (module doc). The env-gated fault-injection hook
     (``resilience/chaos.py``) runs first: it counts rounds here and can kill
     or delay this process at a chosen round (a ``sync_and_compute`` is two
     rounds); disarmed, it costs one cached-config check."""
     _chaos.on_sync_round()
-    t0 = time.perf_counter()
     pg = _torch_group(group)
-    out = _run_guarded(lambda: _dist.all_gather_stacked(x, pg), round_label, lane)
-    _allgather_stacked.rounds += 1
-    _allgather_stacked.payload_bytes += x.numel() * x.element_size()
-    _allgather_stacked.seconds += time.perf_counter() - t0
+    if not _obs._enabled:
+        return _run_guarded(lambda: _dist.all_gather_stacked(x, pg), round_label, lane)
+    t0 = time.perf_counter()
+    with _obs.span("toolkit.sync.round", lane=lane, round=round_label):
+        out = _run_guarded(lambda: _dist.all_gather_stacked(x, pg), round_label, lane)
+    _count_round(1, x.numel() * x.element_size(), lane, time.perf_counter() - t0, group)
     return out
 
 
-_allgather_stacked.rounds = 0
-_allgather_stacked.payload_bytes = 0
-_allgather_stacked.seconds = 0.0
+def _count_round(rounds: int, nbytes: int, lane: str, seconds: float, group) -> None:
+    _obs.counter("toolkit.sync.rounds", float(rounds))
+    _obs.counter("toolkit.sync.payload_bytes", float(nbytes))
+    # the latency distribution per lane: a straggling rank is a fat p99
+    # long before a deadline fires
+    _obs.histo("toolkit.sync.round_seconds", seconds, lane=lane)
+    _obs.gauge("toolkit.sync.world_size", len(group) if group is not None else _dist.world_size())
 
 
 # ------------------------------------------------------- object-gather lane
@@ -480,14 +489,21 @@ def _allgather_object(obj: Any, group: Optional[Tuple[int, ...]] = None) -> List
     """Every member's picklable ``obj``, in group order, through
     ``all_gather_object`` (its two collectives, the lengths and the padded
     pickles, count as two rounds). Only states the typed lanes cannot
-    carry take this lane."""
-    t0 = time.perf_counter()
+    carry take this lane. While obs is enabled it counts both rounds, and
+    the pickled payload (plus the 8-byte length word of the first round)
+    as their bytes and as ``toolkit.sync.object_lane_bytes``."""
     world = len(group) if group is not None else _dist.world_size()
     out: List[Any] = [None] * world
     pg = _torch_group(group)
-    _run_guarded(lambda: dist.all_gather_object(out, obj, group=pg), "object", "object")
-    _allgather_stacked.rounds += 2
-    _allgather_stacked.seconds += time.perf_counter() - t0
+    if not _obs._enabled:
+        _run_guarded(lambda: dist.all_gather_object(out, obj, group=pg), "object", "object")
+        return out
+    payload = len(pickle.dumps(obj))
+    _obs.counter("toolkit.sync.object_lane_bytes", float(payload))
+    t0 = time.perf_counter()
+    with _obs.span("toolkit.sync.round", lane="object", round="object"):
+        _run_guarded(lambda: dist.all_gather_object(out, obj, group=pg), "object", "object")
+    _count_round(2, payload + 8, "object", time.perf_counter() - t0, group)
     return out
 
 
@@ -532,6 +548,7 @@ def _warn_world_of_one() -> None:
     _logger.warning("World size is 1, and metric(s) not synced. returning the input metric(s).")
 
 
+@traced("toolkit.get_synced_metric")
 def get_synced_metric(
     metric: TMetric,
     recipient_rank: _RecipientRank = 0,
@@ -641,6 +658,7 @@ def get_synced_state_dict(
     return synced.state_dict() if synced is not None else {}
 
 
+@traced("toolkit.sync_and_compute")
 def sync_and_compute(
     metric: Metric,
     recipient_rank: _RecipientRank = 0,
@@ -820,6 +838,8 @@ def _gather_collection_states(
         all_desc[:, e, 0] = keep
         if local is not None:
             entries[e] = (mkey, name, red, local[local.shape[0] - int(keep[my_pos]) :])
+    if _obs._enabled:
+        _count_lane_bytes(entries, encodings)
     totals = [sum(_entry_nbytes(all_desc[r, e]) for e in range(len(entries))) for r in range(world)]
     max_total = max(max(totals), 1)
     coll_dev = _dist.collective_device(_torch_group(group))
@@ -864,6 +884,22 @@ def _gather_collection_states(
     return gathered
 
 
+def _count_lane_bytes(entries, encodings) -> None:
+    """Each reduction lane's raw bytes in the payload round (after the
+    WINDOW cut) and what it put on the wire per codec; the two agree on
+    every raw entry."""
+    for (_, _, red, local), (codec, enc) in zip(entries, encodings):
+        raw = float(local.numel() * local.element_size()) if local is not None else 0.0
+        _obs.counter("toolkit.sync.lane_bytes", raw, lane=red.name)
+        _obs.counter(
+            "toolkit.sync.lane_bytes_encoded",
+            float(len(enc)) if enc is not None else raw,
+            lane=red.name,
+            codec=_SYNC_CODEC_NAMES[codec],
+        )
+
+
+@traced("toolkit.sync_and_compute_collection")
 def sync_and_compute_collection(
     metrics: Dict[str, Metric],
     recipient_rank: _RecipientRank = 0,

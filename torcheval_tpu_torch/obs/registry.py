@@ -42,11 +42,12 @@ on the default registry also feed the event timeline ring
 
 from __future__ import annotations
 
-import logging
 import math
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from torcheval_tpu_torch.utils.telemetry import log_once
 
 # Module-level enable flag. Read directly (`if not _enabled: return`) by the
 # instrumentation helpers; mutate only through enable()/disable() so future
@@ -87,12 +88,10 @@ def _label_key(labels: Dict[str, Any]) -> _LabelKey:
 # memory bomb: slice results flow through compute(), never through obs
 # labels. Past the cap, NEW label sets for a name are dropped (existing
 # series keep recording), counted into ``obs.labels.dropped{instrument=}`` and
-# warned once per name — loud, bounded, and impossible to mistake for data.
+# warned once per name through ``utils/telemetry.py::log_once`` (re-armed
+# by ``obs.reset()``): loud, bounded, and impossible to mistake for data.
 _LABEL_SETS_CAP = 1024
 _DROPPED_NAME = "obs.labels.dropped"
-# names already warned about (once per name until reset_warnings())
-_warned_capped: set = set()
-_logger = logging.getLogger(__name__)
 
 
 def set_label_cardinality_cap(cap: int) -> int:
@@ -342,11 +341,8 @@ class Registry:
         """Outside the lock: account + warn once per capped name."""
         # literal name (== _DROPPED_NAME): the doc-drift lint scans for it
         self.counter("obs.labels.dropped", instrument=name)
-        with self._lock:
-            if name in _warned_capped:
-                return
-            _warned_capped.add(name)
-        _logger.warning(
+        log_once(
+            f"obs.labels.capped:{name}",
             "obs registry: instrument %r exceeded the per-name label "
             "cardinality cap (%d distinct label sets); new label sets are "
             "dropped (existing series keep recording). High-cardinality "
@@ -718,8 +714,3 @@ def snapshot() -> Dict[str, Any]:
 def reset() -> None:
     """Reset the default registry."""
     default_registry.reset()
-
-
-def reset_warnings() -> None:
-    """Let the once-per-name label-cap warnings fire again."""
-    _warned_capped.clear()

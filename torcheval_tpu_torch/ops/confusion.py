@@ -26,6 +26,10 @@ batched tensor.
 size: two unweighted counts, so on the card two histogram launches and no
 ``index_add_``. The JAX package keeps a weighted form for batches under its
 matmul budget; the integer counts of both forms are equal.
+
+The three counting functions are watched by the recompile watchdog
+(``obs/recompile.py``) under their own names, as the JAX package's are
+``watched_jit`` entries.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from torcheval_tpu_torch.obs.recompile import watched
 from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.ops.scatter import segment_sum
 
@@ -69,6 +74,7 @@ class _ClassCounts(torch.autograd.Function):
         return segment_sum(ones, combined, b * num_classes).reshape(b, num_classes), 0
 
 
+@watched
 def class_counts(
     labels: torch.Tensor,
     num_classes: int,
@@ -90,6 +96,7 @@ def class_counts(
     return torch.index_add(out, 0, idx, weights)[:num_classes]
 
 
+@watched
 def match_triple_counts(pred: torch.Tensor, target: torch.Tensor, num_classes: int):
     """``(num_tp, num_label, num_pred)`` per class, each ``(num_classes,)``
     int32: the sufficient statistics of F1, precision and recall.
@@ -108,6 +115,7 @@ def match_triple_counts(pred: torch.Tensor, target: torch.Tensor, num_classes: i
     return num_tp, num_label, class_counts(p, num_classes)
 
 
+@watched
 def confusion_matrix_counts(
     pred: torch.Tensor,
     target: torch.Tensor,

@@ -14,6 +14,10 @@ so points inside a tie group coincide with the group end: the trapezoid
 gets zero-width segments inside a group and the tie diagonal across it, and
 the step integral gets zero delta-TP inside a group. Rows with a NaN score
 are padding: they sort last, never join a tie group, and carry zero counts.
+
+Every ``_kernel`` function is watched by the recompile watchdog
+(``obs/recompile.py``) under its own name, as its JAX twin is a
+``watched_jit`` entry.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from torcheval_tpu_torch.obs.recompile import watched
 from torcheval_tpu_torch.ops.summary import group_value, sort_descending, tie_groups
 
 
@@ -85,6 +90,7 @@ def _auprc_from_group_ends(itp: torch.Tensor, ifp: torch.Tensor) -> torch.Tensor
     return torch.where(total == 0, 0.0, ap)
 
 
+@watched
 def binary_auroc_counts_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     """Exact trapezoidal AUROC over (score, tp_count, fp_count) rows, along
     the last axis."""
@@ -92,6 +98,7 @@ def binary_auroc_counts_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     return _auroc_from_group_ends(tp, fp)
 
 
+@watched
 def binary_auprc_counts_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     """Average precision over (score, tp, fp) count rows, along the last
     axis."""
@@ -101,6 +108,7 @@ def binary_auprc_counts_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     return _auprc_from_group_ends(tp, fp)
 
 
+@watched
 def binary_auroc_counts_presorted_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     """AUROC over rows ALREADY sorted descending, tie-merged and
     (NaN, 0, 0)-padded, as every ``compact_counts`` output is: each row is
@@ -113,6 +121,7 @@ def binary_auroc_counts_presorted_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     return _auroc_from_group_ends(ctp, cfp)
 
 
+@watched
 def binary_auprc_counts_presorted_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     """Average precision over presorted tie-merged count rows."""
     if scores.shape[-1] == 0:
@@ -122,12 +131,14 @@ def binary_auprc_counts_presorted_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     return _auprc_from_group_ends(ctp, cfp)
 
 
+@watched
 def binary_auroc_kernel(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Exact trapezoidal AUROC on raw samples (along the last axis)."""
     _, tp, fp, _ = _group_end_cumsums(input, target)
     return _auroc_from_group_ends(tp, fp)
 
 
+@watched
 def binary_auprc_kernel(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Average precision on raw samples (along the last axis)."""
     if input.shape[-1] == 0:
@@ -136,6 +147,7 @@ def binary_auprc_kernel(input: torch.Tensor, target: torch.Tensor) -> torch.Tens
     return _auprc_from_group_ends(tp, fp)
 
 
+@watched
 def prc_points_kernel(
     input: torch.Tensor, target: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -155,6 +167,7 @@ def prc_points_kernel(
     return s, precision, recall, last
 
 
+@watched
 def multiclass_prc_points_kernel(scores: torch.Tensor, onehot: torch.Tensor):
     """:func:`prc_points_kernel` over ``(C, N)`` one-vs-all rows: the JAX
     package's ``vmap`` of it over the class axis, as one batched sort."""
@@ -169,6 +182,7 @@ def class_onehot_rows(target: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (target.to(torch.int32)[None, :] == classes[:, None]).to(torch.float32)
 
 
+@watched
 def multiclass_auroc_kernel(scores: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-class one-vs-all AUROC ``(C,)`` from ``(N, C)`` scores and ``(N,)``
     integer labels: the binary function over the ``(C, N)`` rows."""
@@ -176,6 +190,7 @@ def multiclass_auroc_kernel(scores: torch.Tensor, target: torch.Tensor) -> torch
     return binary_auroc_kernel(scores.T, onehot)
 
 
+@watched
 def multiclass_auprc_kernel(scores: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-class one-vs-all average precision, batched as
     :func:`multiclass_auroc_kernel`."""

@@ -106,12 +106,17 @@ Not ported, by design: the JAX engine's detection of a sharded operand
 sharding (the route takes the evaluator's group instead); and its
 requirement that rows divide by the axis size, since ranks are ragged here.
 
-Counters (plain attributes until ``obs/`` is ported; the JAX names in
-brackets): ``exchange_buckets.calls`` [``dist_curves.exchanges``],
-``exchange_buckets.send_bytes`` [``dist_curves.exchange_send_bytes``: the
-bytes that entered the all-to-all, 8, 6 or 5 a row] and ``record_call.calls``
-[``ops.dist_curves.calls``: ``{(path, family): n}``, path ``dist``,
-``fused`` or ``sketch``, family ``binary`` or ``multiclass``].
+Observability (``obs/``, while enabled), under the JAX package's names:
+each call of :func:`curve_value` runs in an ``ops.dist_curves.<which>``
+span and counts ``dist_curves.exchanges{kernel=,codec=raw|q8|q8i8}`` and
+``dist_curves.exchange_send_bytes{kernel=,codec=}`` (the bytes that entered
+the all-to-all, 8, 6 or 5 a row; the JAX package counts its static
+capacity instead) and sets ``dist_curves.world_size``;
+:func:`sharded_sketch_counts` runs in ``ops.dist_curves.sketch_fold`` and
+counts ``dist_curves.sketch_folds{family=}``. :func:`record_call` counts a
+curve metric's route, ``ops.dist_curves.calls{path=dist|fused|sketch,
+family=binary|multiclass}``. Both entry points are watched by the recompile
+watchdog (``dist_curves.curve_value``, ``dist_curves.sharded_sketch_counts``).
 """
 
 from __future__ import annotations
@@ -120,6 +125,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs.recompile import watched
 from torcheval_tpu_torch.ops.hist import hist
 from torcheval_tpu_torch.ops.scatter import segment_sum
 from torcheval_tpu_torch.ops.summary import group_value, tie_groups
@@ -151,11 +158,7 @@ Group = Union[MeshAxis, "torch.distributed.ProcessGroup", None]
 
 def record_call(path: str, family: str) -> None:
     """Count one compute of an exact or approximate curve metric by route."""
-    key = (path, family)
-    record_call.calls[key] = record_call.calls.get(key, 0) + 1
-
-
-record_call.calls = {}
+    _obs.counter("ops.dist_curves.calls", path=path, family=family)
 
 
 def _bucket_capacity(n_local: int, k: int) -> int:
@@ -265,17 +268,10 @@ def lossy_splitter_sum(local: torch.Tensor, mode: str, pg, k: int) -> torch.Tens
 def exchange_buckets(
     rows: torch.Tensor, send: List[int], recv: List[int], pg
 ) -> torch.Tensor:
-    """The all-to-all of the bucket rows; counts the exchanges and the bytes
-    that entered them."""
-    exchange_buckets.calls += 1
-    exchange_buckets.send_bytes += rows.numel() * rows.element_size()
+    """The all-to-all of the bucket rows."""
     if not _dist.initialized():
         return rows
     return _dist.all_to_all_rows(rows, send, recv, pg)
-
-
-exchange_buckets.calls = 0
-exchange_buckets.send_bytes = 0
 
 
 def _entries(s_list, t_list, multiclass: bool):
@@ -305,6 +301,7 @@ def _splitter_counts(bins: torch.Tensor, multiclass: bool) -> torch.Tensor:
 NARROW_LABEL_CLASSES = 16383
 
 
+@watched(name="dist_curves.curve_value")
 def curve_value(
     which: str, s_list, t_list, *, group: Group = None, abstain: bool = False, quantize=None
 ):
@@ -312,6 +309,11 @@ def curve_value(
     ``mc_auroc`` or ``mc_auprc``): ``(value, error_rows)``, or None on every
     rank when some rank passed ``abstain`` (the route's veto, which rides
     the first collective). ``quantize`` as the module doc says."""
+    with _obs.span(f"ops.dist_curves.{which}"):
+        return _curve_value(which, s_list, t_list, group, abstain, quantize)
+
+
+def _curve_value(which: str, s_list, t_list, group: Group, abstain: bool, quantize):
     mode = sync_quantize_mode(quantize)
     multiclass = which.startswith("mc_")
     pg = _dist.process_group(group)
@@ -375,6 +377,16 @@ def curve_value(
     error_rows = sum(m[k] for m in matrix) + nan_entries
     recv = [m[me] for m in matrix]
     got = exchange_buckets(rows, sent.tolist(), recv, pg)
+    if _obs._enabled:
+        codec = {"bf16": "q8", "int8": "q8i8"}.get(mode, "raw")
+        _obs.counter("dist_curves.exchanges", kernel=which, codec=codec)
+        _obs.counter(
+            "dist_curves.exchange_send_bytes",
+            float(rows.numel() * rows.element_size()),
+            kernel=which,
+            codec=codec,
+        )
+        _obs.gauge("dist_curves.world_size", k)
 
     # 4. merge: class, then key; dense (C, W) rows padded with the pad key
     if narrow is None:
@@ -498,6 +510,7 @@ def sharded_multiclass_auprc(
     return curve_value("mc_auprc", s_list, t_list, group=group, quantize=quantize)
 
 
+@watched(name="dist_curves.sharded_sketch_counts")
 def sharded_sketch_counts(
     s_list: Sequence[torch.Tensor],
     t_list: Sequence[torch.Tensor],
@@ -514,6 +527,16 @@ def sharded_sketch_counts(
     rank's resident ``(tp, fp, nan)``, is added before the all-reduce, so a
     resident sketch and its staging cross in the same round. No overflow
     channel: the histograms have a fixed size."""
+    with _obs.span("ops.dist_curves.sketch_fold"):
+        out = _sketch_counts(s_list, t_list, group, bucket_bits, num_classes, base)
+    if _obs._enabled:
+        family = "binary" if num_classes is None else "multiclass"
+        _obs.counter("dist_curves.sketch_folds", family=family)
+        _obs.gauge("dist_curves.world_size", _dist.world_size(_dist.process_group(group)))
+    return out
+
+
+def _sketch_counts(s_list, t_list, group, bucket_bits, num_classes, base):
     s = torch.cat(list(s_list), dim=0)
     t = torch.cat(list(t_list), dim=0)
     if num_classes is None:

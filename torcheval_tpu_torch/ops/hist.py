@@ -8,7 +8,10 @@ the Pallas kernel ``_hist_kernel``). Both compute the unweighted
 :func:`hist` runs the kernel on a CUDA tensor and raises if it cannot;
 :func:`hist_plain` is the same function in plain PyTorch, which :func:`hist`
 runs for a CPU tensor and which tests and ``chip_smoke.py`` hold the kernel
-against. :func:`sharded_class_counts` is the counterpart of
+against. :func:`hist` is watched by the recompile watchdog
+(``obs/recompile.py``) under the entry ``hist``; each launch counts one
+``jit.calls{entry=hist}`` while obs is enabled, and its byte model
+(:func:`_hist_cost`) feeds the entry's cost gauges. :func:`sharded_class_counts` is the counterpart of
 ``sharded_pallas_class_counts`` (``pallas_hist.py:160-165``): each rank
 counts its own labels with :func:`hist`, and one int32 ``all_reduce`` sums
 the counts over the process group.
@@ -19,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.obs.cost import nbytes
+from torcheval_tpu_torch.obs.recompile import count_launch, watched
 from torcheval_tpu_torch.utils import dist as _dist
 
 _LABEL_DTYPES = (torch.int32, torch.int64)
@@ -44,12 +49,19 @@ def hist_plain(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return out[:num_classes]
 
 
+def _hist_cost(args, kwargs, out):
+    """The labels read once and the counts written once; no float adds."""
+    moved = nbytes(args[0], out)
+    return 0, moved, moved
+
+
+@watched(name="hist", cost=_hist_cost, counts_launches=True)
 def hist(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """``(num_classes,)`` int32 counts of ``labels`` (int32 or int64, 1-D).
 
     A CPU tensor runs :func:`hist_plain`. A CUDA tensor launches the kernel
-    on PyTorch's current stream, without synchronising, and adds one to
-    ``hist.launches``."""
+    on PyTorch's current stream, without synchronising, and counts the
+    launch (``jit.calls{entry=hist}``)."""
     _check(labels, num_classes)
     if _build.runs_plain(labels):
         return hist_plain(labels, num_classes)
@@ -69,11 +81,8 @@ def hist(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
             _build.stream_of(labels),
         )
     _build.check(err, "hist")
-    hist.launches += 1
+    count_launch("hist")
     return out
-
-
-hist.launches = 0
 
 
 def sharded_class_counts(labels: torch.Tensor, num_classes: int, group=None) -> torch.Tensor:

@@ -11,7 +11,7 @@ sliced collection (``metrics/sliced.py``) folds every batch through
 
 * :func:`segment_sum` is the kernel's wrapper, the counterpart of
   ``pallas_segment_sum``: a CUDA tensor launches ``csrc/scatter.cu`` and
-  adds one to ``segment_sum.launches``; a CPU tensor runs
+  counts the launch (``jit.calls{entry=segment_sum}``); a CPU tensor runs
   :func:`segment_sum_plain` (``index_add_`` into a dead extra segment that
   is cut off), which the tests and ``chip_smoke.py`` also hold the kernel
   against. Values are int32, int64, float32, float64, bfloat16 or float16
@@ -70,6 +70,9 @@ import math
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs.cost import nbytes
+from torcheval_tpu_torch.obs.recompile import count_launch, watched
 from torcheval_tpu_torch.utils import dist as _dist
 
 _METHODS = ("auto", "kernel", "torch")
@@ -127,14 +130,24 @@ def segment_sum_plain(
     return out[:num_segments]
 
 
+def _segment_sum_cost(args, kwargs, out):
+    """The values and rows read once, the sums written once; a float
+    value adds once."""
+    vals, rows = args[0], args[1]
+    adds = vals.numel() if vals.dtype.is_floating_point else 0
+    moved = nbytes(vals, rows, out)
+    return adds, moved, moved
+
+
+@watched(name="segment_sum", cost=_segment_sum_cost, counts_launches=True)
 def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``(num_segments,) + vals.shape[1:]`` sums of ``vals`` (N, ...) by
     ``rows`` (N,), in ``vals``' type.
 
     A CPU tensor runs :func:`segment_sum_plain`. A CUDA tensor launches the
-    kernel on PyTorch's current stream, without synchronising, and adds one
-    to ``segment_sum.launches``; an empty stream, segment axis or lane axis
-    launches nothing and gives zeros."""
+    kernel on PyTorch's current stream, without synchronising, and counts
+    the launch (``jit.calls{entry=segment_sum}``); an empty stream, segment
+    axis or lane axis launches nothing and gives zeros."""
     _check(vals, rows, num_segments)
     _check_sum_dtype(vals)
     if _build.runs_plain(vals):
@@ -163,11 +176,8 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
             _build.stream_of(flat),
         )
     _build.check(err, "segment_sum")
-    segment_sum.launches += 1
+    count_launch("segment_sum")
     return out.reshape((num_segments,) + tail)
-
-
-segment_sum.launches = 0
 
 
 def _reduce_identity(reduce: str, dtype: torch.dtype):
@@ -244,6 +254,8 @@ def segment_scatter(
     if (mesh is None) != (axis is None):
         raise ValueError("mesh and axis must be passed together.")
     _check(vals, rows, num_segments)
+    if _obs._enabled:
+        _count_scatter(vals, num_segments, reduce, method, mesh, axis)
     if mesh is not None:
         ax = _dist.mesh_axis(mesh, axis)
         if num_segments % ax.size:
@@ -261,6 +273,26 @@ def segment_scatter(
     if method == "torch":
         return segment_sum_plain(vals, rows, num_segments)
     return segment_sum(vals, rows, num_segments)
+
+
+def _count_scatter(vals, num_segments: int, reduce: str, method: str, mesh, axis) -> None:
+    """``ops.scatter.calls{path=}`` (``sharded``, ``cuda`` for the kernel,
+    ``torch`` for the plain and library routes) and the segment-axis state
+    bytes a rank holds."""
+    shards = 1
+    if mesh is not None:
+        path, shards = "sharded", _dist.mesh_axis(mesh, axis).size
+    elif reduce == "sum" and method != "torch" and not _build.runs_plain(vals):
+        path = "cuda"
+    else:
+        path = "torch"
+    _obs.counter("ops.scatter.calls", path=path)
+    lanes = math.prod(vals.shape[1:])
+    _obs.gauge(
+        "ops.scatter.state_bytes_per_device",
+        float(num_segments // shards * lanes * vals.element_size()),
+        path=path,
+    )
 
 
 def sharded_segment_sum(

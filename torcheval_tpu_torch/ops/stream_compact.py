@@ -14,6 +14,12 @@ matmul, have no counterpart here: NaN, +-inf and -0.0 move bit for bit.
 cannot; :func:`stream_compact_plain` (``nonzero`` + ``index_select``) is the
 same function in plain PyTorch, which :func:`stream_compact` runs for CPU
 tensors and which tests and ``chip_smoke.py`` hold the kernel against.
+
+Both entries are watched by the recompile watchdog (``obs/recompile.py``),
+as ``stream_compact`` and ``compact_summary_rows``; each launch counts one
+``jit.calls{entry=stream_compact}`` while obs is enabled, and the byte
+model (:func:`_moved`: the mask and the columns read once, every output
+row and the count written once) feeds both entries' cost gauges.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.obs.cost import nbytes
+from torcheval_tpu_torch.obs.recompile import count_launch, watched
 from torcheval_tpu_torch.ops.summary import PAD_SCORE
 
 MAX_COLS = 7
@@ -78,6 +86,34 @@ def _pad_words(cols: Sequence[torch.Tensor], pad: Sequence[float]):
     return (ctypes.c_uint32 * MAX_COLS)(*words)
 
 
+def _scratch_bytes(n: int, device: torch.device) -> int:
+    """The launch's status words, ticket and count (none on the CPU)."""
+    if device.type == "cpu" or not _build.loaded():
+        return 0
+    return (_build.library().tc_stream_compact_scratch(n) + 1) * 8
+
+
+def _moved(mask: torch.Tensor, cols: Sequence[torch.Tensor]):
+    """``(bytes_accessed, hbm_bytes)`` of one compaction: the mask and every
+    column read once, every output row (the live rows and the padding the
+    kernel writes past them) and the count written once; the launch's
+    tensors are its arguments, its outputs and its scratch."""
+    io = nbytes(mask, *cols) + nbytes(*cols)
+    return io + 4, io + _scratch_bytes(mask.numel(), mask.device)
+
+
+def _compact_cost(args, kwargs, out):
+    """:func:`stream_compact`'s cost: no float adds."""
+    return (0, *_moved(args[0], args[1]))
+
+
+def _summary_cost(args, kwargs, out):
+    """:func:`compact_summary_rows`'s cost: its one compaction's."""
+    scores, tp, fp, keep = args
+    return (0, *_moved(keep, (scores, tp, fp)))
+
+
+@watched(name="stream_compact", cost=_compact_cost, counts_launches=True)
 def stream_compact(
     mask: torch.Tensor, cols: Sequence[torch.Tensor], pad: Pad = None
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
@@ -88,8 +124,8 @@ def stream_compact(
 
     CPU tensors run :func:`stream_compact_plain`. CUDA tensors launch the
     kernel on PyTorch's current stream with no host sync (``n_live`` stays
-    on the device; the kernel writes the padding itself) and add one to
-    ``stream_compact.launches``."""
+    on the device; the kernel writes the padding itself) and count the
+    launch (``jit.calls{entry=stream_compact}``)."""
     _check(mask, cols, pad)
     if _build.runs_plain(mask):
         return stream_compact_plain(mask, cols, pad)
@@ -126,16 +162,14 @@ def stream_compact(
             _build.stream_of(mask),
         )
     _build.check(err, "stream_compact")
-    stream_compact.launches += 1
+    count_launch("stream_compact")
     return outs, n_live
-
-
-stream_compact.launches = 0
 
 # rows past n_live: the JAX wrapper's where(live, ., (NaN, 0, 0))
 _SUMMARY_PAD = (PAD_SCORE, 0, 0)
 
 
+@watched(name="compact_summary_rows", cost=_summary_cost)
 def compact_summary_rows(
     scores: torch.Tensor, tp: torch.Tensor, fp: torch.Tensor, keep: torch.Tensor
 ):

@@ -46,6 +46,9 @@ from typing import Tuple
 import torch
 
 from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs.cost import nbytes
+from torcheval_tpu_torch.obs.recompile import count_launch, watched
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.convert import as_tensor
 
@@ -167,13 +170,27 @@ def topk_kernel_plain(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tens
     return torch.gather(x, 1, idx), idx
 
 
+def _topk_cost(args, kwargs, out):
+    """The scores read once, the values and indices written once (the
+    JAX kernel's int32 indices: ``N * k * 8``); comparisons, no float adds.
+    A launch also holds its workspace."""
+    x, k = args
+    n, l = x.shape
+    moved = nbytes(x) + n * k * 8
+    work = 0
+    if x.device.type != "cpu" and _build.loaded() and n:
+        work = max(_build.library().tc_topk_workspace(n, l, k), 1) * 8
+    return 0, moved, nbytes(x, *out) + work
+
+
+@watched(name="topk_kernel", cost=_topk_cost, counts_launches=True)
 def topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(values (N, k) float32, indices (N, k) int64)`` of float32 scores
     ``x (N, L)``, ``1 <= k <= min(L, 128)``.
 
     A CPU tensor runs :func:`topk_kernel_plain`. A CUDA tensor launches the
-    kernel on PyTorch's current stream, without synchronising, and adds one
-    to ``topk_kernel.launches``."""
+    kernel on PyTorch's current stream, without synchronising, and counts
+    the launch (``jit.calls{entry=topk_kernel}``)."""
     _kernel_check(x, k)
     if _build.runs_plain(x):
         return topk_kernel_plain(x, k)
@@ -199,11 +216,8 @@ def topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
             _build.stream_of(x),
         )
     _build.check(err, "topk")
-    topk_kernel.launches += 1
+    count_launch("topk_kernel")
     return values, indices
-
-
-topk_kernel.launches = 0
 
 
 # ------------------------------------------------------------------- prune
@@ -217,6 +231,7 @@ def _prune_plan(l: int, k: int):
     return w, g, s, ok
 
 
+@watched(name="prune_topk")
 def prune_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k by threshold-prune (JAX: ``topk.py:645-702``). The
     kth-largest 128-wide group maximum bounds the kth value from below; each
@@ -265,11 +280,25 @@ def topk(x: torch.Tensor, k: int, *, method: str = "auto") -> Tuple[torch.Tensor
     x = as_tensor(x)
     _check(x, k)
     resolved = _pick_method(x.shape[1], k, x.dtype, method, x.device)
+    if _obs._enabled:
+        _count_topk(x, k, resolved)
     if resolved == "dense":
         return _dense(x, k)
     if resolved == "prune":
         return prune_topk(x, k)
     return topk_kernel(x.to(torch.float32), k)
+
+
+def _count_topk(x: torch.Tensor, k: int, resolved: str) -> None:
+    """``ops.topk.calls{path=}`` for the route that runs (an infeasible
+    prune runs dense; the kernel method on a CPU tensor runs its plain
+    version, path ``torch``) and the label-axis bytes it holds."""
+    if resolved == "prune" and not _prune_plan(x.shape[1], k)[3]:
+        resolved = "dense"
+    elif resolved == "kernel":
+        resolved = "torch" if _build.runs_plain(x) else "cuda"
+    _obs.counter("ops.topk.calls", path=resolved)
+    _obs.gauge("ops.topk.label_bytes_per_device", float(x.shape[0] * x.shape[1] * 4), path=resolved)
 
 
 def topk_values(x: torch.Tensor, k: int, *, method: str = "auto") -> torch.Tensor:
@@ -320,6 +349,7 @@ def _from_words(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.to(_WORDS[dtype.itemsize]).view(dtype)
 
 
+@watched(name="sharded_label_topk")
 def sharded_label_topk(
     x: torch.Tensor,
     k: int,
@@ -401,6 +431,11 @@ def sharded_label_topk(
             words[:, 2, :k_local] = _to_words(torch.gather(gather, 1, i))
     width = torch.full((1,), w, dtype=torch.int64, device=dev)
     got = _dist.all_gather_stacked(torch.cat([words.reshape(-1), width]), ax.group).to(dev)
+    if _obs._enabled:
+        _obs.counter("ops.topk.calls", path="sharded_label")
+        # the one exchange: every rank's candidate words and tile width
+        _obs.counter("ops.topk.merge_bytes", float(got.numel() * got.element_size()))
+        _obs.gauge("ops.topk.label_bytes_per_device", float(n * w * 4), path="sharded_label")
     widths = got[:, -1]
     offsets = torch.cumsum(widths, 0) - widths
     # (S, n, cols, k) to (n, cols, S * k): rank-major candidates per row

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from torcheval_tpu_torch.obs import registry as _obs
 from torcheval_tpu_torch.parallel.mesh import local_device
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.devices import DeviceLike, canonical_device
@@ -110,8 +111,9 @@ def init_from_env(
     ``ValueError`` and are never retried) are retried up to
     ``connect_attempts`` times (3, or ``TORCHEVAL_TPU_CONNECT_ATTEMPTS``),
     sleeping ``connect_backoff_s`` seconds and doubling, capped at 30 s,
-    each sleep jittered to 0.5-1.5x. Each retry adds one to
-    ``init_from_env.retries``; the last failure re-raises."""
+    each sleep jittered to 0.5-1.5x. Each retry counts one
+    ``bootstrap.retries`` (obs registry, while enabled); the last failure
+    re-raises."""
     if is_initialized():
         _logger.warning(
             "init_from_env: torch.distributed already initialized (rank %d of %d); "
@@ -173,13 +175,10 @@ def init_from_env(
                 e,
                 sleep_s,
             )
-            init_from_env.retries += 1
+            _obs.counter("bootstrap.retries")
             time.sleep(sleep_s)
             delay_s *= 2
     return kwargs["rank"], kwargs["world_size"]
-
-
-init_from_env.retries = 0
 
 
 def shutdown() -> None:

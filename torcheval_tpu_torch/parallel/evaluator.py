@@ -20,7 +20,9 @@ gives the global result on every rank, as in the JAX package:
   it in the same collective), syncs in one two-round exchange
   (``toolkit.sync_and_compute_collection(..., recipient_rank="all")``).
 
-A group of one rank syncs nothing and warns, as before.
+A group of one rank syncs nothing and warns, as before. ``update`` and
+``compute`` are annotated for the profiler and the obs registry
+(``evaluator.update``, ``evaluator.compute``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Dict, Optional, Union
 from torcheval_tpu_torch.metrics.collection import MetricCollection
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.metrics.toolkit import _torch_group, sync_and_compute_collection
+from torcheval_tpu_torch.obs.annotate import traced
 from torcheval_tpu_torch.parallel.mesh import DataParallelMesh, data_parallel_mesh
 
 
@@ -64,12 +67,14 @@ class ShardedEvaluator:
             m.to(self.mesh.device)
         self._single = isinstance(metrics, Metric)
 
+    @traced("evaluator.update")
     def update(self, *args: Any, **kwargs: Any) -> "ShardedEvaluator":
         """Fold this rank's local batch (which may be empty) into every
         member."""
         self._collection.update(*args, **kwargs)
         return self
 
+    @traced("evaluator.compute")
     def compute(self) -> Any:
         """Every member's result over all ranks of the mesh, on every rank:
         the curve members by their distributed routes, in member order, then

@@ -29,20 +29,20 @@ The registered state is plain: int32 SUM count tensors and an int32 SUM NaN
 count, so approx metrics ride ``merge_state`` (adding buckets is the exact
 merge), the port's two-round sync as raw bytes, and ``state_dict``.
 
-The JAX package counts folds in its ``obs`` registry; here
-:func:`_count_fold` counts them in plain attributes,
-``_count_fold.folds[kind]`` and ``_count_fold.rows[kind]``, as
-``toolkit._allgather_stacked.rounds`` counts sync rounds.
+Each fold of staged rows counts ``sketch.folds{kind=score|mc_score|value}``
+and ``sketch.folded_rows{kind=}`` in the obs registry while it is enabled,
+as in the JAX package (which counts a fold program's dispatch; here each
+fold is one segment-sum launch).
 """
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import Optional
 
 import torch
 
+from torcheval_tpu_torch.obs import registry as _obs
 from torcheval_tpu_torch.ops.curves import (
     binary_auprc_counts_presorted_kernel,
     binary_auroc_counts_presorted_kernel,
@@ -67,19 +67,10 @@ from torcheval_tpu_torch.sketch.histogram import (
     value_hist_fold,
 )
 
-_logger = logging.getLogger(__name__)
-
 # staged rows per fold: memory is O(buckets) + O(SKETCH_FOLD_ROWS)
 SKETCH_FOLD_ROWS = 65536
 
 _APPROX_ENV = "TORCHEVAL_TPU_APPROX"
-_LOGGED = set()
-
-
-def _log_once(key: str, msg: str, *args) -> None:
-    if key not in _LOGGED:
-        _LOGGED.add(key)
-        _logger.warning(msg, *args)
 
 
 def resolve_approx(approx, *, default_bits: int = DEFAULT_BUCKET_BITS) -> Optional[int]:
@@ -113,12 +104,9 @@ def resolve_approx(approx, *, default_bits: int = DEFAULT_BUCKET_BITS) -> Option
 
 
 def _count_fold(kind: str, rows: int) -> None:
-    _count_fold.folds[kind] = _count_fold.folds.get(kind, 0) + 1
-    _count_fold.rows[kind] = _count_fold.rows.get(kind, 0) + int(rows)
-
-
-_count_fold.folds = {}
-_count_fold.rows = {}
+    if _obs._enabled:
+        _obs.counter("sketch.folds", kind=kind)
+        _obs.counter("sketch.folded_rows", float(rows), kind=kind)
 
 
 def _cat(parts, dim: int = 0) -> torch.Tensor:

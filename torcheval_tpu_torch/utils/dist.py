@@ -11,6 +11,9 @@ device. Without an initialised process group the world has one rank.
 A named mesh axis is a dim of a ``DeviceMesh`` (:func:`mesh_axis`).
 Each helper counts its calls and the bytes this rank sends (``.calls``,
 ``.bytes``: plain attributes, read and zeroed by callers that measure).
+They are the port's only counts outside the obs registry: the JAX
+package's collectives run inside XLA programs and have no instrument, so
+the registry's inventory (``obs/inventory.py``) has no name for them.
 :func:`all_to_all_rows` is the ragged exchange behind the distributed
 curves (``ops/dist_curves.py``): each rank sends its own number of rows to
 each peer.

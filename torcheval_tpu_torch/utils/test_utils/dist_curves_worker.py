@@ -26,6 +26,9 @@ import sys
 
 import numpy as np
 
+from torcheval_tpu_torch import obs
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, parse_key, rounds
+
 WORLD = 4
 QUANTIZE_MODES = ("bf16", "int8")
 SKETCH_BITS = 10
@@ -228,22 +231,22 @@ def run_kernels(rank: int, world: int, outdir: str) -> dict:
         s_list = [torch.from_numpy(even_block(s, rank)) for s, _ in batches]
         t_list = [torch.from_numpy(even_block(t, rank)) for _, t in batches]
         before = _collectives()
-        sent_before = dc.exchange_buckets.send_bytes
+        sent_before = _send_bytes()
         value, err = fns[which](s_list, t_list)
         res["even"][name] = {
             "value": _list(value), "error_rows": err,
             "collectives": [a - b for a, b in zip(_collectives(), before)],
-            "send_bytes": dc.exchange_buckets.send_bytes - sent_before,
+            "send_bytes": _send_bytes() - sent_before,
         }
         for mode in QUANTIZE_MODES:
             before = _collectives()
-            sent_before = dc.exchange_buckets.send_bytes
+            sent_before = _send_bytes()
             q_value, q_err = fns[which](s_list, t_list, quantize=mode)
             res["even"][name][str(mode)] = {
                 "value": _list(q_value), "error_rows": q_err,
                 "bit_equal": bool(torch.equal(q_value, value)),
                 "collectives": [a - b for a, b in zip(_collectives(), before)],
-                "send_bytes": dc.exchange_buckets.send_bytes - sent_before,
+                "send_bytes": _send_bytes() - sent_before,
             }
     for name, which, (s, t) in ragged_cases() + [("auroc_overflow", "auroc", ragged_overflow())]:
         for mode in (None,) + QUANTIZE_MODES:
@@ -264,12 +267,12 @@ def run_kernels(rank: int, world: int, outdir: str) -> dict:
     # the environment variable picks the mode when quantize is None
     _, which, batches = kernel_cases()[0]
     os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"] = "int8"
-    sent_before = dc.exchange_buckets.send_bytes
+    sent_before = _send_bytes()
     before = _collectives()
     fns[which]([torch.from_numpy(even_block(s, rank)) for s, _ in batches],
                [torch.from_numpy(even_block(t, rank)) for _, t in batches])
     res["env_int8"] = {"collectives": [a - b for a, b in zip(_collectives(), before)],
-                       "send_bytes": dc.exchange_buckets.send_bytes - sent_before}
+                       "send_bytes": _send_bytes() - sent_before}
     del os.environ["TORCHEVAL_TPU_SYNC_QUANTIZE"]
     res["low_capacity"] = {}
     dc.DIST_CAPACITY_FACTOR = LOW_CAPACITY_FACTOR
@@ -344,16 +347,27 @@ def _same(a: dict, b: dict) -> bool:
 def _compute(ev) -> dict:
     """The evaluator's results, with the route counter and the toolkit's
     gather rounds that the compute ran."""
-    from torcheval_tpu_torch.metrics import toolkit
-    from torcheval_tpu_torch.ops.dist_curves import record_call
-
-    calls, rounds = dict(record_call.calls), toolkit._allgather_stacked.rounds
+    calls, before = _routes(), rounds()
     out = ev.compute()
     out = out if isinstance(out, dict) else {"metric": out}
-    routes = {f"{p}/{f}": n - calls.get((p, f), 0) for (p, f), n in record_call.calls.items()
-              if n != calls.get((p, f), 0)}
+    routes = {k: n - calls.get(k, 0) for k, n in _routes().items() if n != calls.get(k, 0)}
     return {"values": {k: _list(v) for k, v in out.items()}, "routes": routes,
-            "gather_rounds": toolkit._allgather_stacked.rounds - rounds}
+            "gather_rounds": rounds() - before}
+
+
+def _routes() -> dict:
+    """``{"path/family": n}`` of the curve metrics' route counter."""
+    out = {}
+    for key, n in obs.snapshot()["counters"].items():
+        name, labels = parse_key(key)
+        if name == "ops.dist_curves.calls":
+            out[f"{labels['path']}/{labels['family']}"] = int(n)
+    return out
+
+
+def _send_bytes() -> int:
+    """The bytes that entered the distributed curves' exchanges."""
+    return int(count("dist_curves.exchange_send_bytes"))
 
 
 def run_evaluator(rank: int, world: int, outdir: str) -> dict:
@@ -471,6 +485,7 @@ def main() -> None:
     from torcheval_tpu_torch.parallel import init_from_env
     from torcheval_tpu_torch.utils.test_utils.sharded_worker import leave_world
 
+    obs.enable()  # the routes, rounds and exchange bytes are its counters
     got = init_from_env(device="cpu")
     assert got == (rank, world), got
     res = SCENARIOS[scenario](rank, world, outdir)

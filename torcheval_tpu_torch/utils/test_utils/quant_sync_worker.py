@@ -107,9 +107,9 @@ def run_sync(rank: int, world: int, outdir: str) -> dict:
         WindowedClickThroughRate,
         toolkit,
     )
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, rounds
 
     BigState = _big_state_class()
-    wire = toolkit._allgather_stacked
 
     def replica(fscale=10.0, bad=False):
         m = BigState(device="cpu").update(*replica_arrays(rank, fscale))
@@ -120,18 +120,18 @@ def run_sync(rank: int, world: int, outdir: str) -> dict:
         return m
 
     def synced(m, quantize):
-        rounds, sent = wire.rounds, wire.payload_bytes
-        fallbacks = toolkit._encode_sync_entry.quantize_fallbacks
+        r0, sent = rounds(), count("toolkit.sync.payload_bytes")
+        fallbacks = count("toolkit.sync.quantize_fallbacks")
         s = toolkit.get_synced_metric(m, recipient_rank="all", quantize=quantize)
         return {
             "counts": s.counts.tolist(), "hits": s.hits.tolist(), "peak": s.peak.tolist(),
             "fsum": [float(v) for v in s.fsum.tolist()],
             "dtypes": [str(getattr(s, n).dtype) for n in ("counts", "hits", "peak", "fsum")],
-            "rounds": wire.rounds - rounds,
+            "rounds": rounds() - r0,
             # the payload round's bytes: all sent bytes less the descriptor
             # round's (five rows of nine int32)
-            "payload_bytes": wire.payload_bytes - sent - 5 * 9 * 4,
-            "fallbacks": toolkit._encode_sync_entry.quantize_fallbacks - fallbacks,
+            "payload_bytes": int(count("toolkit.sync.payload_bytes") - sent) - 5 * 9 * 4,
+            "fallbacks": int(count("toolkit.sync.quantize_fallbacks") - fallbacks),
         }
 
     res = {"raw": synced(replica(), False), "quantized": synced(replica(), True),
@@ -162,9 +162,9 @@ def run_sync(rank: int, world: int, outdir: str) -> dict:
             "wctr": WindowedClickThroughRate(num_tasks=2, window_size=3, device="cpu").update(
                 torch.from_numpy(clicks[:2]), torch.from_numpy(weights[:2])),
         }
-        rounds, sent = wire.rounds, wire.payload_bytes
+        r0, sent = rounds(), count("toolkit.sync.payload_bytes")
         out = toolkit.sync_and_compute_collection(members, recipient_rank="all", quantize=quantize)
-        rounds, sent = wire.rounds - rounds, wire.payload_bytes - sent
+        n_rounds, sent = rounds() - r0, int(count("toolkit.sync.payload_bytes") - sent)
         sketch = toolkit.get_synced_metric(members["sketch"], recipient_rank="all", quantize=quantize)
         res["collection"][str(quantize)] = {
             "cm": out["cm"].tolist(), "cal": out["cal"].tolist(),
@@ -174,7 +174,7 @@ def run_sync(rank: int, world: int, outdir: str) -> dict:
             "sketch": float(out["sketch"]),
             "sketch_counts": [sketch.sketch_tp.tolist(), sketch.sketch_fp.tolist()],
             "wctr": [v.tolist() for v in out["wctr"]],
-            "rounds": rounds,
+            "rounds": n_rounds,
             "bytes": sent,
         }
     return res
@@ -198,9 +198,11 @@ def main() -> None:
         MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world), RANK=str(rank)
     )
     os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE", None)
+    from torcheval_tpu_torch import obs
     from torcheval_tpu_torch.parallel import init_from_env
     from torcheval_tpu_torch.utils.test_utils.sharded_worker import leave_world
 
+    obs.enable()  # the rounds, bytes and fallbacks are its counters
     got = init_from_env(device="cpu")
     assert got == (rank, world), got
     res = SCENARIOS[scenario](rank, world, outdir)

@@ -60,6 +60,7 @@ def run_chaos(rank: int, world: int, outdir: str) -> dict:
     from torcheval_tpu_torch.metrics import MulticlassAccuracy
     from torcheval_tpu_torch.metrics import toolkit
     from torcheval_tpu_torch.resilience import save
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, rounds
 
     obs.enable()
     results = {"rank": rank}
@@ -81,8 +82,8 @@ def run_chaos(rank: int, world: int, outdir: str) -> dict:
     r = toolkit.sync_and_compute(acc, recipient_rank="all", timeout_s=TIMEOUT_S, on_failure="local")
     results["sync2"] = float(r)
     results["sync2_elapsed_s"] = time.monotonic() - t0
-    results["failures"] = toolkit._sync_failure.count
-    results["rounds"] = toolkit._allgather_stacked.rounds
+    results["failures"] = int(count("toolkit.sync.timeouts"))
+    results["rounds"] = rounds()
     with open(os.path.join(outdir, f"rank{rank}.obs.json"), "w") as f:
         json.dump(obs.snapshot(), f, indent=2)
     return results
@@ -124,9 +125,11 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def launch(scenario: str, outdir: str, world: int, timeout_s: float, env_extra=None):
-    """Start the ``world`` ranks of ``scenario`` and wait for them (all are
-    killed at ``timeout_s``). Returns ``(returncodes, outputs, results)``,
+def launch(scenario: str, outdir: str, world: int, timeout_s: float, env_extra=None,
+           module: str = __name__):
+    """Start the ``world`` ranks of ``scenario`` (``python -m <module>
+    scenario R world PORT OUTDIR``) and wait for them (all are killed at
+    ``timeout_s``). Returns ``(returncodes, outputs, results)``,
     ``results[r]`` being ``None`` for a rank that wrote none (the killed
     one). The exit codes are the caller's to check."""
     env = dict(os.environ)
@@ -138,8 +141,7 @@ def launch(scenario: str, outdir: str, world: int, timeout_s: float, env_extra=N
     port = str(_free_port())
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "torcheval_tpu_torch.utils.test_utils.resilience_worker",
-             scenario, str(r), str(world), port, outdir],
+            [sys.executable, "-m", module, scenario, str(r), str(world), port, outdir],
             env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
         for r in range(world)

@@ -70,7 +70,7 @@ def run_sketch_scenarios(rank: int, world: int) -> dict:
         Quantile,
         SlicedMetricCollection,
     )
-    from torcheval_tpu_torch.metrics import toolkit
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import rounds
     from torcheval_tpu_torch.metrics.toolkit import (
         get_synced_state_dict,
         sync_and_compute,
@@ -115,13 +115,12 @@ def run_sketch_scenarios(rank: int, world: int) -> dict:
                                              recipient_rank="all"))
 
     # a collection of sketches: two rounds, as any collection
-    counter = toolkit._allgather_stacked
-    r0 = counter.rounds
+    r0 = rounds()
     out = sync_and_compute_collection(
         {"auroc": binary(BinaryAUROC), "q": Quantile(0.5, device=cpu).update(s)},
         recipient_rank="all",
     )
-    res["collection_rounds"] = counter.rounds - r0
+    res["collection_rounds"] = rounds() - r0
     res["collection_auroc"] = float(out["auroc"])
     res["collection_q"] = float(out["q"])
 

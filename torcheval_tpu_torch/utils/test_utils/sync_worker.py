@@ -135,12 +135,11 @@ def _window_metric(device):
 
 def _rounds(fn):
     """``(result, collective rounds, payload bytes)`` of one call."""
-    from torcheval_tpu_torch.metrics import toolkit
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count, rounds
 
-    counter = toolkit._allgather_stacked
-    r0, b0 = counter.rounds, counter.payload_bytes
+    r0, b0 = rounds(), count("toolkit.sync.payload_bytes")
     out = fn()
-    return out, counter.rounds - r0, counter.payload_bytes - b0
+    return out, rounds() - r0, int(count("toolkit.sync.payload_bytes") - b0)
 
 
 def run_scenarios(rank: int, world: int) -> dict:
@@ -329,8 +328,10 @@ def main(run=run_scenarios) -> None:
     os.environ.update(
         MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world), RANK=str(rank)
     )
+    from torcheval_tpu_torch import obs
     from torcheval_tpu_torch.parallel import init_from_env, shutdown
 
+    obs.enable()  # the rounds and their bytes are its counters
     got = init_from_env(device="cpu")
     assert got == (rank, world), got
     res = run(rank, world)

@@ -23,6 +23,8 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from torcheval_tpu_torch.obs.annotate import _under_transform
+
 _logger = logging.getLogger(__name__)
 
 _is_functorch_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
@@ -54,16 +56,6 @@ def join_pending(timeout: Optional[float] = None) -> bool:
         return not _threads
 
 
-def _under_transform(values) -> bool:
-    cuda = False
-    for v in values:
-        if isinstance(v, torch.Tensor):
-            if _is_functorch_wrapped(v):
-                return True
-            cuda = cuda or v.is_cuda
-    return cuda and torch.cuda.is_current_stream_capturing()
-
-
 def async_value_warn(check: Callable[..., None], *values: Any) -> Optional[threading.Thread]:
     """Run ``check(*host_values)``, which may log a warning, on a daemon
     thread, with each tensor of ``values`` read back as a numpy array (other
@@ -75,7 +67,7 @@ def async_value_warn(check: Callable[..., None], *values: Any) -> Optional[threa
     after it there: the copy runs before any later kernel can reuse the
     tensor's memory (the caching allocator orders reuse on that stream),
     and the thread waits on those events alone. The caller never blocks."""
-    if torch.compiler.is_compiling() or _under_transform(values):
+    if _under_transform(values):
         return None
     staged, events = [], []
     for v in values:
