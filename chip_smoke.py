@@ -204,8 +204,38 @@ failed check. Phases:
    data-parallel leg's gate. Each part prints its checkpoint bytes, save
    and restore seconds (the ``resilience.checkpoint`` spans), GB/s and
    kernel launches;
+   serve phase (``torcheval_tpu_torch.serve``, right after the resilience
+   phase's part (c), obs on, every count set to 0 just before it and read
+   just after, the references run after the read): (a) bench.py's config7,
+   one ``EvalDaemon`` (``max_tenants=121``, ``queue_capacity=64``) fed the
+   same 960 batches of (8192, 5) into 1 tenant and then round-robin into
+   120, after a warm tenant, ``block=True``: both rates and their ratio,
+   every value equal to one ``MulticlassAccuracy`` fed its batches, bit for
+   bit; (b) config8's single-host routes over 64 distinct batches
+   (``window_chunks=8``, each route warmed with the whole stream): in
+   process, ``EvalClient(submit_buffer=8)`` over loopback TCP with
+   ``codec="raw"`` and ``"qblk"``, pipelined (four producers, depth 8) and
+   the local transport, each rate beside in-process, every route's
+   ``serve.ingest.h2d_bytes`` equal to the bytes it was given (no batch
+   rerouted off the coalesced copy), raw, pipelined and local values equal
+   to in-process bit for bit and ``qblk``'s equal to a direct metric fed
+   the codec's dequantized batches; the ingest overlap
+   (``deferred.window.overlap_ms``) of four producers over TCP, and the
+   card's idle share of one in-process run under ``torch.profiler``; (c)
+   on one daemon, interleaved: 4 macro tenants (``MulticlassAccuracy`` and
+   ``MulticlassF1Score``, C = 1000, 8 x (8192, 1000)), 2 compacting
+   ``BinaryAUROC`` tenants (16 x 2^20 rows, two compactions each), an
+   ``approx=True`` ``BinaryAUROC`` and a ``TopKMultilabelAccuracy`` at the
+   top-k leg's shapes, plus a macro tenant over the wire: every tenant
+   ACTIVE, every value equal to the same metrics fed directly, each of the
+   four kernels launched; (d) a NaN batch under ``nan_policy="reject"``
+   quarantines its tenant with the cause, a bystander unchanged, and a
+   tenant idle past ``watchdog_timeout_s`` evicted to a checkpoint,
+   reattached with ``resume="require"`` and finished equal to an
+   uninterrupted one. One ``{"serve": ...}`` JSON line holds the numbers;
 5. with obs off, one JSON line per the kernels: launches on the main path
-   (phases 3 and 4, the data-parallel ranks' included; each kernel's
+   (phases 3 and 4, the data-parallel ranks' and the serve phase's
+   included; each kernel's
    ``jit.calls{entry=}``), time per launch, the plain
    version's and a library call's time, and the least time the card could
    take (its bound); the segment sum also at the sliced leg's window and
@@ -240,6 +270,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import defaultdict
 
@@ -321,6 +352,20 @@ RES_SLICED_SAVE, RES_SLICED_BATCHES = 8, SLICED_BATCHES
 DRILL_PRE_CHUNKS = 2
 DRILL_TIMEOUT_S = 30.0
 DRILL_EXIT_CODE = 43
+# the serve phase: bench.py's config7 (120 tenants against 1, the same 960
+# batches of (8192, 5), seed 7) and config8 (64 distinct batches of
+# (8192, 5), window_chunks=8, seed 8, four routes and the overlap leg), at
+# their full batch counts
+SERVE_ROWS = 8192
+SERVE7_TENANTS, SERVE7_BATCHES = 120, 960
+SERVE8_BATCHES, SERVE8_WINDOW = 64, 8
+SERVE8_PRODUCERS, SERVE8_PIPE_DEPTH = 4, 8
+# (c): the kernel-bearing tenants on one daemon
+SERVE_MACRO_TENANTS, SERVE_MACRO_BATCHES = 4, MACRO_CHUNKS
+SERVE_AUROC_ROWS, SERVE_AUROC_BATCHES = 1 << 20, 16
+# crossed after batches 6 and 12: two compactions a tenant
+SERVE_AUROC_THRESHOLD = 6 * SERVE_AUROC_ROWS
+SERVE_TIMEOUT_S = 600.0
 # unit roundoff of the half types
 HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
@@ -3561,6 +3606,519 @@ def resilience_drill(dev, root, counts, acc_ref, f1_ref, auroc_ref):
             "restart": restart, "launches": launches, "pre": pre}
 
 
+# ------------------------------------------------ the serve phase
+def _serve_spec(classes=HEADLINE_CLASSES):
+    return {"acc": ["MulticlassAccuracy", {"num_classes": classes}]}
+
+
+def _serve_acc(dev, classes=HEADLINE_CLASSES):
+    from torcheval_tpu_torch.metrics import MulticlassAccuracy
+
+    return {"acc": MulticlassAccuracy(num_classes=classes, device=dev)}
+
+
+def _h2d_bytes() -> int:
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
+
+    return int(count("serve.ingest.h2d_bytes"))
+
+
+def _value_bytes(x) -> bytes:
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x).tobytes()
+
+
+def serve_config7(dev):
+    """(a) bench.py::config7_serve_tenants on the card: the same 960 batches
+    into one tenant, then round-robin over 120, each leg after a warm
+    tenant, ``block=True``. Returns the rates, the served values and the
+    tenants' statuses."""
+    from torcheval_tpu_torch.serve import EvalDaemon
+
+    rng = np.random.default_rng(7)
+    scores = rng.random((SERVE_ROWS, HEADLINE_CLASSES)).astype(np.float32)
+    labels = rng.integers(0, HEADLINE_CLASSES, SERVE_ROWS)
+
+    def leg(fleet):
+        with EvalDaemon(max_tenants=SERVE7_TENANTS + 1, queue_capacity=64) as daemon:
+            warm = daemon.attach("warm", _serve_acc(dev))
+            warm.submit(scores, labels)
+            warm.compute(timeout=SERVE_TIMEOUT_S)
+            warm.detach(timeout=SERVE_TIMEOUT_S)
+            handles = [daemon.attach(f"bench-{i}", _serve_acc(dev)) for i in range(fleet)]
+            t0 = time.perf_counter()
+            for _ in range(SERVE7_BATCHES // fleet):
+                for h in handles:
+                    h.submit(scores, labels, block=True, timeout=SERVE_TIMEOUT_S)
+            values = [h.compute(timeout=SERVE_TIMEOUT_S)["acc"] for h in handles]
+            seconds = time.perf_counter() - t0
+            statuses = {t["status"] for t in daemon.health()["tenants"].values()}
+        return seconds, values, statuses
+
+    single_s, single, st1 = leg(1)
+    fleet_s, fleet, st2 = leg(SERVE7_TENANTS)
+    preds = SERVE7_BATCHES * SERVE_ROWS
+    out = {"single_preds_per_s": preds / single_s, "interleaved_preds_per_s": preds / fleet_s,
+           "single_s": single_s, "interleaved_s": fleet_s}
+    out["ratio"] = out["interleaved_preds_per_s"] / out["single_preds_per_s"]
+    _require(st1 == st2 == {"active"}, f"(a) every tenant ACTIVE ({st1}, {st2})")
+
+    def reference():
+        from torcheval_tpu_torch.metrics import MulticlassAccuracy
+
+        want = {}
+        for per in (SERVE7_BATCHES, SERVE7_BATCHES // SERVE7_TENANTS):
+            m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
+            for _ in range(per):
+                m.update(scores, labels)
+            want[per] = m.compute()
+        _require(torch.equal(single[0], want[SERVE7_BATCHES]),
+                 "(a) the single tenant's value equals one MulticlassAccuracy fed its batches")
+        _require(all(torch.equal(v, want[SERVE7_BATCHES // SERVE7_TENANTS]) for v in fleet),
+                 f"(a) each of the {SERVE7_TENANTS} tenants' values equals one MulticlassAccuracy "
+                 "fed its batches, bit for bit")
+        return float(single[0]), float(fleet[0])
+
+    return out, reference
+
+
+def _serve8_batches():
+    rng = np.random.default_rng(8)
+    return [(rng.random((SERVE_ROWS, HEADLINE_CLASSES)).astype(np.float32),
+             rng.integers(0, HEADLINE_CLASSES, SERVE_ROWS)) for _ in range(SERVE8_BATCHES)]
+
+
+def serve_config8(dev, batches):
+    """(b) bench.py::config8_cluster's single-host legs on the card:
+    in-process, then ``EvalClient(submit_buffer=8)`` over loopback TCP with
+    ``codec="raw"`` and ``"qblk"``, pipelined (four producers, depth 8),
+    the local transport, and the ingest-overlap leg; each route's
+    ``serve.ingest.h2d_bytes`` against the bytes it was given."""
+    from torcheval_tpu_torch.serve import EvalClient, EvalDaemon, EvalServer
+
+    per_batch = batches[0][0].nbytes + batches[0][1].nbytes
+    preds = SERVE8_BATCHES * SERVE_ROWS
+    out, values, h2d = {}, {}, {}
+
+    h0 = _h2d_bytes()
+    with EvalDaemon() as daemon:
+        handle = daemon.attach("warm", _serve_acc(dev), window_chunks=SERVE8_WINDOW)
+        for s, l in batches:
+            handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        handle.compute(timeout=SERVE_TIMEOUT_S)
+        handle.detach(timeout=SERVE_TIMEOUT_S)
+        handle = daemon.attach("bench", _serve_acc(dev), window_chunks=SERVE8_WINDOW)
+        t0 = time.perf_counter()
+        for s, l in batches:
+            handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        values["in_process"] = handle.compute(timeout=SERVE_TIMEOUT_S)["acc"]
+        out["in_process_preds_per_s"] = preds / (time.perf_counter() - t0)
+    h2d["in_process"] = (_h2d_bytes() - h0, 2 * SERVE8_BATCHES * per_batch)
+
+    def wire(route, codec="raw", local=False, depth=1, producers=1, buffer=SERVE8_WINDOW):
+        h0 = _h2d_bytes()
+        with EvalDaemon(queue_capacity=max(64, producers * SERVE8_BATCHES)) as daemon:
+            server = EvalServer(daemon, pipeline_depth=SERVE8_PIPE_DEPTH)
+            client = EvalClient(server.endpoint, request_timeout_s=SERVE_TIMEOUT_S,
+                                submit_buffer=buffer, codec=codec, pipeline_depth=depth,
+                                local_transport=local)
+            try:
+                client.attach("warm", _serve_spec(), window_chunks=SERVE8_WINDOW)
+                for s, l in batches:
+                    client.submit("warm", s, l)
+                client.compute("warm")
+                client.detach("warm")
+                tenants = [f"{route}-{k}" for k in range(producers)]
+                for t in tenants:
+                    client.attach(t, _serve_spec(), window_chunks=SERVE8_WINDOW)
+                errors = []
+
+                def produce(t):
+                    try:
+                        for s, l in batches:
+                            client.submit(t, s, l)
+                    except Exception as exc:  # noqa: BLE001 - raised below
+                        errors.append(exc)
+
+                threads = [threading.Thread(target=produce, args=(t,)) for t in tenants]
+                t0 = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                if errors:
+                    raise errors[0]
+                got = [client.compute(t)["acc"] for t in tenants]
+                seconds = time.perf_counter() - t0
+                statuses = {daemon.health()["tenants"][t]["status"] for t in tenants}
+            finally:
+                client.close()
+                server.close()
+        _require(statuses == {"active"}, f"(b) {route}: every tenant ACTIVE ({statuses})")
+        values[route] = got
+        out[f"{route}_preds_per_s"] = producers * preds / seconds
+        h2d[route] = (_h2d_bytes() - h0, (1 + producers) * SERVE8_BATCHES * per_batch)
+
+    wire("wire_raw")
+    wire("wire_qblk", codec="qblk")
+    wire("wire_pipelined", depth=SERVE8_PIPE_DEPTH, producers=SERVE8_PRODUCERS)
+    wire("local_transport", local=True)
+    base = out["in_process_preds_per_s"]
+    for route in ("wire_raw", "wire_qblk", "wire_pipelined", "local_transport"):
+        out[f"{route}_ratio"] = out[f"{route}_preds_per_s"] / base
+    out["pipelined_over_raw_wire"] = out["wire_pipelined_preds_per_s"] / out["wire_raw_preds_per_s"]
+    for route, (got, want) in h2d.items():
+        _require(got == want, f"(b) {route}: serve.ingest.h2d_bytes {got} equals the {want} bytes "
+                 "the coalesced path was given (no reroute to the per-batch path)")
+    out["h2d_bytes"] = {route: got for route, (got, _) in h2d.items()}
+
+    # the overlap leg: four producers over TCP keep the queue full, so a
+    # window's first appends may land while the previous window's step runs
+    mark = overlap_mark()
+    wire("overlap", producers=SERVE8_PRODUCERS, buffer=1)
+    out["ingest_overlap_ms"] = overlap_since(mark)
+    out["idle_share_in_process"] = serve_idle_share(dev, batches)
+
+    def reference():
+        from torcheval_tpu_torch.metrics import MulticlassAccuracy
+        from torcheval_tpu_torch.utils import quant
+
+        def direct(pairs):
+            m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
+            for s, l in pairs:
+                m.update(s, l)
+            return m.compute()
+
+        want = direct(batches)
+        _require(torch.equal(values["in_process"], want), "(b) in-process value equals a direct metric's")
+        for route in ("wire_raw", "local_transport", "wire_pipelined", "overlap"):
+            _require(all(_value_bytes(v) == _value_bytes(want) for v in values[route]),
+                     f"(b) {route}: values equal the in-process value bit for bit")
+        deq = direct([(quant.q8_from_parts(*quant.q8_parts(s), s.shape), l) for s, l in batches])
+        _require(_value_bytes(values["wire_qblk"][0]) == _value_bytes(deq),
+                 "(b) qblk: the value equals a direct metric fed the codec's dequantized batches "
+                 "(each score within max|block| / 254)")
+        return float(want), float(np.asarray(values["wire_qblk"][0]))
+
+    return out, reference
+
+
+def overlap_mark():
+    """The ``deferred.window.overlap_ms`` histogram's count and sum now."""
+    from torcheval_tpu_torch import obs
+
+    h = obs.snapshot()["histograms"].get("deferred.window.overlap_ms")
+    return (h["count"], h["sum"]) if h else (0, 0.0)
+
+
+def overlap_since(mark):
+    """Windows whose fill overlapped the previous window step since
+    ``mark``, and the overlapped milliseconds."""
+    c1, s1 = overlap_mark()
+    c, ms = c1 - mark[0], s1 - mark[1]
+    return {"windows": c, "total_ms": ms, "mean_ms": ms / c if c else 0.0}
+
+
+def serve_idle_share(dev, batches):
+    """One in-process config8 run under ``torch.profiler``: the share of its
+    wall time in which the card ran nothing (kernels, copies, memsets)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torcheval_tpu_torch.serve import EvalDaemon
+
+    with EvalDaemon() as daemon:
+        handle = daemon.attach("warm", _serve_acc(dev), window_chunks=SERVE8_WINDOW)
+        for s, l in batches:
+            handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        handle.compute(timeout=SERVE_TIMEOUT_S)
+        handle = daemon.attach("profiled", _serve_acc(dev), window_chunks=SERVE8_WINDOW)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for s, l in batches:
+                handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+            handle.compute(timeout=SERVE_TIMEOUT_S)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    busy = _covered(_merged((e.time_range.start, e.time_range.end) for e in prof.events()
+                            if e.device_type == torch.autograd.DeviceType.CUDA
+                            and e.time_range.elapsed_us() > 0 and not e.name.startswith(_RANGES)))
+    _require(busy > 0, "(b) the profiled serve run recorded device work")
+    return {"device_busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3, "idle_share": 1 - busy / wall_us}
+
+
+def _serve_kernel_data(dev):
+    """(c)'s host batches: per macro tenant 8 x (8192, 1000) scores and
+    labels; per curve tenant 16 x 2^20 scores and targets; the top-k leg's 4
+    x (8192, 10000), made on the card and read back."""
+    macro = []
+    for t in range(SERVE_MACRO_TENANTS):
+        rng = np.random.default_rng(900 + t)
+        macro.append([(rng.random((SERVE_ROWS, MACRO_CLASSES), dtype=np.float32),
+                       rng.integers(0, MACRO_CLASSES, SERVE_ROWS)) for _ in range(SERVE_MACRO_BATCHES)])
+    curve = []
+    for t in range(3):
+        rng = np.random.default_rng(950 + t)
+        curve.append([(rng.random(SERVE_AUROC_ROWS, dtype=np.float32),
+                       (rng.random(SERVE_AUROC_ROWS) < 0.4).astype(np.float32))
+                      for _ in range(SERVE_AUROC_BATCHES)])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1500)
+    topk = [(s.cpu().numpy(), t.cpu().numpy()) for s, t in topk_leg_data(dev, gen)]
+    return macro, curve, topk
+
+
+def _serve_kernel_members(dev, kind):
+    from torcheval_tpu_torch.metrics import (
+        BinaryAUROC,
+        MulticlassAccuracy,
+        MulticlassF1Score,
+        TopKMultilabelAccuracy,
+    )
+
+    if kind == "macro":
+        return {"acc": MulticlassAccuracy(num_classes=MACRO_CLASSES, average="macro", device=dev),
+                "f1": MulticlassF1Score(num_classes=MACRO_CLASSES, average="macro", device=dev)}
+    if kind == "auroc":
+        return {"auroc": BinaryAUROC(compaction_threshold=SERVE_AUROC_THRESHOLD, device=dev)}
+    if kind == "approx":
+        return {"auroc": BinaryAUROC(device=dev)}
+    return {"acc": TopKMultilabelAccuracy(k=TOPK_K, criteria="contain", device=dev)}
+
+
+def _serve_kernel_run(dev, streams, kinds, wire_stream):
+    """One run of (c)'s tenants on a fresh daemon, their batches
+    interleaved: ``(values, statuses, seconds)``."""
+    from torcheval_tpu_torch.serve import EvalClient, EvalDaemon, EvalServer
+
+    t0 = time.perf_counter()
+    with EvalDaemon() as daemon:
+        handles = {name: daemon.attach(name, _serve_kernel_members(dev, kinds[name]),
+                                       approx=True if name == "approx" else None)
+                   for name in streams}
+        server = EvalServer(daemon)
+        client = EvalClient(server.endpoint, request_timeout_s=SERVE_TIMEOUT_S, local_transport=False)
+        try:
+            client.attach("macro_wire", {
+                "acc": ["MulticlassAccuracy", {"num_classes": MACRO_CLASSES, "average": "macro"}],
+                "f1": ["MulticlassF1Score", {"num_classes": MACRO_CLASSES, "average": "macro"}]})
+            for i in range(max(len(s) for s in streams.values())):
+                for name, stream in streams.items():
+                    if i < len(stream):
+                        handles[name].submit(*stream[i], block=True, timeout=SERVE_TIMEOUT_S)
+                if i < len(wire_stream):
+                    client.submit("macro_wire", *wire_stream[i])
+            got = {name: h.compute(timeout=SERVE_TIMEOUT_S) for name, h in handles.items()}
+            got["macro_wire"] = client.compute("macro_wire")
+            statuses = {name: t["status"] for name, t in daemon.health()["tenants"].items()}
+        finally:
+            client.close()
+            server.close()
+    torch.cuda.synchronize()
+    return got, statuses, time.perf_counter() - t0
+
+
+def _merged(spans):
+    """Sorted, disjoint ``(start, end)`` intervals covering ``spans``."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged):
+    return sum(b - a for a, b in merged)
+
+
+def _overlap_us(x, y):
+    """Time two merged interval lists have in common."""
+    total, i, j = 0.0, 0, 0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def serve_kernel_tenants(dev, data):
+    """(c) the tenants that run every hand kernel, on one daemon, their
+    batches interleaved: 4 macro tenants (the histogram), 2 compacting
+    ``BinaryAUROC`` tenants (the compaction), one ``approx=True``
+    ``BinaryAUROC`` (the segment sum), one ``TopKMultilabelAccuracy`` (the
+    top-k); and one more macro tenant over the wire. Returns the run's
+    numbers, a reference check, and a second run under ``torch.profiler``
+    that measures how much of the host-to-device copies (the copy stream)
+    ran beside kernels."""
+    macro, curve, topk = data
+    streams = {f"macro{t}": macro[t] for t in range(SERVE_MACRO_TENANTS)}
+    streams.update({"auroc0": curve[0], "auroc1": curve[1], "approx": curve[2], "topk": topk})
+    kinds = {name: ("macro" if name.startswith("macro") else "auroc" if name.startswith("auroc")
+                    else name) for name in streams}
+    mark = overlap_mark()
+    got, statuses, seconds = _serve_kernel_run(dev, streams, kinds, macro[0])
+    overlap = overlap_since(mark)
+    _require(set(statuses.values()) == {"active"} and len(statuses) == len(streams) + 1,
+             f"(c) every tenant ACTIVE: {statuses}")
+
+    def reference():
+        from torcheval_tpu_torch.metrics import MetricCollection
+
+        for name, stream in list(streams.items()) + [("macro_wire", macro[0])]:
+            kind = "macro" if name == "macro_wire" else kinds[name]
+            members = _serve_kernel_members(dev, kind)
+            if kind == "approx":
+                from torcheval_tpu_torch.sketch.cache import enable_metric_approx
+
+                enable_metric_approx(members["auroc"], True)
+            col = MetricCollection(members)
+            for args in stream:
+                col.update(*args)
+            want = col.compute()
+            for k, v in want.items():
+                _require(_value_bytes(got[name][k]) == _value_bytes(v),
+                         f"(c) {name}/{k}: served value equals the same metrics fed directly, bit for bit")
+
+    def profiled():
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again, _, wall_s = _serve_kernel_run(dev, streams, kinds, macro[0])
+        _require(all(_value_bytes(again[n][k]) == _value_bytes(v) for n in got for k, v in got[n].items()),
+                 "(c) the profiled run's values equal the first run's")
+        device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.time_range.elapsed_us() > 0 and not e.name.startswith(_RANGES)]
+        copies = _merged((e.time_range.start, e.time_range.end) for e in device if "HtoD" in e.name)
+        kernels = _merged((e.time_range.start, e.time_range.end) for e in device if "Memcpy" not in e.name
+                          and "Memset" not in e.name)
+        busy = _merged((e.time_range.start, e.time_range.end) for e in device)
+        return {"wall_ms": wall_s * 1e3, "h2d_ms": _covered(copies) / 1e3, "kernel_ms": _covered(kernels) / 1e3,
+                "h2d_beside_kernels_ms": _overlap_us(copies, kernels) / 1e3,
+                "idle_share": 1 - _covered(busy) / (wall_s * 1e6)}
+
+    return {"seconds": seconds, "tenants": len(statuses), "ingest_overlap_ms": overlap}, reference, profiled
+
+
+def serve_containment(dev, batches, root):
+    """(d) a NaN batch under ``nan_policy="reject"`` quarantines its tenant
+    with the cause, the bystander unchanged; a tenant idle past
+    ``watchdog_timeout_s`` is evicted to a checkpoint, reattached with
+    ``resume="require"`` and finished, equal to an uninterrupted tenant."""
+    from torcheval_tpu_torch.serve import EvalDaemon, TenantEvictedError, TenantQuarantinedError, TenantStatus
+
+    half = len(batches) // 2
+    with EvalDaemon(evict_dir=root, watchdog_interval_s=0.05) as daemon:
+        strict = daemon.attach("strict", _serve_acc(dev), nan_policy="reject")
+        bystander = daemon.attach("bystander", _serve_acc(dev))
+        whole = daemon.attach("uninterrupted", _serve_acc(dev))
+        idle = daemon.attach("idle", _serve_acc(dev), watchdog_timeout_s=0.5)
+        nan = np.full_like(batches[0][0], np.nan)
+        strict.submit(*batches[0])
+        strict.submit(nan, batches[1][1])
+        for s, l in batches:
+            bystander.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+            whole.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        for s, l in batches[:half]:
+            idle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        try:
+            strict.compute(timeout=SERVE_TIMEOUT_S)
+            _require(False, "(d) the NaN batch quarantined its tenant")
+        except TenantQuarantinedError as err:
+            _require(err.reason == "nan_policy" and err.__cause__ is not None
+                     and strict.status is TenantStatus.QUARANTINED,
+                     f"(d) quarantined with reason nan_policy and its cause ({err!r})")
+            cause = type(err.__cause__).__name__
+        deadline = time.monotonic() + 60
+        while idle.status is TenantStatus.ACTIVE and time.monotonic() < deadline:
+            time.sleep(0.05)
+        _require(idle.status is TenantStatus.EVICTED and isinstance(idle.error, TenantEvictedError)
+                 and idle.error.reason == "watchdog_idle" and os.path.isdir(idle.error.checkpoint),
+                 f"(d) the idle tenant was evicted to a checkpoint ({idle.status})")
+        resumed = daemon.attach("idle", _serve_acc(dev), resume="require")
+        for s, l in batches[half:]:
+            resumed.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        got = {"resumed": resumed.compute(timeout=SERVE_TIMEOUT_S)["acc"],
+               "uninterrupted": whole.compute(timeout=SERVE_TIMEOUT_S)["acc"],
+               "bystander": bystander.compute(timeout=SERVE_TIMEOUT_S)["acc"]}
+        statuses = {n: t["status"] for n, t in daemon.health()["tenants"].items()}
+    _require(statuses == {"strict": "quarantined", "bystander": "active", "uninterrupted": "active",
+                          "idle": "active"}, f"(d) statuses {statuses}")
+    _require(torch.equal(got["resumed"], got["uninterrupted"]),
+             "(d) the evicted and resumed tenant equals the uninterrupted one, bit for bit")
+
+    def reference():
+        from torcheval_tpu_torch.metrics import MulticlassAccuracy
+
+        m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
+        for s, l in batches:
+            m.update(s, l)
+        _require(torch.equal(got["bystander"], m.compute()),
+                 "(d) the bystander's value equals a direct metric's: unchanged by the quarantine")
+
+    return {"quarantine_cause": cause, "statuses": statuses}, reference
+
+
+def serve_phase(dev):
+    """The serve phase, (a)-(d), with every count 0 just before and read
+    just after the served path; the references run after the read."""
+    print(f"serve phase: (a) config7 ({SERVE7_TENANTS} tenants against 1, {SERVE7_BATCHES} x "
+          f"({SERVE_ROWS}, {HEADLINE_CLASSES})), (b) config8 ({SERVE8_BATCHES} batches, four routes "
+          f"and the overlap leg), (c) the kernel-bearing tenants, (d) containment and eviction")
+    batches8 = _serve8_batches()
+    kernel_data = _serve_kernel_data(dev)
+    torch.cuda.synchronize()
+    for k in ("hist", "stream_compact", "topk_kernel", "segment_sum"):
+        setattr(K, k, 0)
+    a, ref_a = serve_config7(dev)
+    b, ref_b = serve_config8(dev, batches8)
+    c, ref_c, profile_c = serve_kernel_tenants(dev, kernel_data)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        d, ref_d = serve_containment(dev, batches8[:8], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {k: getattr(K, k) for k in ("hist", "stream_compact", "topk_kernel", "segment_sum")}
+    _require(all(n > 0 for n in launches.values()), f"(c) every kernel launched in the phase: {launches}")
+    single_v, fleet_v = ref_a()
+    want8, qblk_v = ref_b()
+    ref_c()
+    ref_d()
+    c["profiled"] = profile_c()
+    del kernel_data
+    torch.cuda.empty_cache()
+    print(f"  (a) single tenant {a['single_preds_per_s']:.1f} preds/s, {SERVE7_TENANTS} interleaved "
+          f"{a['interleaved_preds_per_s']:.1f} preds/s, ratio {a['ratio']:.4f} (the JAX package's "
+          f"target 0.8, a number here); every value equal to a direct MulticlassAccuracy's "
+          f"({single_v:.8f}, {fleet_v:.8f})")
+    for route in ("wire_raw", "wire_qblk", "wire_pipelined", "local_transport"):
+        print(f"  (b) {route}: {b[f'{route}_preds_per_s']:.1f} preds/s, {b[f'{route}_ratio']:.4f} of "
+              f"in-process ({b['in_process_preds_per_s']:.1f} preds/s)")
+    ov = b["ingest_overlap_ms"]
+    print(f"  (b) pipelined over the lock-step raw wire {b['pipelined_over_raw_wire']:.4f}; ingest "
+          f"overlap {ov['total_ms']:.3f} ms over {ov['windows']} windows (mean {ov['mean_ms']:.3f} ms); "
+          f"h2d bytes by route {b['h2d_bytes']} (each equal to the bytes given); value {want8:.8f}, "
+          f"qblk {qblk_v:.8f}")
+    idle = b["idle_share_in_process"]
+    print(f"  (b) in-process run under the profiler: device busy {idle['device_busy_ms']:.3f} ms of "
+          f"{idle['wall_ms']:.3f} ms wall, idle share {idle['idle_share']:.4f}")
+    ov = c["ingest_overlap_ms"]
+    print(f"  (c) {c['tenants']} tenants ACTIVE in {c['seconds']:.2f} s, every value equal to the same "
+          f"metrics fed directly; ingest overlap {ov['total_ms']:.3f} ms over {ov['windows']} windows; "
+          f"phase launches jit.calls{{entry=}} {launches}")
+    pc = c["profiled"]
+    print(f"  (c) again under the profiler: {pc['wall_ms']:.1f} ms wall, kernels {pc['kernel_ms']:.3f} ms, "
+          f"host-to-device copies {pc['h2d_ms']:.3f} ms of which {pc['h2d_beside_kernels_ms']:.3f} ms beside "
+          f"a kernel (the copy stream's overlap), idle share {pc['idle_share']:.4f}")
+    print(f"  (d) quarantined with cause {d['quarantine_cause']}; evicted, resumed and equal to the "
+          f"uninterrupted tenant; statuses {d['statuses']}")
+    summary = {"config7": a, "config8": b, "kernel_tenants": c, "containment": d, "launches": launches}
+    print(json.dumps({"serve": summary}, default=float))
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -4519,6 +5077,8 @@ def main() -> int:
           f"data-parallel leg's gate; launches {rc['launches']}")
     shutil.rmtree(res_root)
 
+    serve_launches = serve_phase(dev)
+
     print(f"phase 4 distributed-curves leg ({DIST_RANKS} ranks on one card over gloo, each "
           f"through a ShardedEvaluator: (a) {DP_CHUNKS // DIST_RANKS * HEADLINE_CHUNK} data-parallel "
           f"rows a rank, (b) the "
@@ -4609,13 +5169,15 @@ def main() -> int:
     res_launches = {k: ra["launches"][k] + rc["launches"][k] for k in ("hist", "stream_compact")}
     for k, n in res_launches.items():
         launches[k] += n
-    launches["topk"] = topk_launches + retrieval_launches
+    launches["topk"] = topk_launches + retrieval_launches + serve_launches["topk_kernel"]
+    launches["hist"] += serve_launches["hist"]
+    launches["stream_compact"] += serve_launches["stream_compact"]
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
     by_leg = {"sliced": sliced_launches, "curves": curve_launches["segment_sum"],
               "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches,
               "dist_curves": dist_launches["segment_sum_splitter"] + dist_launches["segment_sum_sketch"],
-              "resilience": rb["launches"]}
+              "resilience": rb["launches"], "serve": serve_launches["segment_sum"]}
     rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     rows[-1]["launches_by_leg"] = by_leg
@@ -4682,6 +5244,7 @@ def main() -> int:
           f"(host clock, kernel included): {shard[-1]['all_reduce_seconds_by_rank']}")
     print(f"  resilience phase launches: hist {res_launches['hist']}, stream_compact "
           f"{res_launches['stream_compact']}, segment_sum {rb['launches']}")
+    print(f"  serve phase launches: {serve_launches}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

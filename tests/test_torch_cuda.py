@@ -1407,3 +1407,100 @@ def test_restored_binary_auroc_compacts_on_the_card(dev, tmp_path):
     assert launches("stream_compact") >= before + 2
     _same_states(_ckpt_states(target), _ckpt_states(source))
     assert torch.equal(target["auroc"].compute(), source["auroc"].compute())
+
+
+# ------------------------------------------------------------ the serve plane
+def test_a_cuda_pool_pins_its_slots(dev):
+    from torcheval_tpu_torch.serve.ingest import HostBufferPool
+
+    pool = HostBufferPool(device=dev)
+    buf = pool.acquire(10_000)
+    assert pool.pinned and buf.tensor.is_pinned()
+    buf.view(4)[:] = b"abcd"
+    assert bytes(buf.tensor[:4].numpy()) == b"abcd"  # one memory, two views
+
+
+def test_a_copy_stream_slot_is_not_recycled_before_its_event(dev):
+    from torcheval_tpu_torch.serve.ingest import HostBufferPool, coalesce_h2d
+
+    pool = HostBufferPool(device=dev)
+    stream = torch.cuda.Stream(device=dev)
+    rng = np.random.default_rng(0)
+    batch = (rng.random((1 << 16, 8)).astype(np.float32), rng.integers(0, 8, 1 << 16))
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)  # hold the copy stream busy
+    placed, owned, event = coalesce_h2d([batch], dev, pool=pool, stream=stream)
+    assert owned == [True] and isinstance(event, torch.cuda.Event)
+    assert pool.stats()["cooling"] == 1  # the staging slot waits on the copy
+    first = pool._cooling[0][0]
+    assert pool.acquire(first.nbytes) is not first
+    # the consumer (this thread's current stream) waited on the copy
+    assert torch.equal(placed[0][0].cpu(), torch.from_numpy(batch[0]))
+    assert torch.equal(placed[0][1].cpu(), torch.from_numpy(batch[1]))
+    torch.cuda.synchronize()
+    assert event.query()
+    pool.shrink()
+    assert pool.stats()["cooling"] == 0
+
+
+def test_update_placed_owned_equals_update_on_the_card(dev):
+    from torcheval_tpu_torch.metrics import MetricCollection, MulticlassF1Score
+
+    rng = np.random.default_rng(1)
+    batches = [(rng.random((4096, 10)).astype(np.float32), rng.integers(0, 10, 4096)) for _ in range(4)]
+
+    def col():
+        return MetricCollection(
+            {"acc": MulticlassAccuracy(num_classes=10, device=dev),
+             "f1": MulticlassF1Score(num_classes=10, average="macro", device=dev)}
+        )  # fmt: skip
+
+    ref, placed = col(), col()
+    for s, l in batches:
+        ref.update(s, l)
+        placed.update_placed((torch.from_numpy(s).to(dev), torch.from_numpy(l).to(dev)), owned=True)
+    want, got = ref.compute(), placed.compute()
+    for k in want:
+        assert torch.equal(got[k], want[k])
+    with pytest.raises(ValueError, match="update_placed"):
+        placed.update_placed((torch.zeros(2, 10), torch.zeros(2, dtype=torch.long)))
+
+
+def test_a_served_tenant_equals_a_direct_collection_on_the_card(dev):
+    from torcheval_tpu_torch.metrics import MetricCollection, MulticlassF1Score
+    from torcheval_tpu_torch.serve import EvalClient, EvalDaemon, EvalServer
+
+    rng = np.random.default_rng(2)
+    batches = [(rng.random((8192, 1000)).astype(np.float32), rng.integers(0, 1000, 8192)) for _ in range(3)]
+
+    def members():
+        return {"acc": MulticlassAccuracy(num_classes=1000, average="macro", device=dev),
+                "f1": MulticlassF1Score(num_classes=1000, average="macro", device=dev)}  # fmt: skip
+
+    direct = MetricCollection(members())
+    for s, l in batches:
+        direct.update(s, l)
+    want = direct.compute()
+    before = launches("hist")
+    with EvalDaemon() as daemon:
+        assert daemon.device == dev
+        h = daemon.attach("local", members())
+        for s, l in batches:
+            h.submit(s, l, block=True, timeout=60)
+        got = h.compute(timeout=120)
+        server = EvalServer(daemon)
+        client = EvalClient(server.endpoint, local_transport=False)
+        try:
+            client.attach("wire", {"acc": ["MulticlassAccuracy", {"num_classes": 1000, "average": "macro"}],
+                                   "f1": ["MulticlassF1Score", {"num_classes": 1000, "average": "macro"}]})
+            for s, l in batches:
+                client.submit("wire", s, l)
+            wire = client.compute("wire")
+        finally:
+            client.close()
+            server.close()
+        assert daemon.health()["tenants"]["local"]["status"] == "active"
+    assert launches("hist") > before
+    for k in want:
+        assert torch.equal(got[k], want[k])
+        assert np.asarray(wire[k]).tobytes() == want[k].cpu().numpy().tobytes()

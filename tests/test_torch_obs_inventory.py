@@ -7,7 +7,6 @@ no others.
   ``torcheval_tpu_torch/obs/inventory.py``, whose kind it matches.
 * Every inventory name whose JAX call site lies in a module the port has
   (the same path under ``torcheval_tpu_torch/``) is recorded by the port.
-  ``serve.*`` waits for the serve plane.
 * ``obs/__init__.py`` exports every name of the JAX ``obs.__all__``
   (``watched`` where the JAX package has ``watched_jit``), and the plain
   counter attributes the registry replaced are gone.
@@ -85,7 +84,7 @@ def _ported_jax_names():
     """Inventory names whose JAX call site is in a module the port has."""
     out = []
     for name, sites in JAX_LITERALS.items():
-        if name.startswith("serve.") or name not in DOC_ROWS:
+        if name not in DOC_ROWS:
             continue
         if any((PORT / rel).exists() for _, rel in sites):
             out.append(name)

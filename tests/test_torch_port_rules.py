@@ -3,10 +3,12 @@ the GPU unless asked for the CPU, and its kernel wrappers never fall back
 to their plain versions for a tensor that is not on the CPU."""
 
 import ast
+import contextlib
 import importlib
 import pkgutil
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -828,3 +830,125 @@ def test_quantized_dist_curves_raise_instead_of_falling_back(no_library):
         with pytest.raises(RuntimeError, match="nvcc"):
             dc.sharded_binary_auroc([s], [t], quantize=mode)
     assert (launches("hist"), launches("segment_sum")) == before
+
+
+# ------------------------------------------------------ the serve plane
+SERVE_SLICE_MODULES = [
+    "torcheval_tpu_torch.serve",
+    "torcheval_tpu_torch.serve.client",
+    "torcheval_tpu_torch.serve.daemon",
+    "torcheval_tpu_torch.serve.errors",
+    "torcheval_tpu_torch.serve.ingest",
+    "torcheval_tpu_torch.serve.tenant",
+    "torcheval_tpu_torch.serve.wire",
+    "torcheval_tpu_torch.utils.test_utils.serve_worker",
+]
+
+
+@pytest.mark.parametrize("name", SERVE_SLICE_MODULES)
+def test_serve_slice_modules_are_checked(name):
+    # not even the JAX package's framework-free serve modules (errors,
+    # tenant): the port keeps its own copies
+    assert name in _modules() or name == "torcheval_tpu_torch.serve"
+    rel = name.split(".")[1:]
+    path = PACKAGE.joinpath(*rel, "__init__.py") if name == "torcheval_tpu_torch.serve" else (
+        PACKAGE.joinpath(*rel).with_suffix(".py"))
+    assert path in _port_files()
+    assert not FORBIDDEN.intersection(_imported_roots(path))
+
+
+def test_the_serve_plane_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from torcheval_tpu_torch.serve import EvalDaemon
+    from torcheval_tpu_torch.serve.ingest import HostBufferPool
+    from torcheval_tpu_torch.serve.wire import build_metrics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = {"acc": ["MulticlassAccuracy", {"num_classes": 5}]}
+    for make in (EvalDaemon, lambda: build_metrics(spec), HostBufferPool):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert EvalDaemon(device="cpu").device == torch.device("cpu")
+    assert build_metrics(spec, device="cpu")["acc"].device == torch.device("cpu")
+
+
+def _fake_cuda_pool(monkeypatch):
+    """A pool for ``cuda:0`` on a machine without one (``is_available``
+    patched), so its pinning path runs and can be made to fail."""
+    from torcheval_tpu_torch.serve.ingest import HostBufferPool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    pool = HostBufferPool(device=torch.device("cuda", 0))
+    assert pool.pinned
+    return pool
+
+
+def test_a_cuda_pool_raises_when_its_pin_fails(monkeypatch):
+    from torcheval_tpu_torch.serve import ingest
+
+    pool = _fake_cuda_pool(monkeypatch)
+    real_empty = torch.empty
+
+    def refuse_pin(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("cudaHostAlloc failed")
+        return real_empty(*args, **kwargs)
+
+    monkeypatch.setattr(ingest.torch, "empty", refuse_pin)
+    with pytest.raises(RuntimeError, match="cudaHostAlloc"):
+        pool.acquire(1024)
+    assert pool.stats()["allocated"] == 0
+
+
+def test_a_cuda_copy_raises_instead_of_falling_back(monkeypatch):
+    from torcheval_tpu_torch.serve import ingest
+
+    pool = _fake_cuda_pool(monkeypatch)
+
+    class FakePinned:
+        """A pinned slot stand-in whose device copy fails."""
+
+        def __init__(self, *a, **k):
+            self.host = np.zeros(1 << 12, np.uint8)
+
+        def numpy(self):
+            return self.host
+
+        def __getitem__(self, key):
+            return self
+
+    class FakeStream:
+        pass
+
+    class FakeDeviceBuffer:
+        def copy_(self, src, non_blocking=False):
+            assert non_blocking  # an asynchronous copy from pinned memory
+            raise RuntimeError("device copy failed")
+
+    def failing_empty(*args, **kwargs):
+        return FakePinned() if kwargs.get("pin_memory") else FakeDeviceBuffer()
+
+    monkeypatch.setattr(ingest.torch, "empty", failing_empty)
+    monkeypatch.setattr(ingest.torch.cuda, "current_stream", lambda device=None: FakeStream())
+    monkeypatch.setattr(ingest.torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    batch = (np.ones((4, 3), np.float32), np.arange(4))
+    with pytest.raises(RuntimeError, match="device copy failed"):
+        ingest.coalesce_h2d([batch], torch.device("cuda", 0), pool=pool)
+    # the staging slot went back (nothing read it): no leak, no fallback
+    assert pool.stats() == {"free": 1, "cooling": 0, "allocated": 1}
+
+
+def test_an_event_probe_error_propagates():
+    from torcheval_tpu_torch.serve import ingest
+
+    class Event(torch.cuda.Event):
+        def __new__(cls):
+            return object.__new__(cls)
+
+        def __init__(self):
+            pass
+
+        def query(self):
+            raise RuntimeError("an illegal memory access was encountered")
+
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        ingest._anchor_retired(Event())

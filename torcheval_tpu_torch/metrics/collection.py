@@ -21,11 +21,12 @@ arguments, Python scalars) run through the members' own ``update`` and
 their pending lists, which fold together in one group fold.
 
 A window owns its batches when the collection placed each one itself (from
-numpy, or a CPU tensor copied to the card); only then may it release them
-before the fold math runs. ``update_placed`` (batches placed by an ingest
-pipeline) is not ported.
+numpy, or a CPU tensor copied to the card), or when the caller of
+:meth:`MetricCollection.update_placed` vouches for them (the serve
+daemon's staging pass); only then may it release them before the fold
+math runs.
 
-``update`` and ``compute`` are annotated for the profiler and the obs
+``update``, ``update_placed`` and ``compute`` are annotated for the profiler and the obs
 registry (``collection.update``, ``collection.compute``); the valve lands a
 ``deferred.window.valve`` instant on the timeline while obs is enabled.
 """
@@ -90,6 +91,7 @@ class MetricCollection:
         self._open_window()
         # place each batch once, on the first member's device
         self._place = next(iter(self.metrics.values()))._input
+        self._device_of_place = next(iter(self.metrics.values())).device
         self._deferred_updates = tuple(m.update for m in self._deferred.values())
         self._eager_updates = tuple(
             m.update for n, m in self.metrics.items() if n not in self._deferred
@@ -143,9 +145,30 @@ class MetricCollection:
 
     @traced("collection.update")
     def update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
-        return self._update_impl(args, kwargs)
+        return self._update_impl(args, kwargs, False)
 
-    def _update_impl(self, args: tuple, kwargs: Dict[str, Any]) -> "MetricCollection":
+    @traced("collection.update")
+    def update_placed(self, args: tuple, *, owned: bool = False) -> "MetricCollection":
+        """``update`` for batches ALREADY placed on the collection's device
+        by a trusted ingest pipeline (the serve daemon's coalesced copy).
+        Every tensor of ``args`` must lie on that device (another device
+        raises); nothing is re-placed, copied or synchronised.
+        ``owned=True`` is the caller's vouch that no one else reads these
+        tensors, which lets the window release them before its fold math
+        (a plain ``update`` never may, for a tensor the caller passed).
+        Never pass it for a tensor anything else still reads."""
+        device = self._device_of_place
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.device != device:
+                raise ValueError(
+                    f"update_placed: a tensor on {a.device} for a collection on "
+                    f"{device}; place it first, or call update()."
+                )
+        return self._update_impl(args, {}, owned)
+
+    def _update_impl(
+        self, args: tuple, kwargs: Dict[str, Any], placed_owned: bool
+    ) -> "MetricCollection":
         place = self._place
         window = self._window
         owned = self._chunks_ownable
@@ -154,7 +177,7 @@ class MetricCollection:
         for a in args:
             if _placeable(a):
                 p = place(a)
-                if p is a:
+                if p is a and not placed_owned:
                     owned = False  # the caller's own tensor
                 placed.append(p)
             else:

@@ -934,6 +934,12 @@ class SlicedMetricCollection(MetricCollection):
     needed: the port builds no mesh of its own.
     """
 
+    # serve ingest gate: the id column must stay on the HOST until it is
+    # interned — the daemon's staging pass would otherwise copy it to the
+    # device and force a read-back per batch, so sliced tenants keep the
+    # per-batch path (``serve/daemon.py``)
+    _host_ingest_only = True
+
     def __init__(
         self,
         metrics: Dict[str, Metric],
@@ -980,14 +986,15 @@ class SlicedMetricCollection(MetricCollection):
             raise ValueError("update needs at least one metric column after slice_ids.")
         rows = self._intern_and_grow(_to_numpy(slice_ids))
         # the rows are placed like any numpy column, so the window owns them
-        return self._update_impl((rows, *args), {})
+        return self._update_impl((rows, *args), {}, False)
 
-    def update_placed(self, args: tuple) -> "SlicedMetricCollection":
+    def update_placed(self, args: tuple, *, owned: bool = False) -> "SlicedMetricCollection":
         """An ingest pipeline's entry: ``args[0]`` is the host id column,
         the other columns may already be on the device (JAX:
-        ``sliced.py:1224-1229``)."""
+        ``sliced.py:1224-1229``). ``owned`` as in
+        :meth:`MetricCollection.update_placed`."""
         rows = self._intern_and_grow(_to_numpy(args[0]))
-        return self._update_impl((rows, *args[1:]), {})
+        return self._update_impl((rows, *args[1:]), {}, owned)
 
     def _intern_and_grow(self, slice_ids: np.ndarray) -> np.ndarray:
         """Intern a batch; if the members reject the grown capacity, the

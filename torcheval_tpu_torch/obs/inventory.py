@@ -3,8 +3,9 @@ labels map onto the JAX package's.
 
 JAX counterpart: the "Metric inventory" table of ``docs/observability.md``,
 which fixes the JAX package's names. The port records a subset of those
-names (no ``serve.*`` yet: the serve plane is not ported) and no name of
-its own; ``tests/test_torch_obs_inventory.py`` holds the code, this table
+names (of ``serve.*``, the single serving host's: no ``serve.router.*``
+but the client's replay count, no ``serve.fleet.*``) and no name of its
+own; ``tests/test_torch_obs_inventory.py`` holds the code, this table
 and that document to each other.
 
 Three tables:
@@ -21,7 +22,10 @@ Three tables:
 Spans are not enumerated, as in the JAX document: ``metric.<method>/<cls>``,
 ``collection.*``, ``evaluator.*``, ``toolkit.*``, ``toolkit.sync.round``,
 ``jit/<entry>``, ``jit.compile/<entry>``, ``obs.cost.capture``,
-``obs.sync_snapshot``, ``ops.dist_curves.*`` and the checkpoint spans.
+``obs.sync_snapshot``, ``ops.dist_curves.*``, the checkpoint spans and
+the serve plane's ``serve.tenant.step{tenant=}`` and
+``serve.tenant.evict{tenant=}``; the timeline's serve bars are
+``serve.ingest.transfer`` and ``serve.ingest.stage``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "dist_curves.world_size": (GAUGE, ()),
     "jit.calls": (COUNTER, ("entry",)),
     "obs.labels.dropped": (COUNTER, ("instrument",)),
+    "obs.stream.dropped": (COUNTER, ()),
+    "obs.stream.pushes": (COUNTER, ()),
     "obs.cost.flops": (GAUGE, ("entry",)),
     "obs.cost.bytes_accessed": (GAUGE, ("entry",)),
     "obs.cost.hbm_bytes": (GAUGE, ("entry",)),
@@ -63,6 +69,29 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "resilience.checkpoint.corrupt_skipped": (COUNTER, ("reason",)),
     "resilience.checkpoint.corrupt_quarantined": (COUNTER, ()),
     "resilience.checkpoint.fallback_restores": (COUNTER, ()),
+    "serve.admissions": (COUNTER, ("result", "reason")),
+    "serve.client.breaker": (COUNTER, ("event", "endpoint")),
+    "serve.client.inflight": (HISTOGRAM, ("tenant",)),
+    "serve.client.payload_bytes": (COUNTER, ("codec",)),
+    "serve.client.payload_raw_bytes": (COUNTER, ("codec",)),
+    "serve.client.retries": (COUNTER, ("reason",)),
+    "serve.drains": (COUNTER, ()),
+    "serve.evictions": (COUNTER, ("tenant", "reason")),
+    "serve.ingest.batches": (COUNTER, ("tenant",)),
+    "serve.ingest.dupes": (COUNTER, ("tenant",)),
+    "serve.ingest.h2d_bytes": (COUNTER, ()),
+    "serve.ingest.local_copies_avoided_bytes": (COUNTER, ()),
+    "serve.ingest.pool": (COUNTER, ("result",)),
+    "serve.ingest.sheds": (COUNTER, ("tenant", "reason")),
+    "serve.quarantines": (COUNTER, ("tenant", "reason")),
+    "serve.queue_depth": (HISTOGRAM, ("tenant",)),
+    "serve.router.replays": (COUNTER, ("tenant",)),
+    "serve.submit.latency": (HISTOGRAM, ("tenant",)),
+    "serve.tenants.active": (GAUGE, ()),
+    "serve.wire.acks_deferred": (COUNTER, ()),
+    "serve.wire.codec": (COUNTER, ("codec",)),
+    "serve.wire.requests": (COUNTER, ("op",)),
+    "serve.wire.rx_bytes": (COUNTER, ("codec",)),
     "sketch.folds": (COUNTER, ("kind",)),
     "sketch.folded_rows": (COUNTER, ("kind",)),
     "slo.breach": (COUNTER, ("objective", "tenant")),

@@ -34,10 +34,10 @@ can be applied unconditionally and degrade to raw per entry. Arrays below
 :data:`Q8_MIN_ELEMENTS` never quantize: small float32 states (the scalar
 counters most metrics carry) stay bit-exact with quantization on.
 
-The knob is the JAX package's: ``TORCHEVAL_TPU_SYNC_QUANTIZE``, read by
+The knobs are the JAX package's: ``TORCHEVAL_TPU_SYNC_QUANTIZE``, read by
 :func:`sync_quantize_enabled` (the toolkit) and :func:`sync_quantize_mode`
-(the distributed curves). The cluster wire's ``wire_codec_default`` belongs
-to the serve plane and is not here.
+(the distributed curves), and ``TORCHEVAL_TPU_WIRE_CODEC``, read by
+:func:`wire_codec_default` (the serve wire's client).
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ __all__ = [
     "Q8_MIN_ELEMENTS",
     "sync_quantize_enabled",
     "sync_quantize_mode",
+    "wire_codec_default",
     "bucket_payload_encode",
     "bucket_payload_decode",
     "q8_parts",
@@ -78,6 +79,7 @@ Q8_BLOCK = 256
 Q8_MIN_ELEMENTS = 64
 
 _SYNC_QUANTIZE_ENV = "TORCHEVAL_TPU_SYNC_QUANTIZE"
+_WIRE_CODEC_ENV = "TORCHEVAL_TPU_WIRE_CODEC"
 
 
 # env spellings that mean "off", as the TORCHEVAL_TPU_APPROX parser reads
@@ -134,6 +136,15 @@ def sync_quantize_mode(override=None):
         f"{_SYNC_QUANTIZE_ENV} must be 0/1/true/false/on/off/bf16/int8, "
         f"got {env!r}."
     )
+
+
+def wire_codec_default() -> str:
+    """The cluster-wire codec a client prefers when none is passed:
+    ``TORCHEVAL_TPU_WIRE_CODEC`` (``raw`` / ``delta`` / ``qblk``),
+    default ``raw``. ``delta`` is lossless and safe fleet-wide; ``qblk``
+    additionally block-quantizes f32 leaves (bounded error, see module
+    doc) and is an explicit opt-in."""
+    return os.environ.get(_WIRE_CODEC_ENV, "raw")
 
 
 # ------------------------------------------------------- q8 block quant
