@@ -232,7 +232,27 @@ failed check. Phases:
    quarantines its tenant with the cause, a bystander unchanged, and a
    tenant idle past ``watchdog_timeout_s`` evicted to a checkpoint,
    reattached with ``resume="require"`` and finished equal to an
-   uninterrupted one. One ``{"serve": ...}`` JSON line holds the numbers;
+   uninterrupted one; then the router (``EvalRouter`` on ``cuda:0``, the
+   "hosts" daemons and servers of this process on one checkpoint root):
+   (e) bench.py's config8 migration, two hosts over TCP, 64 batches of
+   (8192, 5) flushed at 32, the victim closed and stopped, the first
+   submit after it timed (the blackout), the value equal to a direct
+   metric's and one ``host_failure`` migration; (f) config9's elastic
+   fleet, 8 tenants x 24 batches of (4096, 5) a phase on a host admitting
+   exactly 8, ``HeadroomScalingPolicy`` through three ``autoscale_step``
+   calls, ``rebalance`` passes and ``split_tenant``: p99 submit latency
+   before and after (printed, not gated), 0 sheds, queue depth 0, at least
+   one migration, the split tenant equal to one stream; (g) config13's
+   router restart, 3 hosts, ``solo`` and ``fan`` split by 2, a new
+   journaled router timed from constructor to routable, 3 tenants
+   reconciled and every value equal to its oracle after 24 more batches;
+   (h) (c)'s kernel-bearing members split by 2 over two hosts behind a
+   router on the local transport, merged on ``cuda:0``, equal to the
+   members fed directly (accuracy and counts bit for bit, F1 and the
+   compacted AUROC within rtol 1e-5), each kernel launched; (i) config12's
+   push channel, 64 batches of (8192, 5) over TCP with it off and on at
+   0.05 s, at least one push received, and a steady delta's bytes against
+   the full snapshot's. One ``{"serve": ...}`` JSON line holds the numbers;
 5. with obs off, one JSON line per the kernels: launches on the main path
    (phases 3 and 4, the data-parallel ranks' and the serve phase's
    included; each kernel's
@@ -272,6 +292,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 from collections import defaultdict
 
 import numpy as np
@@ -366,6 +387,17 @@ SERVE_AUROC_ROWS, SERVE_AUROC_BATCHES = 1 << 20, 16
 # crossed after batches 6 and 12: two compactions a tenant
 SERVE_AUROC_THRESHOLD = 6 * SERVE_AUROC_ROWS
 SERVE_TIMEOUT_S = 600.0
+# (e)-(i), the router legs at bench.py's full sizes: (e) config8's
+# two-host migration (flush at batch 32 of 64), (f) config9's elastic fleet
+# (8 tenants, 24 batches of (4096, 5) a tenant a phase, host 0 admitting
+# exactly the 8), (g) config13's router restart (3 hosts, solo and a fan
+# split by 2, 24 batches of (4096, 5) each a phase), (h) (c)'s
+# kernel-bearing members split by 2 over two hosts, (i) config12's push
+# channel (64 batches of (8192, 5), push off then on at 0.05 s)
+SERVE_ROUTER_ROWS = 4096
+SERVE9_TENANTS, SERVE9_BATCHES, SERVE9_MAX_HOSTS = 8, 24, 4
+SERVE13_BATCHES = 24
+SERVE12_BATCHES, SERVE12_INTERVAL_S = 64, 0.05
 # unit roundoff of the half types
 HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
@@ -1271,7 +1303,7 @@ def obs_profile(dev, chunks):
              if e.device_type == cpu and e.name.startswith("cu")}
     watched = ("hist_kernel", "compact_kernel")
     outer_ms, inner_ms, unranged = defaultdict(float), defaultdict(float), defaultdict(float)
-    kernels, outside, device_ms = 0, [], 0.0
+    kernels, outside, device_ms, sort_ms = 0, [], 0.0, 0.0
     for d in events:
         # the profiler mirrors each range onto the device timeline under the
         # range's own name (a span over its kernels): not work of its own
@@ -1279,6 +1311,8 @@ def obs_profile(dev, chunks):
             continue
         ms = d.time_range.elapsed_us() / 1e3
         device_ms += ms
+        if "sort" in d.name.lower():  # the library's sort kernels (radix, bitonic, segmented)
+            sort_ms += ms
         t = calls.get(d.id)
         around = [] if t is None else sorted(
             (r for r in ranges if r.time_range.start <= t <= r.time_range.end),
@@ -1300,7 +1334,7 @@ def obs_profile(dev, chunks):
              f"metric, collection or jit range; outside: {outside[:3]}")
     top = sorted(unranged.items(), key=lambda kv: -kv[1])[:6]
     return {"kernels": kernels, "outer_ms": dict(outer_ms), "inner_ms": dict(inner_ms),
-            "device_ms": device_ms, "unranged": {k: round(v, 3) for k, v in top}}
+            "device_ms": device_ms, "sort_ms": sort_ms, "unranged": {k: round(v, 3) for k, v in top}}
 
 
 # ------------------------------------------------ phase 4, approximate legs
@@ -3779,21 +3813,14 @@ def serve_config8(dev, batches):
     out["idle_share_in_process"] = serve_idle_share(dev, batches)
 
     def reference():
-        from torcheval_tpu_torch.metrics import MulticlassAccuracy
         from torcheval_tpu_torch.utils import quant
 
-        def direct(pairs):
-            m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
-            for s, l in pairs:
-                m.update(s, l)
-            return m.compute()
-
-        want = direct(batches)
+        want = _direct_acc(dev, batches)
         _require(torch.equal(values["in_process"], want), "(b) in-process value equals a direct metric's")
         for route in ("wire_raw", "local_transport", "wire_pipelined", "overlap"):
             _require(all(_value_bytes(v) == _value_bytes(want) for v in values[route]),
                      f"(b) {route}: values equal the in-process value bit for bit")
-        deq = direct([(quant.q8_from_parts(*quant.q8_parts(s), s.shape), l) for s, l in batches])
+        deq = _direct_acc(dev, [(quant.q8_from_parts(*quant.q8_parts(s), s.shape), l) for s, l in batches])
         _require(_value_bytes(values["wire_qblk"][0]) == _value_bytes(deq),
                  "(b) qblk: the value equals a direct metric fed the codec's dequantized batches "
                  "(each score within max|block| / 254)")
@@ -4049,23 +4076,403 @@ def serve_containment(dev, batches, root):
              "(d) the evicted and resumed tenant equals the uninterrupted one, bit for bit")
 
     def reference():
-        from torcheval_tpu_torch.metrics import MulticlassAccuracy
-
-        m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
-        for s, l in batches:
-            m.update(s, l)
-        _require(torch.equal(got["bystander"], m.compute()),
+        _require(torch.equal(got["bystander"], _direct_acc(dev, batches)),
                  "(d) the bystander's value equals a direct metric's: unchanged by the quarantine")
 
     return {"quarantine_cause": cause, "statuses": statuses}, reference
 
 
+class _Hosts:
+    """The router legs' serving hosts: ``EvalDaemon`` + ``EvalServer`` pairs
+    on ``cuda:0`` sharing one checkpoint root, all stopped by
+    :meth:`close` (a killed host is closed and stopped at once)."""
+
+    def __init__(self, root):
+        self.root, self.daemons, self.servers, self.routers = root, [], [], []
+
+    def start(self, **daemon_kw):
+        from torcheval_tpu_torch.serve import EvalDaemon, EvalServer
+
+        daemon = EvalDaemon(evict_dir=self.root, **daemon_kw).start()
+        self.daemons.append(daemon)
+        self.servers.append(EvalServer(daemon))
+        return self.servers[-1].endpoint
+
+    def router(self, endpoints, dev, **kw):
+        """bench.py's router knobs; ``local_transport=False`` unless asked."""
+        from torcheval_tpu_torch.serve import EvalRouter
+
+        merged = dict(request_timeout_s=SERVE_TIMEOUT_S, connect_timeout_s=5.0, max_attempts=2,
+                      backoff_base_s=0.02, backoff_cap_s=0.1, local_transport=False, device=dev)
+        merged.update(kw)
+        self.routers.append(EvalRouter(endpoints, **merged))
+        return self.routers[-1]
+
+    def kill(self, endpoint):
+        i = [s.endpoint for s in self.servers].index(endpoint)
+        self.servers[i].close()
+        self.daemons[i].stop()
+
+    def close(self):
+        for r in self.routers:
+            r.close()
+        for server, daemon in zip(self.servers, self.daemons):
+            server.close()
+            if daemon._running:
+                daemon.stop()
+
+
+def _router_batch(tenant, idx, base):
+    """bench.py's config9/config13 ``make`` with ``zlib.crc32`` of the tenant
+    where bench takes ``hash()``, which Python salts per process."""
+    rng = np.random.default_rng(base + 131 * zlib.crc32(tenant.encode()) % 9973 + idx)
+    return (rng.random((SERVE_ROUTER_ROWS, HEADLINE_CLASSES)).astype(np.float32),
+            rng.integers(0, HEADLINE_CLASSES, SERVE_ROUTER_ROWS))
+
+
+def _direct_acc(dev, pairs):
+    from torcheval_tpu_torch.metrics import MulticlassAccuracy
+
+    m = MulticlassAccuracy(num_classes=HEADLINE_CLASSES, device=dev)
+    for s, l in pairs:
+        m.update(s, l)
+    return m.compute()
+
+
+def _p99(samples):
+    ordered = sorted(samples)
+    return ordered[min(len(ordered) - 1, int(0.99 * (len(ordered) - 1)))]
+
+
+def serve_migration(dev, batches, root):
+    """(e) bench.py's config8 migration leg: two hosts, ``MulticlassAccuracy``
+    over (b)'s 64 batches, flushed at 32, then the victim's server closed and
+    its daemon stopped; the first submit after the kill pays the blackout
+    (detection, restore on the survivor, replay of the booked batch)."""
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
+
+    m0 = count("serve.router.migrations", reason="host_failure")
+    hosts = _Hosts(root)
+    t_leg = time.perf_counter()
+    try:
+        router = hosts.router([hosts.start() for _ in range(2)], dev)
+        router.attach("bench", _serve_spec())
+        half = len(batches) // 2
+        for s, l in batches[:half]:
+            router.submit("bench", s, l)
+        router.flush("bench")
+        victim = router.placement()["bench"]
+        hosts.kill(victim)
+        t0 = time.perf_counter()
+        router.submit("bench", *batches[half])
+        blackout_s = time.perf_counter() - t0
+        for s, l in batches[half + 1:]:
+            router.submit("bench", s, l)
+        got = router.compute("bench")["acc"]
+        moved = router.placement()["bench"] != victim
+    finally:
+        hosts.close()
+    migrations = count("serve.router.migrations", reason="host_failure") - m0
+    _require(moved and migrations == 1,
+             f"(e) serve.router.migrations{{reason=host_failure}} is 1 ({migrations}), the tenant moved")
+
+    def reference():
+        want = _direct_acc(dev, batches)
+        _require(_value_bytes(got) == _value_bytes(want),
+                 "(e) the migrated tenant's value equals a direct MulticlassAccuracy over the 64 batches")
+        return float(want)
+
+    return {"blackout_ms": blackout_s * 1e3, "migrations": migrations,
+            "seconds": time.perf_counter() - t_leg}, reference
+
+
+def serve_elastic(dev, root):
+    """(f) bench.py's config9: 8 tenants on one host that admits exactly 8,
+    the obs stream's own load reports driving ``HeadroomScalingPolicy``
+    through three ``autoscale_step`` calls, ``rebalance`` passes, and the
+    first tenant split by 2; the same offered stream timed per submit before
+    and after. The ratio of the p99s is printed, not gated: every host shares
+    this process and its GIL."""
+    from torcheval_tpu_torch.serve import HeadroomScalingPolicy
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
+
+    tenants = [f"bench{i}" for i in range(SERVE9_TENANTS)]
+    n = SERVE9_BATCHES
+
+    def make(t, i):
+        return _router_batch(t, i, 9000)
+
+    def until(predicate, timeout_s=60.0):
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            if predicate():
+                return True
+            time.sleep(0.05)
+        return predicate()
+
+    sheds0 = count("serve.ingest.sheds")
+    hosts = _Hosts(root)
+    t_leg = time.perf_counter()
+    try:
+        def new_host(max_tenants=1024):
+            return hosts.start(max_tenants=max_tenants, queue_capacity=max(64, n))
+
+        router = hosts.router([new_host(max_tenants=SERVE9_TENANTS)], dev)
+        router.subscribe_obs(0.2, stale_after_s=10.0)
+        for t in tenants:
+            router.attach(t, _serve_spec())
+        for t in tenants:
+            router.submit(t, *make(t, -1))
+            router.flush(t)
+        lat1 = []
+        for i in range(n):
+            for t in tenants:
+                s_, l_ = make(t, i)
+                t0 = time.perf_counter()
+                router.submit(t, s_, l_)
+                lat1.append(time.perf_counter() - t0)
+        for t in tenants:
+            router.flush(t)
+        hot_ep = router.endpoints[0]
+        saturated = until(lambda: (router.fleet_status()["hosts"][hot_ep].get("load") or 0.0) > 0.9)
+        headroom_before = router.fleet_status()["headroom"]
+        policy = HeadroomScalingPolicy(scale_up_below=0.5, cooldown_s=0.0, max_hosts=SERVE9_MAX_HOSTS)
+        for _ in range(3):
+            router.autoscale_step(policy, provision=new_host)
+        until(lambda: all(not h["stale"] and h.get("load") is not None
+                          for h in router.fleet_status()["hosts"].values()))
+        moved = []
+        for _ in range(SERVE9_TENANTS):
+            migrated = router.rebalance(hot_load=0.5, improvement=0.2, min_dwell_s=0.0, max_moves=2)
+            if not migrated:
+                break
+            moved.extend(migrated)
+            time.sleep(0.25)  # let the drained host's next report land
+        router.split_tenant(tenants[0], replicas=2)
+        lat2 = []
+        for i in range(n, 2 * n):
+            for t in tenants:
+                s_, l_ = make(t, i)
+                t0 = time.perf_counter()
+                router.submit(t, s_, l_)
+                lat2.append(time.perf_counter() - t0)
+        for t in tenants:
+            router.flush(t)
+        hosts_after = len(router.alive)
+        depth = sum(d.load_report()["queue"]["depth"] for d in hosts.daemons if d._running)
+        merged = router.compute(tenants[0])["acc"]
+    finally:
+        hosts.close()
+    sheds = count("serve.ingest.sheds") - sheds0
+    _require(saturated, "(f) the one host's own load report read saturated")
+    _require(sheds == 0 and depth == 0, f"(f) 0 sheds ({sheds}) and queue depth 0 after the flush ({depth})")
+    _require(len(moved) >= 1, f"(f) at least one migration ({moved})")
+
+    def reference():
+        want = _direct_acc(dev, [make(tenants[0], i) for i in range(-1, 2 * n)])
+        _require(_value_bytes(merged) == _value_bytes(want),
+                 "(f) the split tenant's merged compute equals a one-stream MulticlassAccuracy")
+        return float(want)
+
+    return {"p99_1host_ms": _p99(lat1) * 1e3, "p99_scaled_ms": _p99(lat2) * 1e3,
+            "p99_ratio": _p99(lat2) / _p99(lat1), "hosts_after_scaleup": hosts_after,
+            "migrations": len(moved), "headroom_before": headroom_before, "sheds": sheds,
+            "queue_depth": depth, "seconds": time.perf_counter() - t_leg}, reference
+
+
+def serve_restart(dev, root):
+    """(g) bench.py's config13: a journaled router over 3 hosts serves
+    ``solo`` and ``fan`` (split by 2), 24 batches each, flushes and is
+    closed; a new router over the same journal is timed from constructor
+    to routable (the blackout), then 24 more batches each go through it."""
+    tenants = ("solo", "fan")
+    n = SERVE13_BATCHES
+
+    def make(t, i):
+        return _router_batch(t, i, 7000)
+
+    journal_dir = os.path.join(root, "journal")
+    hosts = _Hosts(root)
+    t_leg = time.perf_counter()
+    try:
+        endpoints = [hosts.start(queue_capacity=max(64, n)) for _ in range(3)]
+        router = hosts.router(endpoints, dev, journal_dir=journal_dir)
+        for t in tenants:
+            router.attach(t, _serve_spec())
+        router.split_tenant("fan", replicas=2)
+        for i in range(n):
+            for t in tenants:
+                router.submit(t, *make(t, i))
+        for t in tenants:
+            router.flush(t)
+        router.close()
+        t0 = time.perf_counter()
+        router2 = hosts.router(endpoints, dev, journal_dir=journal_dir)
+        blackout_s = time.perf_counter() - t0
+        recovery = router2.last_recovery
+        for i in range(n, 2 * n):
+            for t in tenants:
+                router2.submit(t, *make(t, i))
+        for t in tenants:
+            router2.flush(t)
+        got = {t: router2.compute(t)["acc"] for t in tenants}
+    finally:
+        hosts.close()
+    reconciled = sum(recovery["outcomes"].values())
+    _require(reconciled == 3, f"(g) 3 tenants reconciled: {recovery['outcomes']}")
+
+    def reference():
+        for t in tenants:
+            want = _direct_acc(dev, [make(t, i) for i in range(2 * n)])
+            _require(_value_bytes(got[t]) == _value_bytes(want),
+                     f"(g) {t}: compute through the new router equals its one-stream oracle")
+
+    return {"blackout_ms": blackout_s * 1e3, "journal_records": recovery["journal_records"],
+            "outcomes": recovery["outcomes"], "reconciled": reconciled,
+            "seconds": time.perf_counter() - t_leg}, reference
+
+
+def serve_split_kernels(dev, data, root):
+    """(h) (c)'s kernel-bearing members, each tenant split by 2 over two
+    hosts behind a router on the default local transport (a top-k batch is
+    328 MB): macro accuracy and F1 at C = 1000 (the histogram), a compacting
+    ``BinaryAUROC`` (the compaction), an ``approx=True`` ``BinaryAUROC``
+    (the segment sum) and ``TopKMultilabelAccuracy(k=5)`` (the top-k). The
+    merge rebuilds every replica on ``cuda:0`` in this process."""
+    macro, curve, topk = data
+    streams = {"macro": macro[0], "auroc": curve[0], "approx": curve[2], "topk": topk}
+    specs = {
+        "macro": {"acc": ["MulticlassAccuracy", {"num_classes": MACRO_CLASSES, "average": "macro"}],
+                  "f1": ["MulticlassF1Score", {"num_classes": MACRO_CLASSES, "average": "macro"}]},
+        "auroc": {"auroc": ["BinaryAUROC", {"compaction_threshold": SERVE_AUROC_THRESHOLD}]},
+        "approx": {"auroc": ["BinaryAUROC", {}]},
+        "topk": {"acc": ["TopKMultilabelAccuracy", {"k": TOPK_K, "criteria": "contain"}]},
+    }
+    before = {k: getattr(K, k) for k in ("hist", "stream_compact", "topk_kernel", "segment_sum")}
+    hosts = _Hosts(root)
+    t0 = time.perf_counter()
+    try:
+        router = hosts.router([hosts.start() for _ in range(2)], dev, local_transport=True)
+        placed = {}
+        for name in streams:
+            router.attach(name, specs[name], **({"approx": True} if name == "approx" else {}))
+            placed[name] = router.split_tenant(name, replicas=2)
+        for i in range(max(len(s) for s in streams.values())):
+            for name, stream in streams.items():
+                if i < len(stream):
+                    router.submit(name, *stream[i])
+        got = {name: router.compute(name) for name in streams}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        hosts.close()
+    launches = {k: getattr(K, k) - v for k, v in before.items()}
+    _require(all(len(set(p.values())) == 2 for p in placed.values()),
+             f"(h) each tenant's two replicas on two hosts: {placed}")
+    _require(all(n > 0 for n in launches.values()), f"(h) every kernel launched in the leg: {launches}")
+
+    def reference():
+        from torcheval_tpu_torch.metrics import MetricCollection
+        from torcheval_tpu_torch.sketch.cache import enable_metric_approx
+
+        for name, stream in streams.items():
+            members = _serve_kernel_members(dev, name)
+            if name == "approx":
+                enable_metric_approx(members["auroc"], True)
+            col = MetricCollection(members)
+            for args in stream:
+                col.update(*args)
+            for k, v in col.compute().items():
+                g = got[name][k]
+                if k == "acc" or name == "approx":  # counts: exact
+                    _require(_value_bytes(g) == _value_bytes(v),
+                             f"(h) {name}/{k}: the merged value equals the members fed directly, bit for bit")
+                else:
+                    g64 = np.asarray(g.cpu() if isinstance(g, torch.Tensor) else g, np.float64)
+                    v64 = v.double().cpu().numpy()
+                    _require(np.allclose(g64, v64, rtol=1e-5, atol=0),
+                             f"(h) {name}/{k}: the merged value within rtol 1e-5 of the members fed "
+                             f"directly ({g64} vs {v64})")
+
+    return {"seconds": seconds, "launches": launches,
+            "replicas": {n: sorted(p) for n, p in placed.items()}}, reference
+
+
+def serve_push(dev):
+    """(i) bench.py's config12: 64 batches of (8192, 5) through one client
+    over TCP with the obs push channel off, then on at 0.05 s (each after a
+    warm tenant); and a steady delta's bytes (one window's traffic between
+    two cursor reads) beside the full snapshot's."""
+    from torcheval_tpu_torch.obs.stream import collect, delta_nbytes
+    from torcheval_tpu_torch.serve import EvalClient, EvalDaemon, EvalServer
+
+    rng = np.random.default_rng(12)
+    batches = [(rng.random((SERVE_ROWS, HEADLINE_CLASSES)).astype(np.float32),
+                rng.integers(0, HEADLINE_CLASSES, SERVE_ROWS)) for _ in range(SERVE12_BATCHES)]
+
+    def leg(stream_on):
+        with EvalDaemon(queue_capacity=64) as daemon:
+            server = EvalServer(daemon)
+            client = EvalClient(server.endpoint, request_timeout_s=SERVE_TIMEOUT_S, local_transport=False)
+            try:
+                client.attach("warm", _serve_spec(), window_chunks=SERVE8_WINDOW)
+                for s, l in batches[:SERVE8_WINDOW]:
+                    client.submit("warm", s, l)
+                client.compute("warm")
+                client.detach("warm")
+                client.attach("bench", _serve_spec(), window_chunks=SERVE8_WINDOW)
+                sub = client.subscribe_obs(SERVE12_INTERVAL_S) if stream_on else None
+                t0 = time.perf_counter()
+                for s, l in batches:
+                    client.submit("bench", s, l)
+                got = client.compute("bench")["acc"]
+                seconds = time.perf_counter() - t0
+                received = 0
+                if sub is not None:
+                    deadline = time.perf_counter() + 30.0
+                    while sub.received < 1 and time.perf_counter() < deadline:
+                        time.sleep(0.01)
+                    received = sub.received
+                    sub.stop()
+            finally:
+                client.close()
+                server.close()
+        return seconds, received, got
+
+    off_s, _, off_v = leg(False)
+    on_s, received, on_v = leg(True)
+    _require(received >= 1, "(i) the push subscription received at least one push")
+    _require(_value_bytes(off_v) == _value_bytes(on_v), "(i) the values with the channel on and off are equal")
+    with EvalDaemon(queue_capacity=64) as daemon:
+        handle = daemon.attach("bytes", _serve_acc(dev), window_chunks=SERVE8_WINDOW)
+        for s, l in batches[:SERVE8_WINDOW]:
+            handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        handle.compute(timeout=SERVE_TIMEOUT_S)
+        _, cursor = collect()
+        for s, l in batches[SERVE8_WINDOW:2 * SERVE8_WINDOW]:
+            handle.submit(s, l, block=True, timeout=SERVE_TIMEOUT_S)
+        handle.compute(timeout=SERVE_TIMEOUT_S)
+        delta, _ = collect(cursor)
+    full, _ = collect()
+    preds = SERVE12_BATCHES * SERVE_ROWS
+
+    def reference():
+        _require(_value_bytes(off_v) == _value_bytes(_direct_acc(dev, batches)),
+                 "(i) the served value equals a direct MulticlassAccuracy's")
+
+    return {"off_preds_per_s": preds / off_s, "on_preds_per_s": preds / on_s, "on_off": off_s / on_s,
+            "pushes": received, "delta_bytes": delta_nbytes(delta), "full_bytes": delta_nbytes(full),
+            "delta_share": delta_nbytes(delta) / max(1, delta_nbytes(full))}, reference
+
+
 def serve_phase(dev):
-    """The serve phase, (a)-(d), with every count 0 just before and read
+    """The serve phase, (a)-(i), with every count 0 just before and read
     just after the served path; the references run after the read."""
     print(f"serve phase: (a) config7 ({SERVE7_TENANTS} tenants against 1, {SERVE7_BATCHES} x "
           f"({SERVE_ROWS}, {HEADLINE_CLASSES})), (b) config8 ({SERVE8_BATCHES} batches, four routes "
-          f"and the overlap leg), (c) the kernel-bearing tenants, (d) containment and eviction")
+          f"and the overlap leg), (c) the kernel-bearing tenants, (d) containment and eviction, "
+          f"(e) config8's two-host migration, (f) config9's elastic fleet, (g) config13's router "
+          f"restart, (h) (c)'s kernel-bearing members split by 2, (i) config12's push channel")
     batches8 = _serve8_batches()
     kernel_data = _serve_kernel_data(dev)
     torch.cuda.synchronize()
@@ -4075,8 +4482,15 @@ def serve_phase(dev):
     b, ref_b = serve_config8(dev, batches8)
     c, ref_c, profile_c = serve_kernel_tenants(dev, kernel_data)
     root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    for leg in "defgh":
+        os.makedirs(os.path.join(root, leg))
     try:
-        d, ref_d = serve_containment(dev, batches8[:8], root)
+        d, ref_d = serve_containment(dev, batches8[:8], os.path.join(root, "d"))
+        e, ref_e = serve_migration(dev, batches8, os.path.join(root, "e"))
+        f, ref_f = serve_elastic(dev, os.path.join(root, "f"))
+        g, ref_g = serve_restart(dev, os.path.join(root, "g"))
+        h, ref_h = serve_split_kernels(dev, kernel_data, os.path.join(root, "h"))
+        i, ref_i = serve_push(dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.synchronize()
@@ -4086,6 +4500,11 @@ def serve_phase(dev):
     want8, qblk_v = ref_b()
     ref_c()
     ref_d()
+    want_e = ref_e()
+    want_f = ref_f()
+    ref_g()
+    ref_h()
+    ref_i()
     c["profiled"] = profile_c()
     del kernel_data
     torch.cuda.empty_cache()
@@ -4114,7 +4533,25 @@ def serve_phase(dev):
           f"a kernel (the copy stream's overlap), idle share {pc['idle_share']:.4f}")
     print(f"  (d) quarantined with cause {d['quarantine_cause']}; evicted, resumed and equal to the "
           f"uninterrupted tenant; statuses {d['statuses']}")
-    summary = {"config7": a, "config8": b, "kernel_tenants": c, "containment": d, "launches": launches}
+    print(f"  (e) config8 migration: blackout {e['blackout_ms']:.3f} ms (the first submit after the "
+          f"kill, on the host clock); serve.router.migrations{{reason=host_failure}} {e['migrations']}; "
+          f"value {want_e:.8f} equal to a direct MulticlassAccuracy's; leg {e['seconds']:.2f} s")
+    print(f"  (f) config9 elastic: p99 submit {f['p99_1host_ms']:.3f} ms on 1 host, "
+          f"{f['p99_scaled_ms']:.3f} ms scaled, ratio {f['p99_ratio']:.4f} (not gated: every host "
+          f"shares this process's GIL); headroom before {f['headroom_before']}; hosts after scale-up "
+          f"{f['hosts_after_scaleup']}; migrations {f['migrations']}; sheds {f['sheds']}; queue depth "
+          f"{f['queue_depth']}; split tenant {want_f:.8f} equal to its one-stream oracle; leg "
+          f"{f['seconds']:.2f} s")
+    print(f"  (g) config13 router restart: blackout {g['blackout_ms']:.3f} ms (constructor to routable); "
+          f"journal records replayed {g['journal_records']}; reconciled {g['reconciled']} "
+          f"{g['outcomes']}; every compute equal to its oracle; leg {g['seconds']:.2f} s")
+    print(f"  (h) split kernel tenants: {h['seconds']:.2f} s; replicas {h['replicas']}; merged on {dev}, "
+          f"equal to the members fed directly; leg launches jit.calls{{entry=}} {h['launches']}")
+    print(f"  (i) config12 push channel: {i['off_preds_per_s']:.1f} preds/s off, {i['on_preds_per_s']:.1f} "
+          f"on, on/off {i['on_off']:.4f}; {i['pushes']} push(es) received; a steady delta "
+          f"{i['delta_bytes']} B of the full snapshot's {i['full_bytes']} B ({i['delta_share']:.4f})")
+    summary = {"config7": a, "config8": b, "kernel_tenants": c, "containment": d, "migration": e,
+               "elastic": f, "restart": g, "split_kernels": h, "push": i, "launches": launches}
     print(json.dumps({"serve": summary}, default=float))
     return launches
 
@@ -4657,7 +5094,8 @@ def main() -> int:
           f"{ob['prometheus_lines']} Prometheus sample lines in the exposition format")
     oc = obs_profile(dev, chunks)
     print(f"  (c) under torch.profiler: {oc['kernels']} hist/compaction kernels, each inside a "
-          f"metric/collection/jit range; device {oc['device_ms']:.3f} ms in all")
+          f"metric/collection/jit range; device {oc['device_ms']:.3f} ms in all, of which sort "
+          f"kernels {oc['sort_ms']:.3f} ms")
     print(f"  (c) device ms by metric (outermost range): "
           f"{ {k: round(v, 3) for k, v in sorted(oc['outer_ms'].items(), key=lambda kv: -kv[1])} }")
     print(f"  (c) device ms by innermost range: "

@@ -11,6 +11,11 @@ codec's bound). Frames packed by either package decode in the other, every
 ``ServeError`` subclass crosses with its class, ``reason`` and
 ``retryable``, and a tenant evicted by one package's daemon resumes in the
 other's.
+
+Mixed fleets: a router of either package fronts a JAX host and a torch
+host on one checkpoint root, over TCP; a tenant drained off one host
+resumes on the other from the checkpoint that host's package wrote and
+computes the one-stream value.
 """
 
 import numpy as np
@@ -278,3 +283,60 @@ def test_an_evicted_tenant_resumes_in_the_other_packages_daemon(tmp_path, first,
     want = _direct(second, batches)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-8)
+
+
+# --- mixed fleets behind a router -------------------------------------------
+
+ROUTER_KW = dict(request_timeout_s=60.0, connect_timeout_s=5.0, max_attempts=2, backoff_base_s=0.01)
+
+
+def _router(pkg, endpoints):
+    if pkg == "torch":
+        return ts.EvalRouter(endpoints, device="cpu", local_transport=False, **ROUTER_KW)
+    return js.EvalRouter(endpoints, local_transport=False, **ROUTER_KW)
+
+
+@pytest.mark.parametrize("how", ["drain", "kill"])
+@pytest.mark.parametrize(
+    "router_pkg,src_pkg", [("torch", "jax"), ("jax", "torch"), ("torch", "torch"), ("jax", "jax")]
+)
+def test_a_router_migrates_a_tenant_across_the_packages(tmp_path, router_pkg, src_pkg, how):
+    """The source host's package writes the checkpoint and the other
+    package's host restores it (``resume="auto"``). A drain checkpoints
+    the whole stream so far (seq 4); a killed host leaves the flushed seq
+    3, and the router replays batch 4 and the submit that found the death."""
+    root = str(tmp_path / "ckpt")
+    hosts = []
+    for pkg in (src_pkg, OTHER[src_pkg]):
+        daemon = _daemon(pkg, evict_dir=root).start()
+        hosts.append((daemon, PKGS[pkg].EvalServer(daemon)))
+    (src_daemon, src), (dst_daemon, dst) = hosts
+    router = _router(router_pkg, [src.endpoint, dst.endpoint])
+    try:
+        tid = next(f"t{i}" for i in range(256) if router._place(f"t{i}") == src.endpoint)
+        assert router.attach(tid, SPEC) == src.endpoint
+        batches = _batches(n=6, seed=21)
+        for b in batches[:3]:
+            router.submit(tid, *b)
+        router.flush(tid)  # durable on the source's package
+        router.submit(tid, *batches[3])
+        if how == "drain":
+            assert router.drain(src.endpoint)["migrated"] == [tid]
+        else:
+            src.close()
+            src_daemon.stop()
+        for b in batches[4:]:
+            router.submit(tid, *b)
+        assert router.placement()[tid] == dst.endpoint
+        got = {k: np.asarray(v) for k, v in router.compute(tid).items()}
+        want = _direct(OTHER[src_pkg], batches)
+        np.testing.assert_array_equal(got["acc"], want["acc"])
+        np.testing.assert_allclose(got["f1"], want["f1"], rtol=1e-5, atol=0)
+        health = dst_daemon.health()["tenants"][tid]
+        assert health["dupes"] == 0
+        assert health["processed"] == (2 if how == "drain" else 3)
+    finally:
+        router.close()
+        for daemon, server in hosts:
+            server.close()
+            daemon.stop()

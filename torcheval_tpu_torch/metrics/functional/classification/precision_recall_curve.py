@@ -77,7 +77,10 @@ def _trim_curve(
     t = thresholds[last][::-1]
     p = np.concatenate([p, np.ones(1, dtype=p.dtype)])
     r = np.concatenate([r, np.zeros(1, dtype=r.dtype)])
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (p, r, t))
+    # An explicit copy: numpy calls a one-element reversed view contiguous
+    # whatever its stride, so ascontiguousarray would hand torch the
+    # negative stride it refuses.
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in (p, r, t))
 
 
 def binary_precision_recall_curve(input, target) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -3,10 +3,10 @@ labels map onto the JAX package's.
 
 JAX counterpart: the "Metric inventory" table of ``docs/observability.md``,
 which fixes the JAX package's names. The port records a subset of those
-names (of ``serve.*``, the single serving host's: no ``serve.router.*``
-but the client's replay count, no ``serve.fleet.*``) and no name of its
-own; ``tests/test_torch_obs_inventory.py`` holds the code, this table
-and that document to each other.
+names (the serve plane's whole ``serve.*`` set, the router's
+``serve.router.*`` and ``serve.fleet.headroom`` among them) and no name
+of its own; ``tests/test_torch_obs_inventory.py`` holds the code, this
+table and that document to each other.
 
 Three tables:
 
@@ -22,10 +22,12 @@ Three tables:
 Spans are not enumerated, as in the JAX document: ``metric.<method>/<cls>``,
 ``collection.*``, ``evaluator.*``, ``toolkit.*``, ``toolkit.sync.round``,
 ``jit/<entry>``, ``jit.compile/<entry>``, ``obs.cost.capture``,
-``obs.sync_snapshot``, ``ops.dist_curves.*``, the checkpoint spans and
+``obs.sync_snapshot``, ``ops.dist_curves.*``, the checkpoint spans,
 the serve plane's ``serve.tenant.step{tenant=}`` and
-``serve.tenant.evict{tenant=}``; the timeline's serve bars are
-``serve.ingest.transfer`` and ``serve.ingest.stage``.
+``serve.tenant.evict{tenant=}``, and the router's
+``serve.router.migrate{endpoint=,reason=}`` (one per migrated host or
+rebalance move); the timeline's serve bars are ``serve.ingest.transfer``
+and ``serve.ingest.stage``.
 """
 
 from __future__ import annotations
@@ -85,7 +87,16 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "serve.ingest.sheds": (COUNTER, ("tenant", "reason")),
     "serve.quarantines": (COUNTER, ("tenant", "reason")),
     "serve.queue_depth": (HISTOGRAM, ("tenant",)),
+    "serve.fleet.headroom": (GAUGE, ()),
+    "serve.router.journal_compactions": (COUNTER, ()),
+    "serve.router.journal_records": (COUNTER, ("kind",)),
+    "serve.router.journal_torn_tails": (COUNTER, ("reason",)),
+    "serve.router.migrations": (COUNTER, ("reason",)),
+    "serve.router.probe_failures": (COUNTER, ("endpoint",)),
+    "serve.router.rebalances": (COUNTER, ("endpoint",)),
+    "serve.router.recoveries": (COUNTER, ("outcome",)),
     "serve.router.replays": (COUNTER, ("tenant",)),
+    "serve.router.splits": (COUNTER, ("tenant",)),
     "serve.submit.latency": (HISTOGRAM, ("tenant",)),
     "serve.tenants.active": (GAUGE, ()),
     "serve.wire.acks_deferred": (COUNTER, ()),

@@ -31,8 +31,9 @@ PAD_SCORE = float("nan")
 def sort_descending(scores: torch.Tensor, *payload: torch.Tensor):
     """``scores`` in descending order along the last axis with NaN last, and
     each payload column carried along. Sorts ``-scores`` ascending (see the
-    module docstring)."""
-    neg, idx = torch.sort(-scores, dim=-1)
+    module docstring). Stable, as ``jax.lax.sort``: NaN != NaN makes every
+    NaN row a tie group of its own, so their order moves the curve."""
+    neg, idx = torch.sort(-scores, dim=-1, stable=True)
     return -neg, [p.gather(-1, idx) for p in payload]
 
 

@@ -51,11 +51,18 @@ The network layer on top of the same daemon:
   same-process local transport, and an ``obs_push`` telemetry
   subscription (``EvalClient.subscribe_obs``).
 
-Not here yet: the JAX package's multi-host router (``EvalRouter`` with
-placement, health probes, migration, elastic rebalancing, split tenants,
-``ScalingPolicy`` / ``HeadroomScalingPolicy``) and its restart journal.
-The client already carries the ops the router calls (``export_tenant``,
-``drop_tenant``, ``adopt_tenant``, ``adopt_attached``).
+The cluster layer on top of the hosts:
+
+* **router** (``router.py``) — :class:`EvalRouter` places tenants by
+  weighted rendezvous hashing over the alive endpoints, probes health,
+  migrates a dead or drained host's tenants from the shared checkpoint
+  root plus the client replay tail, rebalances hot hosts, splits a hot
+  tenant across replica tenants (merged on the router's ``device``), and
+  grows or shrinks the fleet through a :class:`ScalingPolicy`
+  (:class:`HeadroomScalingPolicy`);
+* **journal** (``journal.py``) — the router's fsync'd control-plane log
+  and snapshot, the JAX format byte for byte, so a restarted router
+  replays it and reconciles against the live hosts.
 """
 
 from torcheval_tpu_torch.serve.client import EvalClient, ObsSubscription, metric_spec
@@ -69,6 +76,7 @@ from torcheval_tpu_torch.serve.errors import (
     TenantQuarantinedError,
     WireError,
 )
+from torcheval_tpu_torch.serve.router import EvalRouter, HeadroomScalingPolicy, ScalingPolicy
 from torcheval_tpu_torch.serve.tenant import TenantHandle, TenantStatus
 from torcheval_tpu_torch.serve.wire import EvalServer
 
@@ -77,8 +85,11 @@ __all__ = [
     "BackpressureError",
     "EvalClient",
     "EvalDaemon",
+    "EvalRouter",
     "EvalServer",
+    "HeadroomScalingPolicy",
     "ObsSubscription",
+    "ScalingPolicy",
     "ServeError",
     "TenantError",
     "TenantEvictedError",

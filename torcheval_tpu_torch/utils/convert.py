@@ -1,6 +1,7 @@
 """Tensor conversion.
 
-JAX counterpart: ``torcheval_tpu/utils/convert.py`` (``as_jax``). Every
+JAX counterpart: ``torcheval_tpu/utils/convert.py`` (``as_jax``,
+``to_numpy``). Every
 public entry point funnels its inputs through :func:`as_tensor`, so callers
 may pass tensors, numpy arrays or Python sequences.
 """
@@ -25,3 +26,11 @@ def as_tensor(
     if not isinstance(x, torch.Tensor):
         x = torch.tensor(np.asarray(x))
     return x.to(device=device, dtype=dtype)
+
+
+def to_numpy(x: Any) -> np.ndarray:
+    """Device -> host transfer: a tensor's values as a numpy array (detached,
+    copied off the card), anything else through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
