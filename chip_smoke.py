@@ -253,9 +253,28 @@ failed check. Phases:
    push channel, 64 batches of (8192, 5) over TCP with it off and on at
    0.05 s, at least one push received, and a steady delta's bytes against
    the full snapshot's. One ``{"serve": ...}`` JSON line holds the numbers;
+   tools and examples phase (obs on, every count set to 0 just before it
+   and read just after, the CPU references after the read): (a)
+   ``torcheval_tpu_torch.examples.simple_example.main([])`` on the card
+   (the MLP 128-64-32-2, 64 SGD steps, micro ``MulticlassAccuracy()``), its
+   printed values on one line, the logits it fed replayed through
+   ``MulticlassAccuracy()`` on the CPU equal to every printed accuracy, the
+   loss lower in the last epoch than in the first; (b)
+   ``torch_bridge_example.main([])`` on the card (200 Adam steps, 24
+   batches of 256: accuracy and macro F1 in a ``MetricCollection``,
+   ``BinaryAUROC`` on class 0), its logits replayed through the same
+   metrics on the CPU (accuracy equal, F1 and AUROC within rtol 1e-5), its
+   histogram launches above 0; (c) ``tools.get_module_summary`` of a conv
+   classifier on the card (a stride-2 7x7 stem of 64 channels, four stride-2
+   3x3 convolutions of 128, 256, 512 and 512, a ReLU after each, Flatten,
+   Linear to 1000 classes) over a (32, 3, 224, 224) batch: every node's
+   parameter counts, bytes and FLOPs equal to the same module's summary on
+   the CPU, the forward FLOPs equal to a count by hand from the tools'
+   mapping, the module unchanged, the summary's seconds printed; its
+   launches go into phase 5's counts;
 5. with obs off, one JSON line per the kernels: launches on the main path
-   (phases 3 and 4, the data-parallel ranks' and the serve phase's
-   included; each kernel's
+   (phases 3 and 4, the data-parallel ranks', the serve phase's and the
+   tools and examples phase's included; each kernel's
    ``jit.calls{entry=}``), time per launch, the plain
    version's and a library call's time, and the least time the card could
    take (its bound); the segment sum also at the sliced leg's window and
@@ -281,6 +300,8 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import io
 import json
 import logging
 import os
@@ -398,6 +419,13 @@ SERVE_ROUTER_ROWS = 4096
 SERVE9_TENANTS, SERVE9_BATCHES, SERVE9_MAX_HOSTS = 8, 24, 4
 SERVE13_BATCHES = 24
 SERVE12_BATCHES, SERVE12_INTERVAL_S = 64, 0.05
+# the tools and examples phase: the tools summarise an ImageNet-input conv
+# classifier (a stride-2 7x7 stem of 64 channels, four stride-2 3x3
+# convolutions, each followed by a ReLU, Flatten, Linear to 1000 classes)
+# over one batch of (32, 3, 224, 224)
+TOOLS_BATCH, TOOLS_IMAGE, TOOLS_CLASSES = 32, 224, 1000
+TOOLS_WIDTHS = (3, 64, 128, 256, 512, 512)
+TOOLS_SEED = SEED + 1700
 # unit roundoff of the half types
 HALF_U = {torch.bfloat16: 2.0**-8, torch.float16: 2.0**-11}
 # 1 GiB: more than the 50 MB L2, and about 0.3 ms of device work, which also
@@ -4556,6 +4584,176 @@ def serve_phase(dev):
     return launches
 
 
+# ------------------------------------------------ the tools and examples phase
+def tools_classifier() -> torch.nn.Module:
+    """The conv classifier of ``TOOLS_WIDTHS``, from the layer types the CPU
+    tests hold against the JAX tool, its init seeded (on the CPU)."""
+    layers = []
+    for i, (cin, cout) in enumerate(zip(TOOLS_WIDTHS[:-1], TOOLS_WIDTHS[1:])):
+        k = 7 if i == 0 else 3
+        layers += [torch.nn.Conv2d(cin, cout, k, stride=2, padding=k // 2), torch.nn.ReLU()]
+    side = TOOLS_IMAGE >> (len(TOOLS_WIDTHS) - 1)
+    layers += [torch.nn.Flatten(), torch.nn.Linear(TOOLS_WIDTHS[-1] * side * side, TOOLS_CLASSES)]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(TOOLS_SEED)
+        return torch.nn.Sequential(*layers)
+
+
+def _taps_by_loop(positions, extent, k, stride, pad):
+    return sum(1 for o in range(positions) for t in range(k) if 0 <= o * stride - pad + t < extent)
+
+
+def tools_forward_by_hand(model, batch, image) -> int:
+    """The classifier's forward FLOPs worked out from the tools' mapping: 2
+    x the multiply-adds whose tap reads the input, the bias adds and the
+    ReLU outputs of each convolution; the head's 2mkn and bias adds."""
+    total, side = 0, image
+    for layer in model:
+        if isinstance(layer, torch.nn.Conv2d):
+            k, stride, pad = layer.kernel_size[0], layer.stride[0], layer.padding[0]
+            out = (side + 2 * pad - k) // stride + 1
+            taps = _taps_by_loop(out, side, k, stride, pad) ** 2
+            outputs = batch * layer.out_channels * out * out
+            total += 2 * batch * layer.out_channels * layer.in_channels * taps + outputs + outputs
+            side = out
+        elif isinstance(layer, torch.nn.Linear):
+            total += 2 * batch * layer.in_features * layer.out_features + batch * layer.out_features
+    return total
+
+
+def _summary_nodes(ms, out=None) -> dict:
+    out = {} if out is None else out
+    out[ms.module_name] = ms
+    for child in ms.submodule_summaries.values():
+        _summary_nodes(child, out)
+    return out
+
+
+def _summary_numbers(ms) -> dict:
+    return {name: (m.num_parameters, m.num_trainable_parameters, m.size_bytes, m.flops_forward,
+                   m.flops_backward) for name, m in _summary_nodes(ms).items()}
+
+
+def _quiet(fn, *args, **kwargs):
+    """``fn``'s result, with what it prints kept apart from this script's
+    output."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kwargs)
+
+
+def tools_examples_phase(dev):
+    """(a) the simple example and (b) the bridge example through their
+    ``main([])`` (the card by default), (c) the tools on the conv
+    classifier on the card; every count 0 just before and read just after,
+    the CPU replays and the CPU summary after the read. Returns the
+    phase's launches by kernel."""
+    from torcheval_tpu_torch.examples import simple_example, torch_bridge_example
+    from torcheval_tpu_torch.metrics import (
+        BinaryAUROC,
+        MetricCollection,
+        MulticlassAccuracy,
+        MulticlassF1Score,
+    )
+    from torcheval_tpu_torch.tools import get_module_summary
+
+    print(f"tools and examples phase: (a) the simple example, (b) the bridge example, (c) the tools "
+          f"on a conv classifier over ({TOOLS_BATCH}, 3, {TOOLS_IMAGE}, {TOOLS_IMAGE})")
+    model = tools_classifier().to(dev)
+    x = torch.randn(TOOLS_BATCH, 3, TOOLS_IMAGE, TOOLS_IMAGE, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(TOOLS_SEED))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    kernels = ("hist", "stream_compact", "topk_kernel", "segment_sum")
+    for k in kernels:
+        setattr(K, k, 0)
+    t0 = time.perf_counter()
+    simple = _quiet(simple_example.main, [])
+    simple_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bridge = _quiet(torch_bridge_example.main, [])
+    bridge_s = time.perf_counter() - t0
+    bridge_hist = K.hist
+    t0 = time.perf_counter()
+    card = get_module_summary(model, (x,))
+    card_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {k: getattr(K, k) for k in kernels}
+    _require(simple["device"] == dev and bridge["device"] == dev,
+             f"the examples ran on {simple['device']} and {bridge['device']}, not {dev}")
+    _require(bridge_hist > 0, f"(b) jit.calls{{entry=hist}} {bridge_hist} > 0")
+
+    # (a) the logits it fed, replayed on the CPU, give its printed accuracies
+    replay, replayed = MulticlassAccuracy(device="cpu"), []
+    per_epoch = simple_example.NUM_BATCHES
+    for step, (logits, labels) in enumerate(zip(simple["logits"], simple["labels"])):
+        replay.update(logits, labels)
+        if (step + 1) % simple_example.COMPUTE_FREQUENCY == 0:
+            replayed.append(float(replay.compute()))
+        if (step + 1) % per_epoch == 0:
+            replay.reset()
+    printed = simple["records"]
+    _require(replayed == [r["accuracy"] for r in printed],
+             f"(a) replayed accuracies {replayed} vs printed {[r['accuracy'] for r in printed]}")
+    losses = [r["loss"] for r in printed]
+    lines_an_epoch = per_epoch // simple_example.COMPUTE_FREQUENCY
+    first, last = np.mean(losses[:lines_an_epoch]), np.mean(losses[-lines_an_epoch:])
+    _require(all(np.isfinite(losses)) and last < first,
+             f"(a) the loss falls from the first epoch ({first}) to the last ({last})")
+
+    # (b) its logits, replayed through the same metrics on the CPU
+    n = torch_bridge_example.NUM_CLASSES
+    col = MetricCollection({"acc": MulticlassAccuracy(num_classes=n, device="cpu"),
+                            "f1": MulticlassF1Score(num_classes=n, average="macro", device="cpu")})
+    auroc = BinaryAUROC(device="cpu")
+    for logits, labels in zip(bridge["logits"], bridge["labels"]):
+        col.update(logits, labels)
+        auroc.update(torch.softmax(logits, dim=1)[:, 0], (labels == 0).float())
+    want = col.compute()
+    want = (float(want["acc"]), float(want["f1"]), float(auroc.compute()))
+    _require(bridge["accuracy"] == want[0], f"(b) accuracy {bridge['accuracy']} vs CPU {want[0]}")
+    _require(abs(bridge["f1_macro"] - want[1]) <= RTOL * abs(want[1]),
+             f"(b) macro F1 {bridge['f1_macro']} vs CPU {want[1]}")
+    _require(abs(bridge["auroc"] - want[2]) <= RTOL * abs(want[2]),
+             f"(b) AUROC {bridge['auroc']} vs CPU {want[2]}")
+
+    # (c) the same module's summary on the CPU, and the forward by hand
+    after = model.state_dict()
+    _require(all(torch.equal(v, after[k]) for k, v in state.items()) and model.training
+             and all(p.grad is None for p in model.parameters())
+             and not any(m._forward_hooks or m._forward_pre_hooks for m in model.modules()),
+             "(c) the module is unchanged by its summary")
+    del state, after
+    cpu_model, x_cpu = model.to("cpu"), x.cpu()
+    del x
+    t0 = time.perf_counter()
+    cpu = get_module_summary(cpu_model, (x_cpu,))
+    cpu_s = time.perf_counter() - t0
+    card_numbers, cpu_numbers = _summary_numbers(card), _summary_numbers(cpu)
+    _require(card_numbers == cpu_numbers, f"(c) the card's summary {card_numbers} vs the CPU's "
+                                          f"{cpu_numbers}")
+    by_hand = tools_forward_by_hand(cpu_model, TOOLS_BATCH, TOOLS_IMAGE)
+    _require(card.flops_forward == by_hand, f"(c) forward FLOPs {card.flops_forward} vs by hand {by_hand}")
+    del cpu_model, x_cpu
+    torch.cuda.empty_cache()
+
+    print(f"  (a) simple example on {simple['device']} in {simple_s:.3f} s: printed (epoch, batch, "
+          f"loss, acc) {[(r['epoch'], r['batch'], round(r['loss'], 4), r['accuracy']) for r in printed]}")
+    print(f"  (a) its {len(simple['logits'])} batches of logits replayed through MulticlassAccuracy() "
+          f"on the CPU give every printed accuracy exactly; mean printed loss {first:.4f} in the first "
+          f"epoch, {last:.4f} in the last")
+    print(f"  (b) bridge example on {bridge['device']} in {bridge_s:.3f} s: accuracy "
+          f"{bridge['accuracy']:.8f}, f1_macro {bridge['f1_macro']:.8f}, auroc(class 0) "
+          f"{bridge['auroc']:.8f}; replayed on the CPU {want[0]:.8f}, {want[1]:.8f}, {want[2]:.8f}; "
+          f"jit.calls{{entry=hist}} {bridge_hist}")
+    print(f"  (c) get_module_summary on {dev} in {card_s:.4f} s (host clock; on the CPU "
+          f"{cpu_s:.4f} s): {card.num_parameters} parameters ({card.num_trainable_parameters} "
+          f"trainable), {card.size_bytes} B, forward {card.flops_forward} FLOPs (by hand "
+          f"{by_hand}), backward {card.flops_backward} FLOPs; every node equal to the CPU's; the "
+          f"module unchanged")
+    print(f"  phase launches jit.calls{{entry=}} {launches}")
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 def kernel_rows(dev, gen, timer, launches, errs, fold):
     from torcheval_tpu_torch.ops.hist import hist, hist_plain
@@ -5598,6 +5796,8 @@ def main() -> int:
     }
     sketch_launches["binary"] += dist_launches["segment_sum_sketch"]
 
+    tools_launches = tools_examples_phase(dev)
+
     print("phase 5 kernel timings at the main path's shapes (obs off)")
     obs.disable()
     launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
@@ -5608,14 +5808,16 @@ def main() -> int:
     for k, n in res_launches.items():
         launches[k] += n
     launches["topk"] = topk_launches + retrieval_launches + serve_launches["topk_kernel"]
-    launches["hist"] += serve_launches["hist"]
-    launches["stream_compact"] += serve_launches["stream_compact"]
+    launches["hist"] += serve_launches["hist"] + tools_launches["hist"]
+    launches["stream_compact"] += serve_launches["stream_compact"] + tools_launches["stream_compact"]
+    launches["topk"] += tools_launches["topk_kernel"]
     timer = Timer(dev)
     rows = kernel_rows(dev, gen, timer, launches, errs, fold)
     by_leg = {"sliced": sliced_launches, "curves": curve_launches["segment_sum"],
               "approx_headline": approx_headline_launches, "approx_curves": approx_curve_launches,
               "dist_curves": dist_launches["segment_sum_splitter"] + dist_launches["segment_sum_sketch"],
-              "resilience": rb["launches"], "serve": serve_launches["segment_sum"]}
+              "resilience": rb["launches"], "serve": serve_launches["segment_sum"],
+              "tools_examples": tools_launches["segment_sum"]}
     rows.append(segment_sum_row(dev, timer, sum(by_leg.values()),
                                 errs["segment_sum"], leg_rows, leg_scores, leg_targets, window_inputs))
     rows[-1]["launches_by_leg"] = by_leg
@@ -5683,6 +5885,7 @@ def main() -> int:
     print(f"  resilience phase launches: hist {res_launches['hist']}, stream_compact "
           f"{res_launches['stream_compact']}, segment_sum {rb['launches']}")
     print(f"  serve phase launches: {serve_launches}")
+    print(f"  tools and examples phase launches: {tools_launches}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

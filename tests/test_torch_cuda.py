@@ -1504,3 +1504,54 @@ def test_a_served_tenant_equals_a_direct_collection_on_the_card(dev):
     for k in want:
         assert torch.equal(got[k], want[k])
         assert np.asarray(wire[k]).tobytes() == want[k].cpu().numpy().tobytes()
+
+
+# ------------------------------------------------ tools and examples
+def _summary_nodes(ms, out=None):
+    out = {} if out is None else out
+    out[ms.module_name] = ms
+    for child in ms.submodule_summaries.values():
+        _summary_nodes(child, out)
+    return out
+
+
+def test_tools_on_the_card_give_the_cpus_counts(dev):
+    from torcheval_tpu_torch.tools import get_module_summary
+
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 16, 7, stride=2, padding=3), torch.nn.ReLU(),
+        torch.nn.Conv2d(16, 32, 3, stride=2, padding=1), torch.nn.ReLU(),
+        torch.nn.Flatten(), torch.nn.Linear(32 * 8 * 8, 10))
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    cpu = _summary_nodes(get_module_summary(model, (x,)))
+    model.to(dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    card = _summary_nodes(get_module_summary(model, (x.to(dev),)))
+    assert card.keys() == cpu.keys()
+    for name, c in cpu.items():
+        g = card[name]
+        assert (g.num_parameters, g.num_trainable_parameters, g.size_bytes, g.flops_forward,
+                g.flops_backward) == (c.num_parameters, c.num_trainable_parameters, c.size_bytes,
+                                      c.flops_forward, c.flops_backward), name
+    assert cpu[""].flops_forward > 0 and cpu[""].flops_backward > 0
+    for k, v in model.state_dict().items():
+        assert v.device == dev and torch.equal(v, before[k]), k
+
+
+def test_examples_default_to_the_card(dev):
+    from torcheval_tpu_torch.examples import simple_example, torch_bridge_example
+
+    simple = simple_example.main([])
+    assert simple["device"] == dev and len(simple["records"]) == 16
+    replay, values = MulticlassAccuracy(device="cpu"), []
+    for step, (logits, labels) in enumerate(zip(simple["logits"], simple["labels"])):
+        replay.update(logits, labels)
+        if (step + 1) % 4 == 0:
+            values.append(float(replay.compute()))
+        if (step + 1) % 16 == 0:
+            replay.reset()
+    assert values == [r["accuracy"] for r in simple["records"]]
+    before = launches("hist")
+    bridge = torch_bridge_example.main([])
+    assert bridge["device"] == dev and launches("hist") > before
+    assert 0.9 < bridge["accuracy"] <= 1.0

@@ -12,7 +12,9 @@ JAX package's hand-written TPU kernels replaced by hand-written CUDA kernels
 ``MulticlassF1Score``, ``BinaryF1Score``, ``MetricCollection`` and
 ``SlicedMetricCollection``, on the histogram, stream-compaction, top-k and
 segment-sum kernels; cross-process sync on ``torch.distributed``
-(``metrics.toolkit``) and data-parallel evaluation (``parallel``).
+(``metrics.toolkit``) and data-parallel evaluation (``parallel``); and the
+rest of the JAX package since, down to the tools (``tools``: module
+summaries and per-module FLOPs for ``nn.Module``) and the examples.
 """
 
 from torcheval_tpu_torch.version import __version__

@@ -16,13 +16,20 @@ capacity on either side. The ``approx=`` sketch states
 ``Quantile``'s ``bucket_counts``/``nan_dropped``, and the staged rows in the
 raw caches) and a sliced sketch member's per-cohort histograms carry the
 same way: loading recounts the staged rows, so the fold cadence continues
-where the other package left it. None of these functions imports JAX.
+where the other package left it.
+
+Model weights carry from flax to ``torch.nn`` layers the same way, as numpy
+arrays: :func:`flax_dense_kernel` turns a ``Dense`` kernel ``(in, out)``
+into a ``Linear.weight`` ``(out, in)``, :func:`flax_conv_kernel` a ``Conv``
+kernel HWIO into OIHW, and :func:`load_flax_params` loads a whole model from
+``(torch module name, flax module path)`` pairs; biases carry as they are.
+None of these functions imports JAX.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -87,3 +94,49 @@ def numpy_state_dicts(collection: MetricCollection) -> Dict[str, NumpyState]:
     """``collection.state_dicts()`` as numpy, the form a JAX collection's
     ``load_state_dicts`` takes."""
     return {name: _numpy(state) for name, state in collection.state_dicts().items()}
+
+
+def flax_dense_kernel(kernel: np.ndarray) -> torch.Tensor:
+    """A flax ``Dense`` kernel ``(in, out)`` as a ``Linear.weight``
+    ``(out, in)``."""
+    return torch.from_numpy(np.array(np.asarray(kernel).T, order="C"))
+
+
+def flax_conv_kernel(kernel: np.ndarray) -> torch.Tensor:
+    """A flax ``Conv`` kernel ``(*spatial, in, out)`` (HWIO in 2-D) as a
+    ``ConvNd.weight`` ``(out, in, *spatial)`` (OIHW)."""
+    return torch.from_numpy(np.array(np.moveaxis(np.asarray(kernel), (-1, -2), (0, 1)), order="C"))
+
+
+def load_flax_params(
+    module: torch.nn.Module,
+    params: Mapping[str, Any],
+    pairs: Sequence[Tuple[str, Tuple[str, ...]]],
+) -> None:
+    """Load flax parameters (the ``params`` collection as nested dicts of
+    numpy arrays) into ``module``. Each pair names a ``Linear`` or ``ConvNd``
+    submodule of ``module`` and the path of its flax ``Dense`` or ``Conv`` in
+    ``params``: the kernel goes into ``weight`` (a 2-D kernel as a
+    ``Dense``'s, a longer one as a ``Conv``'s), the bias into ``bias``. Raises
+    ``ValueError`` when a shape or a bias does not match."""
+    for torch_name, flax_path in pairs:
+        layer = module.get_submodule(torch_name)
+        node = params
+        for key in flax_path:
+            node = node[key]
+        kernel = np.asarray(node["kernel"])
+        weight = flax_dense_kernel(kernel) if kernel.ndim == 2 else flax_conv_kernel(kernel)
+        values = {"weight": weight}
+        if ("bias" in node) != (getattr(layer, "bias", None) is not None):
+            raise ValueError(f"{torch_name} and {'/'.join(flax_path)} disagree on a bias")
+        if "bias" in node:
+            values["bias"] = torch.from_numpy(np.array(node["bias"]))
+        for name, value in values.items():
+            target = getattr(layer, name)
+            if tuple(target.shape) != tuple(value.shape):
+                raise ValueError(
+                    f"{torch_name}.{name} has shape {tuple(target.shape)}; "
+                    f"{'/'.join(flax_path)} gives {tuple(value.shape)}"
+                )
+            with torch.no_grad():
+                target.copy_(value)
