@@ -1,10 +1,11 @@
-"""Inventory lint: the port records the JAX package's instrument names and
-no others.
+"""Inventory lint: the port records the JAX package's instrument names and,
+beside them, only the few of its own that its inventory names.
 
 * Every ``.counter/.gauge/.histo("…")`` literal under
   ``torcheval_tpu_torch/`` is a row of ``docs/observability.md``'s metric
   inventory (the JAX package's contract) and a row of the port's own table,
-  ``torcheval_tpu_torch/obs/inventory.py``, whose kind it matches.
+  ``torcheval_tpu_torch/obs/inventory.py``, whose kind it matches; the
+  table's ``PORT_ONLY`` names are in no JAX inventory.
 * Every inventory name whose JAX call site lies in a module the port has
   (the same path under ``torcheval_tpu_torch/``) is recorded by the port.
 * ``obs/__init__.py`` exports every name of the JAX ``obs.__all__``
@@ -27,6 +28,7 @@ from torcheval_tpu_torch.obs.inventory import (
     INSTRUMENTS,
     KERNEL_ENTRIES,
     LABEL_VALUES,
+    PORT_ONLY,
 )
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,9 +71,14 @@ def test_the_scans_found_something():
 
 @pytest.mark.parametrize("name", sorted(PORT_LITERALS))
 def test_every_port_name_is_a_jax_inventory_row(name):
-    assert name in DOC_ROWS, f"{name} is not in docs/observability.md's inventory"
     assert name in INSTRUMENTS, f"{name} is not in obs/inventory.py"
     kinds = {kind for kind, _ in PORT_LITERALS[name]}
+    if name in PORT_ONLY:
+        # the port's own names: in its table, and not the JAX package's
+        assert name not in DOC_ROWS and name not in JAX_LITERALS
+        assert kinds == {INSTRUMENTS[name][0]}
+        return
+    assert name in DOC_ROWS, f"{name} is not in docs/observability.md's inventory"
     assert kinds == {INSTRUMENTS[name][0]} == {DOC_ROWS[name]}
 
 
@@ -101,6 +108,7 @@ def test_every_ported_jax_call_site_is_recorded(name):
 
 def test_the_tables_are_consistent():
     assert set(KERNEL_ENTRIES) <= set(COST_ENTRIES) <= set(ENTRIES)
+    assert PORT_ONLY <= set(INSTRUMENTS)
     for (instrument, key), mapping in LABEL_VALUES.items():
         assert instrument in INSTRUMENTS and key in INSTRUMENTS[instrument][1]
         assert set(mapping) <= {"cuda", "torch"}

@@ -5,7 +5,9 @@ allocation made inside ``torcheval_tpu_torch/obs/`` (``tracemalloc``), with
 every obs module imported, ``stream``, ``slo``, ``httpd`` and
 ``distributed`` included. The window's labels are built behind call-site
 ``if _obs._enabled`` guards. The cases mirror
-``tests/obs/test_host_overhead.py``.
+``tests/obs/test_host_overhead.py``; the same holds for a whole pass,
+``reset()`` and the window step's per-member fold and compute sites
+included, with a ragged last batch and without.
 """
 
 import time
@@ -19,7 +21,7 @@ import torch
 import torcheval_tpu_torch.obs as obs_pkg
 from torcheval_tpu_torch import obs
 from torcheval_tpu_torch.metrics import MetricCollection, MulticlassAccuracy, MulticlassF1Score
-from torcheval_tpu_torch.obs import distributed, httpd, registry, slo, stream, trace  # noqa: F401
+from torcheval_tpu_torch.obs import annotate, distributed, httpd, registry, slo, stream, trace  # noqa: F401
 
 OBS_DIR = str(Path(obs_pkg.__file__).resolve().parent)
 
@@ -99,3 +101,71 @@ def test_armed_update_stays_cheap():
             col.update(scores, labels)
         times.append((time.perf_counter() - t0) / 20)
     assert sorted(times)[len(times) // 2] < 1e-3
+
+
+def _pass_collection():
+    col = MetricCollection({
+        "top1": MulticlassAccuracy(device="cpu"),
+        "top5": MulticlassAccuracy(k=3, device="cpu"),
+        "f1": MulticlassF1Score(num_classes=5, average="macro", device="cpu"),
+    })
+    scores, labels = torch.rand(200, 5), torch.randint(0, 5, (200,))
+    return col, scores, labels
+
+
+def _whole_pass(col, scores, labels, batch):
+    col.reset()
+    for s in range(0, scores.shape[0], batch):
+        col.update(scores[s:s + batch], labels[s:s + batch])
+    return col.compute()
+
+
+# 200 rows in batches of 64 end ragged (8 rows); of 40, uniform (stacked)
+@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
+def test_a_pass_with_reset_and_window_step_records_nothing(batch):
+    col, scores, labels = _pass_collection()
+    _whole_pass(col, scores, labels, batch)  # arms the window
+    reg = registry.default_registry
+    with mock.patch.object(trace, "_append", side_effect=AssertionError("ring append")), \
+            mock.patch.object(reg, "counter", side_effect=AssertionError("counter")), \
+            mock.patch.object(reg, "histo", side_effect=AssertionError("histo")), \
+            mock.patch.object(reg, "_record_span", side_effect=AssertionError("span")), \
+            mock.patch.object(reg, "span", side_effect=AssertionError("span")):
+        for _ in range(3):
+            _whole_pass(col, scores, labels, batch)
+    assert trace.event_count() == 0
+
+
+@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
+def test_a_pass_with_reset_and_window_step_allocates_nothing_inside_obs(batch):
+    col, scores, labels = _pass_collection()
+    for _ in range(2):  # warm any lazy cache on the measured path
+        _whole_pass(col, scores, labels, batch)
+    tracemalloc.start(25)
+    try:
+        before = tracemalloc.take_snapshot()
+        for _ in range(5):
+            _whole_pass(col, scores, labels, batch)
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    grew = [d for d in after.compare_to(before, "traceback")
+            if d.size_diff > 0 and d.traceback[-1].filename.startswith(OBS_DIR)]
+    assert grew == [], "; ".join(str(d) for d in grew)
+
+
+@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
+def test_the_pass_records_its_spans_once_enabled(batch):
+    col, scores, labels = _pass_collection()
+    _whole_pass(col, scores, labels, batch)
+    obs.enable()
+    _whole_pass(col, scores, labels, batch)
+    spans = obs.snapshot()["spans"]
+    window = "collection.compute/jit/deferred.window_step"
+    assert spans["collection.reset"]["count"] == 1
+    assert spans[f"{window}/deferred.operands"]["count"] == 1
+    assert spans[f"{window}/deferred.compute_fn/MulticlassF1Score{{member=f1}}"]["count"] == 1
+    shape = "ragged" if batch == 64 else "stacked"
+    folds = 2 if batch == 64 else 1  # a ragged member's fold and its combine
+    assert spans[f"{window}/deferred.fold/MulticlassAccuracy{{member=top1,shape={shape}}}"]["count"] == folds
+    assert (f"{window}/deferred.fold/stacked{{members=2,shape=stacked}}" in spans) == (batch == 40)

@@ -26,9 +26,10 @@ numpy, or a CPU tensor copied to the card), or when the caller of
 daemon's staging pass); only then may it release them before the fold
 math runs.
 
-``update``, ``update_placed`` and ``compute`` are annotated for the profiler and the obs
-registry (``collection.update``, ``collection.compute``); the valve lands a
-``deferred.window.valve`` instant on the timeline while obs is enabled.
+``update``, ``update_placed``, ``compute`` and ``reset`` are annotated for the
+profiler and the obs registry (``collection.update``, ``collection.compute``,
+``collection.reset``); the valve lands a ``deferred.window.valve`` instant on
+the timeline while obs is enabled.
 """
 
 from __future__ import annotations
@@ -281,6 +282,7 @@ class MetricCollection:
         ordered = {n: out[n] if n in out else m.compute() for n, m in self.metrics.items()}
         return ordered["metric"] if self._single else ordered
 
+    @traced("collection.reset")
     def reset(self) -> "MetricCollection":
         if self._window is not None:
             # the whole window is discarded before the members reset, so no

@@ -83,8 +83,17 @@ with ``Event.query()``, which never blocks (the JAX package polls its
 output's ``is_ready()``); no event is recorded under a transform or a
 graph capture. The three entry points are watched by the recompile
 watchdog (``deferred.fold_pending``, ``deferred.group_fold``,
-``deferred.window_step``). Labels are built behind a call-site
-``if _obs._enabled`` guard, so the disabled path allocates nothing.
+``deferred.window_step``). Inside a window step or fold, spans (registry
+and profiler range, ``obs/annotate.py::spanned``) mark the operands
+(``deferred.operands``: the stacks and concatenations), each member's
+fold and, apart, its combine into state (``deferred.fold/<Class>``,
+``member=`` its collection key, ``shape=stacked|scan|ragged|concat``; the
+vmapped members' one call is ``deferred.fold/stacked``, ``members=``) and
+each terminal compute (``deferred.compute_fn/<Class>``, ``member=``);
+``deferred.fold_calls{shape=}`` counts the ``_fold_fn`` calls each shape
+makes (one a member for stacked and concat, one a batch for scan and
+ragged). Labels are built behind a call-site ``if _obs._enabled`` guard,
+so the disabled path allocates nothing.
 
 Contract for subclasses::
 
@@ -134,7 +143,7 @@ import torch
 
 from torcheval_tpu_torch.obs import registry as _obs
 from torcheval_tpu_torch.obs import trace as _trace
-from torcheval_tpu_torch.obs.annotate import _under_transform
+from torcheval_tpu_torch.obs.annotate import _under_transform, instrument_protocol, spanned
 from torcheval_tpu_torch.obs.recompile import watched
 
 Chunk = Tuple[torch.Tensor, ...]
@@ -154,8 +163,15 @@ _last_window_event: Optional[torch.cuda.Event] = None
 
 def _window_step_running() -> bool:
     """True while the last window step's work is still on the card
-    (``Event.query()`` never blocks)."""
-    return _last_window_event is not None and not _last_window_event.query()
+    (``Event.query()`` never blocks; once it reports the work done, the
+    event is dropped, so later appends ask the card nothing)."""
+    global _last_window_event
+    if _last_window_event is None:
+        return False
+    if _last_window_event.query():
+        _last_window_event = None
+        return False
+    return True
 
 
 def _chunks_identical(a: Sequence[Chunk], b: Sequence[Chunk]) -> bool:
@@ -223,75 +239,153 @@ def _check_unchanged(owner: str, chunks: Sequence[Chunk], versions: Sequence[Ver
                 )
 
 
-def _member_deltas(
-    members: Sequence[Tuple[str, "DeferredFoldMixin"]],
-    chunks: Sequence[Chunk],
-    release: Optional[Callable[[], None]] = None,
-) -> Dict[str, List[Dict[str, torch.Tensor]]]:
-    """Each member's deltas over ``chunks``, as a list of delta dicts to
-    combine into its state in order. Nothing is combined here, so a fold
-    that raises leaves every state as it was. ``release`` (the window's
-    owned batches) runs once every operand is built, before the fold math."""
-    uniform = len(chunks) > 1 and _uniform_chunks(chunks)
-    stacked_members, scan_members, other = [], [], []
-    for key, m in members:
-        cls = type(m)
-        if uniform and cls._fold_per_chunk:
-            if cls._fold_vmap and cls._fold_reduce in _AXIS_REDUCERS:
-                stacked_members.append((key, m))
-            else:
-                scan_members.append((key, m))
-        else:
-            other.append((key, m))
-    stacked = tuple(torch.stack(cols) for cols in zip(*chunks)) if stacked_members else None
-    concat = None
-    if any(not type(m)._fold_per_chunk or len(chunks) == 1 for _, m in other):
-        concat = tuple(torch.cat(cols) if len(cols) > 1 else cols[0] for cols in zip(*chunks))
-    if scan_members:
-        # the scan's batches: rows of the stack when there is one
+def _operands(
+    chunks: Sequence[Chunk], stack: bool, cat: bool, scan: bool
+) -> Tuple[Optional[Chunk], Optional[Chunk], Optional[List[Chunk]]]:
+    """The window's operands: each column stacked (``stack``), each column
+    concatenated (``cat``), and the scan's batches (``scan``; rows of the
+    stack when there is one)."""
+    stacked = tuple(torch.stack(cols) for cols in zip(*chunks)) if stack else None
+    concat = (
+        tuple(torch.cat(cols) if len(cols) > 1 else cols[0] for cols in zip(*chunks))
+        if cat
+        else None
+    )
+    seq = None
+    if scan:
         seq = (
             [tuple(col[i] for col in stacked) for i in range(len(chunks))]
             if stacked is not None
             else list(chunks)
         )
-    ragged = {k for k, m in other if type(m)._fold_per_chunk and len(chunks) > 1}
+    return stacked, concat, seq
+
+
+def _stacked_deltas(
+    members: Sequence[Tuple[str, "DeferredFoldMixin"]], stacked: Chunk
+) -> Dict[str, List[Dict[str, torch.Tensor]]]:
+    """Every stacked member's deltas from one ``vmap`` over the batch axis,
+    reduced over it."""
+
+    def all_deltas(*chunk):
+        return {key: type(m)._fold_fn(*chunk, *m._fold_params) for key, m in members}
+
+    delta_stacks = torch.func.vmap(all_deltas)(*stacked)
+    out = {}
+    for key, m in members:
+        red = _AXIS_REDUCERS[type(m)._fold_reduce]
+        out[key] = [{n: red(v) for n, v in delta_stacks[key].items()}]
+    return out
+
+
+def _scan_deltas(m: "DeferredFoldMixin", seq: Sequence[Chunk]) -> List[Dict[str, torch.Tensor]]:
+    fn = type(m)._fold_fn
+    return [fn(*c, *m._fold_params) for c in seq]
+
+
+def _ragged_deltas(m: "DeferredFoldMixin", chunks: Sequence[Chunk]) -> List[Dict[str, torch.Tensor]]:
+    fn = type(m)._fold_fn
+    red = type(m)._fold_reduce or _add
+    acc = None
+    for c in chunks:
+        d = fn(*c, *m._fold_params)
+        acc = d if acc is None else {n: red(acc[n], v) for n, v in d.items()}
+    return [acc]
+
+
+def _concat_deltas(m: "DeferredFoldMixin", concat: Chunk) -> List[Dict[str, torch.Tensor]]:
+    return [type(m)._fold_fn(*concat, *m._fold_params)]
+
+
+def _member_fold(key: str, m: "DeferredFoldMixin", shape: str, fold: Callable, operand: Any, calls: int):
+    """One member's ``fold(m, operand)``, which makes ``calls`` calls of its
+    ``_fold_fn``: inside a ``deferred.fold/<Class>`` span while obs is
+    enabled."""
+    if not _obs._enabled:
+        return fold(m, operand)
+    _obs.counter("deferred.fold_calls", float(calls), shape=shape)
+    return spanned(f"deferred.fold/{type(m).__name__}", {"member": key, "shape": shape}, fold, m, operand)
+
+
+def _member_deltas(
+    members: Sequence[Tuple[str, "DeferredFoldMixin"]],
+    chunks: Sequence[Chunk],
+    release: Optional[Callable[[], None]] = None,
+) -> Tuple[Dict[str, List[Dict[str, torch.Tensor]]], Dict[str, str]]:
+    """Each member's deltas over ``chunks``, as a list of delta dicts to
+    combine into its state in order, and each member's fold shape
+    (``stacked``, ``scan``, ``ragged`` or ``concat``). Nothing is combined
+    here, so a fold that raises leaves every state as it was. ``release``
+    (the window's owned batches) runs once every operand is built, before
+    the fold math."""
+    n = len(chunks)
+    uniform = n > 1 and _uniform_chunks(chunks)
+    stacked_members, scan_members, other = [], [], []
+    shapes: Dict[str, str] = {}
+    for key, m in members:
+        cls = type(m)
+        if uniform and cls._fold_per_chunk:
+            if cls._fold_vmap and cls._fold_reduce in _AXIS_REDUCERS:
+                stacked_members.append((key, m))
+                shapes[key] = "stacked"
+            else:
+                scan_members.append((key, m))
+                shapes[key] = "scan"
+        else:
+            other.append((key, m))
+            shapes[key] = "ragged" if cls._fold_per_chunk and n > 1 else "concat"
+    wants = (
+        bool(stacked_members),
+        any(shapes[k] == "concat" for k, _ in other),
+        bool(scan_members),
+    )
+    if _obs._enabled:
+        stacked, concat, seq = spanned("deferred.operands", {}, _operands, chunks, *wants)
+    else:
+        stacked, concat, seq = _operands(chunks, *wants)
+    ragged = any(shapes[k] == "ragged" for k, _ in other)
     if release is not None and not ragged and (not scan_members or stacked is not None):
         release()
 
     out: Dict[str, List[Dict[str, torch.Tensor]]] = {}
     if stacked_members:
-
-        def all_deltas(*chunk):
-            return {key: type(m)._fold_fn(*chunk, *m._fold_params) for key, m in stacked_members}
-
-        delta_stacks = torch.func.vmap(all_deltas)(*stacked)
-        for key, m in stacked_members:
-            red = _AXIS_REDUCERS[type(m)._fold_reduce]
-            out[key] = [{n: red(v) for n, v in delta_stacks[key].items()}]
-    for key, m in scan_members:
-        fn = type(m)._fold_fn
-        out[key] = [fn(*c, *m._fold_params) for c in seq]
-    for key, m in other:
-        fn = type(m)._fold_fn
-        if key in ragged:
-            red = type(m)._fold_reduce or _add
-            acc = None
-            for c in chunks:
-                d = fn(*c, *m._fold_params)
-                acc = d if acc is None else {n: red(acc[n], v) for n, v in d.items()}
-            out[key] = [acc]
+        # one vmapped call runs every stacked member's fold: one span
+        if _obs._enabled:
+            k = len(stacked_members)
+            _obs.counter("deferred.fold_calls", float(k), shape="stacked")
+            labels = {"members": k, "shape": "stacked"}
+            out.update(spanned("deferred.fold/stacked", labels, _stacked_deltas, stacked_members, stacked))
         else:
-            out[key] = [fn(*concat, *m._fold_params)]
-    return out
+            out.update(_stacked_deltas(stacked_members, stacked))
+    for key, m in scan_members:
+        out[key] = _member_fold(key, m, "scan", _scan_deltas, seq, n)
+    for key, m in other:
+        if shapes[key] == "ragged":
+            out[key] = _member_fold(key, m, "ragged", _ragged_deltas, chunks, n)
+        else:
+            out[key] = _member_fold(key, m, "concat", _concat_deltas, concat, 1)
+    return out, shapes
+
+
+def _apply_all(m: "DeferredFoldMixin", deltas: Sequence[Dict[str, torch.Tensor]]) -> None:
+    for d in deltas:
+        m._apply_deltas(d)
 
 
 def _combine(
     members: Sequence[Tuple[str, "DeferredFoldMixin"]],
-    outs: Dict[str, List[Dict[str, torch.Tensor]]],
+    folded: Tuple[Dict[str, List[Dict[str, torch.Tensor]]], Dict[str, str]],
 ) -> None:
+    """Combine :func:`_member_deltas`' deltas into each member's state: inside
+    the member's ``deferred.fold/<Class>`` span while obs is enabled."""
+    outs, shapes = folded
     for key, m in members:
-        for deltas in outs.get(key, ()):
-            m._apply_deltas(deltas)
+        deltas = outs.get(key, ())
+        if _obs._enabled:
+            labels = {"member": key, "shape": shapes[key]}
+            spanned(f"deferred.fold/{type(m).__name__}", labels, _apply_all, m, deltas)
+        else:
+            _apply_all(m, deltas)
 
 
 def _stack_allowed(chunks: Sequence[Chunk]) -> bool:
@@ -302,7 +396,23 @@ def _stack_allowed(chunks: Sequence[Chunk]) -> bool:
     return all(type(a) is torch.Tensor for a in chunks[0])
 
 
-@watched(name="deferred.fold_pending")
+def _window_signature(args: tuple, kwargs: dict) -> Tuple[Any, Any]:
+    """The watchdog's signature of a window step or fold, with no tree of
+    the window flattened: the members' names and classes and the flags and
+    names among the other arguments (static), each batch's shapes and types
+    (dynamic). The batches' version counters are checks, not inputs."""
+    members, chunks = args[0], args[1]
+    pairs = members.items() if isinstance(members, dict) else enumerate(members)
+    static: List[Any] = [tuple((k, type(m).__qualname__) for k, m in pairs)]
+    for a in (*args[2:], *(v for _, v in sorted(kwargs.items()))):
+        if a is None or isinstance(a, (str, bool)):
+            static.append(a)
+        elif isinstance(a, (set, frozenset, tuple, list)) and all(isinstance(x, str) for x in a):
+            static.append(tuple(sorted(a)))
+    return tuple(static), tuple((tuple(t.shape), t.dtype) for c in chunks for t in c)
+
+
+@watched(name="deferred.fold_pending", signature=_window_signature)
 def fold_pending(
     members: Sequence["DeferredFoldMixin"], chunks: Sequence[Chunk], entry: str = "fold"
 ) -> None:
@@ -345,11 +455,10 @@ def group_fold(members: Dict[str, "DeferredFoldMixin"]) -> None:
         m._clear_pending()
 
 
-@watched(name="deferred.window_step")
+@watched(name="deferred.window_step", signature=_window_signature)
 def window_step(
     members: Dict[str, "DeferredFoldMixin"],
     chunks: Sequence[Chunk],
-    *,
     versions: Optional[Sequence[Versions]] = None,
     compute_keys: Iterable[str] = (),
     owned_chunks: bool = False,
@@ -386,12 +495,14 @@ def window_step(
         pairs = list(members.items())
         release = chunks.clear if owned_chunks and isinstance(chunks, list) else None
         _combine(pairs, _member_deltas(pairs, chunks, release))
-    results = {
-        name: type(m)._compute_fn(
-            *(getattr(m, s) for s in m._state_name_to_default), *m._compute_params
-        )
-        for name, m in computing
-    }
+    results = {}
+    for name, m in computing:
+        if _obs._enabled:
+            results[name] = spanned(
+                f"deferred.compute_fn/{type(m).__name__}", {"member": name}, _terminal, m
+            )
+        else:
+            results[name] = _terminal(m)
     if path is not None:
         _count_window_step(path, n, len(computing), t0)
         if cuda:
@@ -400,6 +511,13 @@ def window_step(
             _last_window_event = torch.cuda.Event()
             _last_window_event.record()
     return results
+
+
+def _terminal(m: "DeferredFoldMixin") -> Any:
+    """A member's terminal ``_compute_fn`` on its folded states."""
+    return type(m)._compute_fn(
+        *(getattr(m, s) for s in m._state_name_to_default), *m._compute_params
+    )
 
 
 def _count_window_step(path: str, n: int, computes: int, t0: float) -> None:
@@ -541,12 +659,10 @@ class EvalWindow:
             group_fold(self.members)
         if _obs._enabled and self.chunks:
             self._record_overlap()
+        # positional: a keyword call through the watched wrapper leaves a
+        # block in CPython's caches on the disabled path
         results = window_step(
-            self.members,
-            self.chunks,
-            versions=self.versions,
-            compute_keys=compute_keys,
-            owned_chunks=self.owned and bool(self.chunks),
+            self.members, self.chunks, self.versions, compute_keys, self.owned and bool(self.chunks)
         )
         self.clear()
         return results
@@ -773,18 +889,12 @@ class DeferredFoldMixin:
                 self._group_fold_attempt()
             if self._pending:
                 results = window_step(
-                    {"s": self},
-                    tuple(self._pending),
-                    versions=self._pending_versions,
-                    compute_keys=("s",),
+                    {"s": self}, tuple(self._pending), self._pending_versions, ("s",)
                 )
                 self._clear_pending()
                 if "s" in results:
                     return self._on_window_result(results["s"])
-        result = type(self)._compute_fn(
-            *(getattr(self, n) for n in self._state_name_to_default), *self._compute_params
-        )
-        return self._on_window_result(result)
+        return self._on_window_result(_terminal(self))
 
     # ------------------------------------------------------ lifecycle hooks
     def reset(self):
@@ -821,3 +931,8 @@ class DeferredFoldMixin:
         self._pending_sig = None
         self._defer_cache = None
         _live_deferred.add(self)  # a restored metric groups with peers again
+
+
+# the mixin's reset (a window close, then the base's) under the metric's
+# ``metric.reset/<Class>`` span
+instrument_protocol(DeferredFoldMixin, ("reset",))

@@ -15,9 +15,10 @@ Every read of the logical state calls it first: ``state_dict``,
 states it does not name), ``to`` and ``_prepare_for_merge_state`` (every
 sync); the mixin adds pickling and deepcopy.
 
-Every subclass's ``update``/``compute``/``merge_state`` is annotated for the
-profiler and the obs registry under the runtime class's name
-(``metric.update/BinaryAUROC``, ``obs/annotate.py``), and the first
+Every subclass's ``update``/``compute``/``merge_state``/``reset`` is
+annotated for the profiler and the obs registry under the runtime class's
+name (``metric.update/BinaryAUROC``, ``metric.reset/BinaryAUROC``,
+``obs/annotate.py``), and the first
 construction of each class is logged once
 (``torcheval_tpu_torch.metrics.<class>``, ``utils/telemetry.py``), as in the
 JAX package. Both cost one global read or one set lookup while obs is off.
@@ -185,3 +186,7 @@ class Metric(Generic[TComputeReturn], ABC):
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(device={self._device})"
+
+
+# the base's reset, which a metric that defines none inherits
+instrument_protocol(Metric, ("reset",))

@@ -13,19 +13,29 @@ has no jit, so the watchdog wraps eager entry points). The legs:
   window's cadence ``deferred.*``. Exported as JSON and Prometheus text
   (``export.py``).
 * **Event timeline** (``trace.py``): a bounded ring of structured events fed
-  by every registry span and by hooks at each dispatch site (window
-  open/append/valve/close, window-step dispatch, folds, watchdog first
-  sights and cache hits, sync rounds, checkpoints, chaos injections), as
-  Chrome/Perfetto ``trace_event`` JSON (``chrome_trace()``).
+  by every registry span (with its parent's path as the ``parent`` label)
+  and by hooks at each dispatch site (window open/append/valve/close,
+  window-step dispatch, folds, watchdog first sights, sync rounds,
+  checkpoints, chaos injections), as Chrome/Perfetto ``trace_event`` JSON
+  (``chrome_trace()``). Its clock is the profiler's, Unix time, so
+  ``chrome_trace()`` and ``torch.profiler``'s export line up in one view.
 * **Profiler annotation** (``annotate.py``): every metric's ``update`` /
-  ``compute`` / ``merge_state`` (``metric.update/BinaryAUROC``), the
-  collection's, the evaluator's, the toolkit's entry points and every
-  watched entry (``jit/<entry>``) run inside a
-  ``torch.profiler.record_function`` range and a registry span, so device
-  time is attributed per metric and per kernel.
+  ``compute`` / ``merge_state`` / ``reset`` (``metric.update/BinaryAUROC``),
+  the collection's (``collection.update`` / ``.compute`` / ``.reset``), the
+  evaluator's, the toolkit's entry points, every watched entry
+  (``jit/<entry>``) and, inside a window step or fold, the operands
+  (``deferred.operands``), each member's fold and combine
+  (``deferred.fold/<Class>``, ``member=``, ``shape=``; the vmapped members
+  together as ``deferred.fold/stacked``) and terminal compute
+  (``deferred.compute_fn/<Class>``) run inside a profiler range (a
+  ``RecordFunction``) and a registry span, so device
+  time is attributed per metric, per member and phase, and per kernel.
+  ``deferred.fold_calls{shape=}`` counts the ``_fold_fn`` calls.
 * **Recompile watchdog and cost gauges** (``recompile.py``, ``cost.py``):
-  per-entry signature counts with a storm warning, and the hand kernels'
-  byte models as ``obs.cost.*{entry=}`` gauges.
+  per-entry signature counts with a storm warning, the hand kernels' byte
+  models as ``obs.cost.*{entry=}`` gauges, and every launch's modelled
+  bytes as ``obs.cost.launch_bytes{entry=}``. A watched call that built
+  nothing lands no instant (the port has no jit cache to hit).
 * **Cross-rank aggregation** (``distributed.py``): :func:`sync_snapshot`
   merges every rank's registry and timeline in one collective round.
 * **Streaming, objectives and scraping** (``stream.py``, ``slo.py``,

@@ -20,8 +20,14 @@ JAX names:
 never break a launch). The recompile watchdog (``obs/recompile.py``) calls
 :func:`capture` on the first sight of each signature of an entry that has a
 model, while obs is enabled; gauges are last-write-wins per entry, as in
-the JAX package. The gauges are counts, not times: no CUDA event is
-recorded here.
+the JAX package, so they describe one launch and cannot total a window.
+
+The counter ``obs.cost.launch_bytes{entry=}`` (the port's own) totals: each
+hand-kernel wrapper runs its model on every launch while obs is enabled,
+where it counts the launch (``recompile.count_launch`` ->
+:func:`count_bytes`), so the bytes of a window over its kernels' device
+time is their roofline share. The gauges and the counter are counts, not
+times: no CUDA event is recorded here.
 
 The library-op entries (the curve kernels, the confusion counts, the
 folds) get no cost gauges: their JAX gauges come from XLA programs the port
@@ -61,3 +67,16 @@ def capture(entry: str, model: CostModel, args: tuple, kwargs: Dict[str, Any], o
         reg.counter("obs.cost.capture_errors", entry=entry)
     finally:
         reg.observe_span("obs.cost.capture", time.perf_counter() - t0, entry=entry)
+
+
+def count_bytes(entry: str, model: CostModel, args: tuple, out: Any) -> None:
+    """Add ``model``'s bytes of one launch ``entry(*args) -> out`` to
+    ``obs.cost.launch_bytes{entry=}`` (the caller checks that obs is
+    enabled)."""
+    reg = _registry.default_registry
+    try:
+        moved = float(model(args, {}, out)[1])
+    except Exception:
+        reg.counter("obs.cost.capture_errors", entry=entry)
+        return
+    reg.counter("obs.cost.launch_bytes", moved, entry=entry)

@@ -4,14 +4,16 @@ labels map onto the JAX package's.
 JAX counterpart: the "Metric inventory" table of ``docs/observability.md``,
 which fixes the JAX package's names. The port records a subset of those
 names (the serve plane's whole ``serve.*`` set, the router's
-``serve.router.*`` and ``serve.fleet.headroom`` among them) and no name
-of its own; ``tests/test_torch_obs_inventory.py`` holds the code, this
-table and that document to each other.
+``serve.router.*`` and ``serve.fleet.headroom`` among them), and the names
+of :data:`PORT_ONLY`, which count what only the port has to count;
+``tests/test_torch_obs_inventory.py`` holds the code, this table and that
+document to each other.
 
 Three tables:
 
 * :data:`INSTRUMENTS`: ``name -> (kind, label keys)`` for every counter,
-  gauge and histogram literal under ``torcheval_tpu_torch/``;
+  gauge and histogram literal under ``torcheval_tpu_torch/``; of them,
+  :data:`PORT_ONLY` are the port's own;
 * :data:`ENTRIES`: each ``entry=`` label the port writes (its own function
   names) -> the JAX package's entry for the same function;
 * :data:`LABEL_VALUES`: ``(instrument, label key) -> {port value: JAX
@@ -19,8 +21,11 @@ Three tables:
   lowering becomes ``cuda`` for the hand kernel and ``torch`` for the
   library or plain route. Values not listed are the JAX ones.
 
-Spans are not enumerated, as in the JAX document: ``metric.<method>/<cls>``,
-``collection.*``, ``evaluator.*``, ``toolkit.*``, ``toolkit.sync.round``,
+Spans are not enumerated, as in the JAX document: ``metric.<method>/<cls>``
+(``reset`` among the methods), ``collection.*``, the window step's and
+fold's ``deferred.operands``, ``deferred.fold/<cls>`` (``member=``,
+``shape=``), ``deferred.fold/stacked`` and ``deferred.compute_fn/<cls>``
+(``member=``), ``evaluator.*``, ``toolkit.*``, ``toolkit.sync.round``,
 ``jit/<entry>``, ``jit.compile/<entry>``, ``obs.cost.capture``,
 ``obs.sync_snapshot``, ``ops.dist_curves.*``, the checkpoint spans,
 the serve plane's ``serve.tenant.step{tenant=}`` and
@@ -39,6 +44,7 @@ COUNTER, GAUGE, HISTOGRAM = "counter", "gauge", "histogram"
 INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "bootstrap.retries": (COUNTER, ()),
     "deferred.folds": (COUNTER, ("entry", "path")),
+    "deferred.fold_calls": (COUNTER, ("shape",)),
     "deferred.folded_chunks": (COUNTER, ("entry",)),
     "deferred.window_steps": (COUNTER, ("path",)),
     "deferred.window_step_batches": (COUNTER, ()),
@@ -57,6 +63,7 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "obs.cost.hbm_bytes": (GAUGE, ("entry",)),
     "obs.cost.captures": (COUNTER, ("entry",)),
     "obs.cost.capture_errors": (COUNTER, ("entry",)),
+    "obs.cost.launch_bytes": (COUNTER, ("entry",)),
     "ops.dist_curves.calls": (COUNTER, ("path", "family")),
     "ops.scatter.calls": (COUNTER, ("path",)),
     "ops.scatter.state_bytes_per_device": (GAUGE, ("path",)),
@@ -117,6 +124,12 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "toolkit.sync.timeouts": (COUNTER, ("policy",)),
     "toolkit.sync.world_size": (GAUGE, ()),
 }
+
+# the port's own instruments, which the JAX package has no cause to count:
+# the ``_fold_fn`` calls of each fold shape (the JAX package's fold is one
+# XLA program whatever its shape), and every hand-kernel launch's modelled
+# bytes (XLA's cost analysis describes a program, not a launch)
+PORT_ONLY = frozenset({"deferred.fold_calls", "obs.cost.launch_bytes"})
 
 # port entry -> JAX entry (``watched`` labels and ``count_launch`` entries)
 ENTRIES: Dict[str, str] = {

@@ -21,13 +21,14 @@ While obs is enabled, each wrapper records:
   count it themselves, where they launch (:func:`count_launch`), so that a
   kernel's launches are its ``jit.calls``: a CPU tensor runs the plain
   version, which is not a launch;
-* a ``torch.profiler.record_function`` range and a registry span named
-  ``jit/<entry>`` around the call (``obs/annotate.py``);
+* a profiler range and a registry span named ``jit/<entry>`` around the
+  call (``obs/annotate.py``);
 * a ``jit.compile/<entry>`` span on a call that built the kernel library
-  (``_build.py``'s ``nvcc`` run); every other call lands a
-  ``watched_jit.cache_hit`` instant;
+  (``_build.py``'s ``nvcc`` run);
 * the entry's cost gauges (``obs/cost.py``) on the first sight of a
-  signature, for a wrapper given a cost model.
+  signature, for a wrapper given a cost model, and, on every launch of a
+  hand kernel, its byte model's bytes into ``obs.cost.launch_bytes{entry=}``
+  (:func:`count_launch`).
 
 **Difference from the JAX package.** JAX's bookkeeping is free: it runs
 only on a jit cache miss, inside the traced function. Eager PyTorch has no
@@ -95,8 +96,19 @@ def set_retrace_threshold(n: int) -> None:
     _threshold = n
 
 
+_FLAT = (int, float, bool, str, type(None))
+
+
 def split_signature(args: tuple, kwargs: dict) -> Tuple[Any, Any]:
-    """``(static_key, dynamic_sig)`` of a call (module doc)."""
+    """``(static_key, dynamic_sig)`` of a call (module doc). A call of
+    tensors and Python scalars alone, by position (the common call), needs
+    no tree flatten: its static key is the positions' kinds and scalars."""
+    if not kwargs and all(type(a) in _FLAT or isinstance(a, torch.Tensor) for a in args):
+        static_flat = tuple(None if isinstance(a, torch.Tensor) else (a,) for a in args)
+        dynamic_flat = tuple(
+            (tuple(a.shape), str(a.dtype)) for a in args if isinstance(a, torch.Tensor)
+        )
+        return ("flat", static_flat), dynamic_flat
     leaves, spec = pytree.tree_flatten((args, kwargs))
     dynamic = []
     static = []
@@ -113,10 +125,12 @@ def split_signature(args: tuple, kwargs: dict) -> Tuple[Any, Any]:
     return (str(spec), tuple(static)), tuple(dynamic)
 
 
-def _first_sight(name: str, args: tuple, kwargs: dict, groups: Dict[Any, set]) -> bool:
+def _first_sight(
+    name: str, args: tuple, kwargs: dict, groups: Dict[Any, set], signature: Callable = split_signature
+) -> bool:
     """Record the call's signature for ``name``; True when this wrapper had
     not seen it (the port's counterpart of a JAX trace)."""
-    static_key, dynamic = split_signature(args, kwargs)
+    static_key, dynamic = signature(args, kwargs)
     with _lock:
         seen = groups.setdefault(static_key, set())
         if dynamic in seen:
@@ -166,12 +180,20 @@ def reset() -> None:
     reset_once_keys(_WARN_KEY_PREFIX)
 
 
-def count_launch(entry: str) -> None:
-    """A hand kernel's launch: one ``jit.calls{entry=}`` while obs is
-    enabled. The kernel wrappers call it where they launch, and nowhere
-    else."""
+def count_launch(
+    entry: str,
+    model: Optional[_cost.CostModel] = None,
+    args: tuple = (),
+    out: Any = None,
+) -> None:
+    """A hand kernel's launch while obs is enabled: one
+    ``jit.calls{entry=}``, and ``model``'s bytes of the launch
+    ``entry(*args) -> out`` into ``obs.cost.launch_bytes{entry=}``. The
+    kernel wrappers call it where they launch, and nowhere else."""
     if _registry._enabled:
         _registry.default_registry.counter("jit.calls", entry=entry)
+        if model is not None:
+            _cost.count_bytes(entry, model, args, out)
 
 
 def watched(
@@ -180,14 +202,20 @@ def watched(
     name: Optional[str] = None,
     cost: Optional[_cost.CostModel] = None,
     counts_launches: bool = False,
+    signature: Callable[[tuple, dict], Tuple[Any, Any]] = split_signature,
 ) -> Callable:
     """Wrap a library entry point with the watchdog (module doc): the port's
     ``watched_jit``. ``cost`` is the entry's byte model (``obs/cost.py``);
     ``counts_launches`` says that the wrapped function counts its own
-    ``jit.calls`` where it launches a kernel. Usable as ``@watched`` or
-    ``@watched(name=...)``. Disabled path: one module-global read."""
+    ``jit.calls`` where it launches a kernel; ``signature`` computes a
+    call's ``(static_key, dynamic_sig)`` where a tree flatten of every
+    argument would cost more than the call (a window of many batches).
+    Usable as ``@watched`` or ``@watched(name=...)``. Disabled path: one
+    module-global read."""
     if fun is None:
-        return lambda f: watched(f, name=name, cost=cost, counts_launches=counts_launches)
+        return lambda f: watched(
+            f, name=name, cost=cost, counts_launches=counts_launches, signature=signature
+        )
     label = name or getattr(fun, "__qualname__", None) or repr(fun)
     groups: Dict[Any, set] = _GroupStore()
     with _lock:
@@ -200,15 +228,13 @@ def watched(
         reg = _registry.default_registry
         if not counts_launches:
             reg.counter("jit.calls", entry=label)
-        first = _first_sight(label, args, kwargs, groups)
+        first = _first_sight(label, args, kwargs, groups, signature)
         building = not _build.loaded()
         t0 = time.perf_counter()
         out = annotated_call(f"jit/{label}", fun, args, kwargs)
         if building and _build.loaded() and _build.build_report()[0] is not None:
             # this call built the kernels: the port's compile
             reg.observe_span(f"jit.compile/{label}", time.perf_counter() - t0)
-        else:
-            _trace.instant("watched_jit.cache_hit", kind="jit", entry=label)
         if first and cost is not None:
             _cost.capture(label, cost, args, kwargs, out)
         return out

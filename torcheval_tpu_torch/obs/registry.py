@@ -77,6 +77,8 @@ _LabelKey = Tuple[Tuple[str, str], ...]
 
 
 def _label_key(labels: Dict[str, Any]) -> _LabelKey:
+    if not labels:
+        return ()
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
@@ -119,8 +121,8 @@ def format_key(name: str, labels: _LabelKey) -> str:
 # Sink wired by ``obs/trace.py`` at import: spans recorded on the DEFAULT
 # registry (the only one the library reports into) are mirrored into the
 # event timeline ring as complete events. Signature:
-# ``(path, labels, t0_perf_counter, seconds) -> None``.
-_span_sink: Optional[Callable[[str, _LabelKey, float, float], None]] = None
+# ``(path, labels, t0_perf_counter, seconds, parent_path_or_None) -> None``.
+_span_sink: Optional[Callable[[str, _LabelKey, float, float, Optional[str]], None]] = None
 
 
 # ------------------------------------------------------- histogram buckets
@@ -257,22 +259,26 @@ class SpanStats:
 class _Span:
     """Context manager for one span instance; see :meth:`Registry.span`."""
 
-    __slots__ = ("_registry", "_name", "_labels", "_path", "_t0")
+    __slots__ = ("_registry", "_name", "_labels", "_path", "_parent", "_t0")
 
     def __init__(self, registry: "Registry", name: str, labels: _LabelKey):
         self._registry = registry
         self._name = name
         self._labels = labels
         self._path = None
+        self._parent = None
         self._t0 = 0.0
 
     def __enter__(self) -> "_Span":
-        stack = self._registry._span_stack()
-        self._path = (
-            f"{stack[-1]}/{self._name}" if stack else self._name
-        )
-        stack.append(self._path)
+        # the clock first: a profiler range entered just before lines up
         self._t0 = time.perf_counter()
+        stack = self._registry._span_stack()
+        if stack:
+            self._parent = stack[-1]
+            self._path = f"{self._parent}/{self._name}"
+        else:
+            self._path = self._name
+        stack.append(self._path)
         return self
 
     def __exit__(self, *exc) -> None:
@@ -284,7 +290,7 @@ class _Span:
         if stack:
             stack.pop()
         self._registry._record_span(
-            self._path, self._labels, seconds, t0=self._t0
+            self._path, self._labels, seconds, t0=self._t0, parent=self._parent
         )
 
 
@@ -431,6 +437,7 @@ class Registry:
         labels: _LabelKey,
         seconds: float,
         t0: Optional[float] = None,
+        parent: Optional[str] = None,
     ) -> None:
         key = (path, labels)
         dropped = False
@@ -454,6 +461,7 @@ class Registry:
                 labels,
                 t0 if t0 is not None else time.perf_counter() - seconds,
                 seconds,
+                parent,
             )
 
     # ----------------------------------------------------------------- export

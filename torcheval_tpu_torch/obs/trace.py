@@ -6,10 +6,17 @@ JAX counterpart: ``torcheval_tpu/obs/trace.py``. Flat counters cannot say
 records every occurrence:
 
 * every **span** recorded on the default registry (``registry._span_sink``
-  mirrors span closes here), so checkpoint save and restore appear as
-  Chrome complete events with their real start time and duration;
-* explicit **instants/completes** from the hooks: ``resilience.checkpoint.*``
-  (published, restored, quarantined) and ``resilience.chaos`` injections.
+  mirrors span closes here), with its parent's path as the ``parent``
+  label when it opened inside another span: the collection's
+  ``collection.update`` / ``.compute`` / ``.reset``, each metric's
+  ``metric.<method>/<Class>``, each watched entry's ``jit/<entry>``, and
+  inside a window step or fold the ``deferred.operands``,
+  ``deferred.fold/<Class>`` and ``deferred.compute_fn/<Class>`` spans
+  (``metrics/deferred.py``);
+* explicit **instants/completes** from the hooks: the deferred window's
+  open/append/valve/close and dispatch bars, the watchdog's first sights
+  (``watched_jit.trace``), ``resilience.checkpoint.*`` (published,
+  restored, quarantined) and ``resilience.chaos`` injections.
 
 Cost model: every hook gates on the obs enable flag, ONE module-global
 read on the disabled path, no allocation, no lock. While enabled, an
@@ -17,10 +24,16 @@ append is one lock acquisition and one ``deque.append``; the ring is
 bounded (default 16384 events), so a multi-hour run records the newest
 window of activity in O(capacity) memory and counts what it dropped.
 
-Timestamps are ``time.perf_counter`` seconds relative to a module-load
-epoch: monotonic and high-resolution, but NOT comparable across processes.
-The Chrome-trace pid is the ``torch.distributed`` rank when a process group
-is initialised, else 0.
+**Clock.** Event timestamps are on ``torch.profiler``'s clock: Unix time,
+kept in whole nanoseconds in the ring (an event dict's ``ts`` in seconds,
+``chrome_trace()``'s ``ts`` in microseconds from the ns). Kineto
+stamps its events in Unix nanoseconds, so ``obs.chrome_trace()`` and
+``prof.export_chrome_trace()`` load into one Perfetto view and line up. One
+offset, ``time.time_ns() - time.perf_counter_ns()``, is taken at import and
+added to ``perf_counter`` readings, so events stay monotonic and
+high-resolution within a process; a wall-clock step after import does not
+move them. The Chrome-trace pid is the ``torch.distributed`` rank when a
+process group is initialised, else 0.
 
 Usage::
 
@@ -45,46 +58,24 @@ DEFAULT_CAPACITY = 16384
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=DEFAULT_CAPACITY)
 _dropped = 0
-# perf_counter epoch for this process: event ts are seconds since this
-_epoch = time.perf_counter()
+# perf_counter -> Unix time (the profiler's clock), in ns
+_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
 
-class Event:
-    """One timeline entry: ``ts``/``dur`` are seconds relative to the module
-    epoch (``dur == 0`` marks an instant), ``kind`` is the coarse category
-    (span / window / jit / compile / sync / checkpoint / chaos), ``labels``
-    a small str->value dict, ``tid`` the recording thread."""
-
-    __slots__ = ("ts", "dur", "name", "kind", "labels", "tid")
-
-    def __init__(
-        self,
-        ts: float,
-        dur: float,
-        name: str,
-        kind: str,
-        labels: Dict[str, Any],
-        tid: int,
-    ) -> None:
-        self.ts = ts
-        self.dur = dur
-        self.name = name
-        self.kind = kind
-        self.labels = labels
-        self.tid = tid
-
-    def as_dict(self) -> Dict[str, Any]:
-        return {
-            "ts": self.ts,
-            "dur": self.dur,
-            "name": self.name,
-            "kind": self.kind,
-            "labels": dict(self.labels),
-            "tid": self.tid,
-        }
+def _as_dict(event: tuple) -> Dict[str, Any]:
+    """One ring entry ``(ts_ns, dur, name, kind, labels, tid)`` (a tuple: it
+    costs the recording path less than an object; the start in whole Unix
+    ns, which a float of Unix seconds holds only to about 0.24 us) as a
+    dict: ``ts`` Unix seconds on the profiler's clock, ``dur`` seconds (0
+    marks an instant), ``kind`` the coarse category (span / window / jit /
+    compile / sync / checkpoint / chaos), ``labels`` a small str->value
+    dict, ``tid`` the recording thread."""
+    ts_ns, dur, name, kind, labels, tid = event
+    return {"ts": ts_ns / 1e9, "dur": dur, "name": name, "kind": kind, "labels": dict(labels),
+            "tid": tid}
 
 
-def _append(event: Event) -> None:
+def _append(event: tuple) -> None:
     global _dropped
     with _lock:
         if len(_ring) == _ring.maxlen:
@@ -97,16 +88,7 @@ def instant(name: str, kind: str = "instant", **labels: Any) -> None:
     nothing else on the disabled path)."""
     if not _registry._enabled:
         return
-    _append(
-        Event(
-            time.perf_counter() - _epoch,
-            0.0,
-            name,
-            kind,
-            labels,
-            threading.get_ident(),
-        )
-    )
+    _append((time.perf_counter_ns() + _OFFSET_NS, 0.0, name, kind, labels, threading.get_ident()))
 
 
 def complete(
@@ -116,31 +98,17 @@ def complete(
     reading) IF obs is enabled."""
     if not _registry._enabled:
         return
-    _append(
-        Event(
-            t0 - _epoch,
-            seconds,
-            name,
-            kind,
-            labels,
-            threading.get_ident(),
-        )
-    )
+    _append((round(t0 * 1e9) + _OFFSET_NS, seconds, name, kind, labels, threading.get_ident()))
 
 
-def _on_span(path: str, labels, t0: float, seconds: float) -> None:
+def _on_span(path: str, labels, t0: float, seconds: float, parent: Optional[str] = None) -> None:
     """Registry span sink: default-registry span closes become timeline
-    complete events (labels arrive as the registry's sorted tuple form)."""
-    _append(
-        Event(
-            t0 - _epoch,
-            seconds,
-            path,
-            "span",
-            dict(labels),
-            threading.get_ident(),
-        )
-    )
+    complete events (labels arrive as the registry's sorted tuple form; a
+    nested span's ``parent`` path joins them)."""
+    labels = dict(labels)
+    if parent is not None:
+        labels["parent"] = parent
+    _append((round(t0 * 1e9) + _OFFSET_NS, seconds, path, "span", labels, threading.get_ident()))
 
 
 # wire the sink: every span recorded on the default registry (only ever
@@ -152,7 +120,7 @@ _registry._span_sink = _on_span
 def events() -> List[Dict[str, Any]]:
     """Snapshot of the ring, oldest first, as plain dicts."""
     with _lock:
-        return [e.as_dict() for e in _ring]
+        return [_as_dict(e) for e in _ring]
 
 
 def event_count() -> int:
@@ -174,7 +142,7 @@ def events_since(offset: int):
         if offset > total:
             offset = 0
         start = max(0, offset - _dropped)
-        return [e.as_dict() for e in list(_ring)[start:]], total
+        return [_as_dict(e) for e in list(_ring)[start:]], total
 
 
 def dropped() -> int:
@@ -231,17 +199,19 @@ def chrome_trace(
     cross-rank merge append rank-tagged event dicts (each may carry a
     ``"rank"`` used as the pid)."""
     pid = _process_rank()
+    with _lock:
+        local = list(_ring)
+    # this process's events from their whole ns, the merged ones' from seconds
+    merged = [(e[0] / 1e3, _as_dict(e)) for e in local]
+    merged += [(e["ts"] * 1e6, e) for e in extra_events or ()]
     out = []
-    merged = events()
-    if extra_events:
-        merged = merged + list(extra_events)
-    for e in merged:
+    for ts_us, e in merged:
         entry: Dict[str, Any] = {
             "name": e["name"],
             "cat": e["kind"],
             "pid": e.get("rank", pid),
             "tid": e["tid"],
-            "ts": round(e["ts"] * 1e6, 3),
+            "ts": round(ts_us, 3),
             "args": e["labels"],
         }
         if e["dur"] > 0.0:

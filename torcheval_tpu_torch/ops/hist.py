@@ -81,7 +81,7 @@ def hist(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
             _build.stream_of(labels),
         )
     _build.check(err, "hist")
-    count_launch("hist")
+    count_launch("hist", _hist_cost, (labels, num_classes), out)
     return out
 
 

@@ -176,7 +176,7 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
             _build.stream_of(flat),
         )
     _build.check(err, "segment_sum")
-    count_launch("segment_sum")
+    count_launch("segment_sum", _segment_sum_cost, (flat, rows), out)
     return out.reshape((num_segments,) + tail)
 
 

@@ -162,7 +162,7 @@ def stream_compact(
             _build.stream_of(mask),
         )
     _build.check(err, "stream_compact")
-    count_launch("stream_compact")
+    count_launch("stream_compact", _compact_cost, (mask, cols), (outs, n_live))
     return outs, n_live
 
 # rows past n_live: the JAX wrapper's where(live, ., (NaN, 0, 0))

@@ -216,7 +216,7 @@ def topk_kernel(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
             _build.stream_of(x),
         )
     _build.check(err, "topk")
-    count_launch("topk_kernel")
+    count_launch("topk_kernel", _topk_cost, (x, k), (values, indices))
     return values, indices
 
 
