@@ -1555,3 +1555,44 @@ def test_examples_default_to_the_card(dev):
     bridge = torch_bridge_example.main([])
     assert bridge["device"] == dev and launches("hist") > before
     assert 0.9 < bridge["accuracy"] <= 1.0
+
+
+def test_a_ragged_window_folds_each_accuracy_once_on_the_card(dev, monkeypatch):
+    """The ImageNet cell's window at batch 256, cut to six batches: five
+    (256, 1000) and one (80, 1000). Top-1, top-5 and the macro top-1 fold
+    the concatenated rows in one call each, none batch by batch, and their
+    counts equal the same window's on the CPU."""
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    g = torch.Generator().manual_seed(256)
+    scores = torch.rand(5 * 256 + 80, 1000, generator=g)
+    labels = torch.randint(0, 1000, (5 * 256 + 80,), generator=g)
+
+    def window(device):
+        col = MetricCollection({
+            "top1": MulticlassAccuracy(device=device),
+            "top5": MulticlassAccuracy(k=5, device=device),
+            "top1_macro": MulticlassAccuracy(average="macro", num_classes=1000, device=device),
+        })  # fmt: skip
+        for s in range(0, scores.shape[0], 256):
+            col.update(scores[s:s + 256].to(device), labels[s:s + 256].to(device))
+        return col
+
+    want = {k: m.state_dict() for k, m in window("cpu").metrics.items()}
+    calls, fold_fn = [], MulticlassAccuracy._fold_fn
+
+    def counting(*args):
+        calls.append(1)
+        return fold_fn(*args)
+
+    monkeypatch.setattr(MulticlassAccuracy, "_fold_fn", staticmethod(counting))
+    ragged, concat = count("deferred.fold_calls", shape="ragged"), count("deferred.fold_calls", shape="concat")
+    col = window(dev)
+    got = {k: m.state_dict() for k, m in col.metrics.items()}
+    torch.cuda.synchronize()
+    assert len(calls) == 3
+    assert count("deferred.fold_calls", shape="ragged") == ragged
+    assert count("deferred.fold_calls", shape="concat") == concat + 3
+    for k, states in want.items():
+        for name, v in states.items():
+            assert got[k][name].device == dev and torch.equal(got[k][name].cpu(), v), (k, name)

@@ -7,7 +7,9 @@ metrics, the byte and chunk valve (and its exact 2x for a collection's
 member streamed into directly), signature and type flushes, merges with
 pending batches on both sides, pickling and deepcopy mid-stream,
 ``load_state_dict`` mid-window and partial, reset, stacked against ragged
-folds, and the number of window steps per budget window. The same numpy
+folds (an exact member's ragged window folded once, a float member's a
+batch at a time, and the exact trait held to integer folds), and the
+number of window steps per budget window. The same numpy
 inputs, made from a seed, go through both packages (``device="cpu"`` on the
 port's metrics). Integer states must match exactly and floats within rtol
 1e-5; the valve cadence of the port (``deferred.window_steps`` and
@@ -362,6 +364,195 @@ def test_uniform_vs_ragged_chunks_agree():
     want = J.MulticlassAccuracy(average="macro", num_classes=4).update(x, t)
     _equal_states(uniform, want)
     _equal_states(ragged, want)
+
+
+def _count_fold_fn(monkeypatch, cls):
+    """A list that grows by one at each call of ``cls._fold_fn`` (a vmapped
+    call is one)."""
+    calls, fn = [], cls._fold_fn
+
+    def counting(*args):
+        calls.append(1)
+        return fn(*args)
+
+    monkeypatch.setattr(cls, "_fold_fn", staticmethod(counting))
+    return calls
+
+
+def _multiclass(rng, n, c=8):
+    return rng.random((n, c)).astype(np.float32), rng.integers(0, c, n)
+
+
+def _labels(rng, n, c=8):
+    return rng.integers(0, c, n), rng.integers(0, c, n)
+
+
+def _binary(rng, n):
+    return rng.random(n).astype(np.float32), rng.integers(0, 2, n)
+
+
+def _multilabel(rng, n, c=6):
+    return rng.random((n, c)).astype(np.float32), rng.integers(0, 2, (n, c))
+
+
+# (port metric, JAX metric, batch maker): every exact member, each input form
+_EXACT = {
+    "micro": (lambda: T.MulticlassAccuracy(device=CPU), J.MulticlassAccuracy, _multiclass),
+    "macro": (
+        lambda: T.MulticlassAccuracy(average="macro", num_classes=8, device=CPU),
+        lambda: J.MulticlassAccuracy(average="macro", num_classes=8),
+        _multiclass,
+    ),
+    "micro-labels": (lambda: T.MulticlassAccuracy(device=CPU), J.MulticlassAccuracy, _labels),
+    "macro-labels": (
+        lambda: T.MulticlassAccuracy(average="macro", num_classes=8, device=CPU),
+        lambda: J.MulticlassAccuracy(average="macro", num_classes=8),
+        _labels,
+    ),
+    "top5": (lambda: T.MulticlassAccuracy(k=5, device=CPU), lambda: J.MulticlassAccuracy(k=5), _multiclass),
+    "none": (
+        lambda: T.MulticlassAccuracy(average=None, num_classes=8, device=CPU),
+        lambda: J.MulticlassAccuracy(average=None, num_classes=8),
+        _multiclass,
+    ),
+    "binary": (lambda: T.BinaryAccuracy(device=CPU), J.BinaryAccuracy, _binary),
+    "multilabel-exact_match": (
+        lambda: T.MultilabelAccuracy(device=CPU), J.MultilabelAccuracy, _multilabel
+    ),
+    "multilabel-hamming": (
+        lambda: T.MultilabelAccuracy(criteria="hamming", device=CPU),
+        lambda: J.MultilabelAccuracy(criteria="hamming"),
+        _multilabel,
+    ),
+    "topk": (
+        lambda: T.TopKMultilabelAccuracy(k=2, criteria="overlap", device=CPU),
+        lambda: J.TopKMultilabelAccuracy(k=2, criteria="overlap"),
+        _multilabel,
+    ),
+}
+
+
+@pytest.mark.parametrize("case", list(_EXACT))
+def test_ragged_exact_member_folds_its_concatenation_once(monkeypatch, case):
+    """Three equal batches and a short tail: an exact member folds the
+    window's concatenated rows in one ``_fold_fn`` call, and its integer
+    states equal the JAX package's, which folds a batch at a time."""
+    make_port, make_jax, make_batch = _EXACT[case]
+    m, jm = make_port(), make_jax()
+    calls = _count_fold_fn(monkeypatch, type(m))
+    rng = np.random.default_rng(101)
+    for n in (24, 24, 24, 7):
+        batch = make_batch(rng, n)
+        m.update(*batch)
+        jm.update(*batch)
+    before = count("deferred.fold_calls", shape="ragged")
+    _equal_states(m, jm)
+    assert len(calls) == 1
+    assert count("deferred.fold_calls", shape="ragged") == before
+    _close(m.compute(), jm.compute())
+
+
+def test_a_float_member_beside_an_exact_one_keeps_the_ragged_shape(monkeypatch):
+    """In one ragged window, the float sum folds a batch at a time, as the
+    JAX package does, and the exact member folds the concatenation once."""
+    col = T.MetricCollection({"acc": T.BinaryAccuracy(device=CPU), "mse": T.MeanSquaredError(device=CPU)})
+    acc_calls = _count_fold_fn(monkeypatch, T.BinaryAccuracy)
+    mse_calls = _count_fold_fn(monkeypatch, T.MeanSquaredError)
+    jacc, jmse = J.BinaryAccuracy(), J.MeanSquaredError()
+    rng = np.random.default_rng(103)
+    for n in (24, 24, 24, 7):
+        x, t = rng.random(n).astype(np.float32), rng.integers(0, 2, n).astype(np.float32)
+        col.update(x, t)
+        jacc.update(x, t)
+        jmse.update(x, t)
+    before = count("deferred.fold_calls", shape="ragged")
+    col.compute()
+    # the first batch runs through each member's own update (validation)
+    # and is moved into the window: every batch folds at the compute
+    assert (len(acc_calls), len(mse_calls)) == (1, 4)
+    assert count("deferred.fold_calls", shape="ragged") - before == 4
+    _equal_states(col.metrics["acc"], jacc)
+    _equal_states(col.metrics["mse"], jmse)
+
+
+@pytest.mark.parametrize("case", list(_EXACT))
+def test_an_exact_fold_gives_integer_counts_for_any_split(case):
+    """The trait's promise: integer states, integer deltas, and the deltas
+    of any split of the rows adding up to the whole's, bit for bit."""
+    make_port, _, make_batch = _EXACT[case]
+    rng = np.random.default_rng(107)
+    for seed in range(3):
+        m = make_port()
+        cls = type(m)
+        assert cls._fold_exact
+        assert all(not v.is_floating_point() for v in m.state_dict().values())
+        m.update(*make_batch(rng, 40))
+        whole = m._pending[-1]
+        if seed == 1:
+            # int32 labels and predicted classes, where the form allows them
+            whole = tuple(a.to(torch.int32) if not a.is_floating_point() else a for a in whole)
+        deltas = cls._fold_fn(*whole, *m._fold_params)
+        assert all(d.dtype in (torch.int32, torch.int64) for d in deltas.values())
+        cut = int(rng.integers(1, 40))
+        head = cls._fold_fn(*(a[:cut] for a in whole), *m._fold_params)
+        tail = cls._fold_fn(*(a[cut:] for a in whole), *m._fold_params)
+        for name, d in deltas.items():
+            assert torch.equal(head[name] + tail[name], d)
+
+
+def _deferring_classes():
+    import torcheval_tpu_torch.metrics.sliced  # noqa: F401  (its fold members)
+    from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
+
+    seen, todo = set(), [DeferredFoldMixin]
+    while todo:
+        for sub in todo.pop().__subclasses__():
+            if sub not in seen:
+                seen.add(sub)
+                todo.append(sub)
+    return seen
+
+
+def test_only_the_accuracies_set_the_exact_trait():
+    exact = {c for c in _deferring_classes() if c._fold_exact}
+    assert exact == {T.MulticlassAccuracy, T.BinaryAccuracy, T.MultilabelAccuracy, T.TopKMultilabelAccuracy}
+
+
+# (port metric, one batch of its update arguments): per-chunk folds whose
+# deltas or states are floats (sums, extrema, float thresholds)
+_FLOAT_FOLDS = {
+    "BinaryNormalizedEntropy": (lambda: T.BinaryNormalizedEntropy(device=CPU), _binary),
+    "ClickThroughRate": (lambda: T.ClickThroughRate(device=CPU), lambda rng, n: (rng.integers(0, 2, n),)),
+    "WeightedCalibration": (lambda: T.WeightedCalibration(device=CPU), _binary),
+    "Sum": (lambda: T.Sum(device=CPU), lambda rng, n: (rng.random(n).astype(np.float32),)),
+    "Mean": (lambda: T.Mean(device=CPU), lambda rng, n: (rng.random(n).astype(np.float32),)),
+    "Max": (lambda: T.Max(device=CPU), lambda rng, n: (rng.random(n).astype(np.float32),)),
+    "Min": (lambda: T.Min(device=CPU), lambda rng, n: (rng.random(n).astype(np.float32),)),
+    "MeanSquaredError": (
+        lambda: T.MeanSquaredError(device=CPU),
+        lambda rng, n: (rng.random(n).astype(np.float32), rng.random(n).astype(np.float32)),
+    ),
+    "R2Score": (
+        lambda: T.R2Score(device=CPU),
+        lambda rng, n: (rng.random(n).astype(np.float32), rng.random(n).astype(np.float32)),
+    ),
+    "NDCG": (lambda: T.NDCG(k=3, device=CPU), _multilabel),
+    "BinaryBinnedPrecisionRecallCurve": (
+        lambda: T.BinaryBinnedPrecisionRecallCurve(threshold=5, device=CPU), _binary
+    ),
+}
+
+
+@pytest.mark.parametrize("name", list(_FLOAT_FOLDS))
+def test_a_fold_with_a_float_delta_or_state_leaves_the_trait_unset(name):
+    make_port, make_batch = _FLOAT_FOLDS[name]
+    m = make_port()
+    cls = type(m)
+    assert cls._fold_per_chunk
+    m.update(*make_batch(np.random.default_rng(109), 16))
+    deltas = cls._fold_fn(*m._pending[-1], *m._fold_params)
+    floats = [v for v in (*deltas.values(), *m.state_dict().values()) if v.is_floating_point()]
+    assert floats and not cls._fold_exact
 
 
 @pytest.mark.parametrize("name", ["Max", "Min"])

@@ -20,7 +20,13 @@ import torch
 
 import torcheval_tpu_torch.obs as obs_pkg
 from torcheval_tpu_torch import obs
-from torcheval_tpu_torch.metrics import MetricCollection, MulticlassAccuracy, MulticlassF1Score
+from torcheval_tpu_torch.metrics import (
+    BinaryAccuracy,
+    MeanSquaredError,
+    MetricCollection,
+    MulticlassAccuracy,
+    MulticlassF1Score,
+)
 from torcheval_tpu_torch.obs import annotate, distributed, httpd, registry, slo, stream, trace  # noqa: F401
 
 OBS_DIR = str(Path(obs_pkg.__file__).resolve().parent)
@@ -103,7 +109,14 @@ def test_armed_update_stays_cheap():
     assert sorted(times)[len(times) // 2] < 1e-3
 
 
-def _pass_collection():
+def _pass_collection(float_member=False):
+    if float_member:
+        # a float sum keeps the call a batch of a ragged window (``ragged``)
+        col = MetricCollection({
+            "acc": BinaryAccuracy(device="cpu"),
+            "mse": MeanSquaredError(device="cpu"),
+        })
+        return col, torch.rand(200), torch.randint(0, 2, (200,)).float()
     col = MetricCollection({
         "top1": MulticlassAccuracy(device="cpu"),
         "top5": MulticlassAccuracy(k=3, device="cpu"),
@@ -121,9 +134,14 @@ def _whole_pass(col, scores, labels, batch):
 
 
 # 200 rows in batches of 64 end ragged (8 rows); of 40, uniform (stacked)
-@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
-def test_a_pass_with_reset_and_window_step_records_nothing(batch):
-    col, scores, labels = _pass_collection()
+PASSES = pytest.mark.parametrize(
+    "batch,float_member", [(64, False), (40, False), (64, True)], ids=["ragged", "uniform", "ragged-float"]
+)
+
+
+@PASSES
+def test_a_pass_with_reset_and_window_step_records_nothing(batch, float_member):
+    col, scores, labels = _pass_collection(float_member)
     _whole_pass(col, scores, labels, batch)  # arms the window
     reg = registry.default_registry
     with mock.patch.object(trace, "_append", side_effect=AssertionError("ring append")), \
@@ -136,9 +154,9 @@ def test_a_pass_with_reset_and_window_step_records_nothing(batch):
     assert trace.event_count() == 0
 
 
-@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
-def test_a_pass_with_reset_and_window_step_allocates_nothing_inside_obs(batch):
-    col, scores, labels = _pass_collection()
+@PASSES
+def test_a_pass_with_reset_and_window_step_allocates_nothing_inside_obs(batch, float_member):
+    col, scores, labels = _pass_collection(float_member)
     for _ in range(2):  # warm any lazy cache on the measured path
         _whole_pass(col, scores, labels, batch)
     tracemalloc.start(25)
@@ -154,9 +172,9 @@ def test_a_pass_with_reset_and_window_step_allocates_nothing_inside_obs(batch):
     assert grew == [], "; ".join(str(d) for d in grew)
 
 
-@pytest.mark.parametrize("batch", [64, 40], ids=["ragged", "uniform"])
-def test_the_pass_records_its_spans_once_enabled(batch):
-    col, scores, labels = _pass_collection()
+@PASSES
+def test_the_pass_records_its_spans_once_enabled(batch, float_member):
+    col, scores, labels = _pass_collection(float_member)
     _whole_pass(col, scores, labels, batch)
     obs.enable()
     _whole_pass(col, scores, labels, batch)
@@ -164,8 +182,14 @@ def test_the_pass_records_its_spans_once_enabled(batch):
     window = "collection.compute/jit/deferred.window_step"
     assert spans["collection.reset"]["count"] == 1
     assert spans[f"{window}/deferred.operands"]["count"] == 1
+    if float_member:
+        # each member's fold and its combine
+        assert spans[f"{window}/deferred.fold/MeanSquaredError{{member=mse,shape=ragged}}"]["count"] == 2
+        assert spans[f"{window}/deferred.fold/BinaryAccuracy{{member=acc,shape=concat}}"]["count"] == 2
+        return
     assert spans[f"{window}/deferred.compute_fn/MulticlassF1Score{{member=f1}}"]["count"] == 1
-    shape = "ragged" if batch == 64 else "stacked"
-    folds = 2 if batch == 64 else 1  # a ragged member's fold and its combine
+    # a ragged window's accuracies (exact counts) fold its concatenation
+    shape = "concat" if batch == 64 else "stacked"
+    folds = 2 if batch == 64 else 1  # a concat member's fold and its combine
     assert spans[f"{window}/deferred.fold/MulticlassAccuracy{{member=top1,shape={shape}}}"]["count"] == folds
     assert (f"{window}/deferred.fold/stacked{{members=2,shape=stacked}}" in spans) == (batch == 40)

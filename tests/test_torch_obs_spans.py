@@ -90,7 +90,8 @@ def test_every_span_of_a_pass_has_its_parent_and_labels(rows, shape):
     folds = by_own["deferred.fold/MulticlassAccuracy"]
     assert {e["labels"]["parent"] for e in folds} == {WINDOW}
     assert {e["labels"]["member"] for e in folds} == {"top1", "top5"}
-    assert {e["labels"]["shape"] for e in folds} == {shape}
+    # the accuracies' exact counts fold a ragged window's concatenation
+    assert {e["labels"]["shape"] for e in folds} == {"concat" if shape == "ragged" else shape}
     if shape == "stacked":
         # the vmapped fold of both accuracies is one call: one span, no
         # per-member split; each member's combine is its own span
@@ -152,14 +153,42 @@ def test_fold_calls_count_the_fold_fn_calls_made(monkeypatch, rows, batch):
     assert count("deferred.fold_calls") == sum(calls.values()) > 0
     batches = -(-rows // batch)
     ragged = rows % batch != 0
-    per_chunk = batches if ragged else 1
+    # the accuracies' exact counts fold a ragged window's concatenation
+    per_chunk = 1
     assert calls["MulticlassAccuracy"] == 2 * per_chunk
-    shape = "ragged" if ragged else ("stacked" if batches > 1 else "concat")
+    shape = "concat" if ragged or batches == 1 else "stacked"
     # F1 and the confusion matrix fold the concatenated window: one call each
     concat = 2 + (2 if shape == "concat" else 0)
     assert count("deferred.fold_calls", shape="concat") == concat
+    assert count("deferred.fold_calls", shape="ragged") == 0
     if shape != "concat":
         assert count("deferred.fold_calls", shape=shape) == 2 * per_chunk
+
+
+def test_a_float_member_of_a_ragged_window_folds_a_batch_at_a_time(monkeypatch):
+    """A float sum's deltas round by how the rows split, so the float
+    member keeps the JAX package's call a batch (``ragged``) beside an
+    exact member that folds the concatenation once."""
+    col = T.MetricCollection({
+        "acc": T.BinaryAccuracy(device=CPU),
+        "mse": T.MeanSquaredError(device=CPU),
+    })
+    g = torch.Generator().manual_seed(5)
+    x, y = torch.rand(360, generator=g), torch.randint(0, 2, (360,), generator=g).float()
+    for s in range(0, 360, 64):  # 5 batches of 64 and one of 40
+        col.update(x[s:s + 64], y[s:s + 64])
+    calls = _counted(monkeypatch, (T.BinaryAccuracy, T.MeanSquaredError))
+    obs.enable()
+    col.compute()
+    assert calls == {"BinaryAccuracy": 1, "MeanSquaredError": 6}
+    assert count("deferred.fold_calls", shape="ragged") == 6
+    assert count("deferred.fold_calls", shape="concat") == 1
+    shapes = collections.defaultdict(set)
+    for e in _spans():
+        if _own(e).startswith("deferred.fold/"):
+            assert e["labels"]["parent"] == WINDOW
+            shapes[e["labels"]["member"]].add(e["labels"]["shape"])
+    assert shapes == {"acc": {"concat"}, "mse": {"ragged"}}
 
 
 def test_a_scan_member_counts_a_call_a_batch(monkeypatch):

@@ -6,8 +6,10 @@ JAX counterpart: ``torcheval_tpu/metrics/classification/accuracy.py``
 module-level pure functions with their statics, the contract of
 ``metrics/deferred.py``: ``update()`` validates the batch and defers it, and
 the stacked fold (``_fold_per_chunk``) folds the pending batches at the
-next read or valve, as in the JAX package. The sliced collection
-(``metrics/sliced.py``) runs the same folds per sample.
+next read or valve, as in the JAX package. Every delta is an int32 count
+(``_fold_exact``), so a ragged window folds its concatenated rows in one
+call. The sliced collection (``metrics/sliced.py``) runs the same folds per
+sample.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class MulticlassAccuracy(DeferredFoldMixin, Metric[torch.Tensor]):
 
     _fold_fn = staticmethod(_acc_fold)
     _fold_per_chunk = True
+    _fold_exact = True  # int32 counts, here and in every subclass
     _compute_fn = staticmethod(_accuracy_compute)
 
     def __init__(

@@ -24,14 +24,20 @@ A fold has one of two shapes, picked per pending list:
   them once. A fold that cannot run under ``vmap`` (``_fold_vmap`` False:
   top-k accuracy and the retrieval metrics) runs batch by batch and combines
   each batch's deltas into the state in turn, as the JAX ``lax.scan`` does.
-  Ragged batches accumulate their deltas batch by batch, then combine once;
+  Ragged batches accumulate their deltas batch by batch, then combine once,
+  unless every delta is an exact integer count (``_fold_exact``: the
+  accuracies), whose ragged batches take the concat shape below;
 * **concat** (``_fold_per_chunk`` False: count folds such as F1, and the
-  sliced members). The pending columns are concatenated and folded once, so
-  the count kernels see one large operand.
+  sliced members; a single batch; an exact member's ragged batches). The
+  pending columns are concatenated and folded once, so the count kernels
+  see one large operand.
 
 The structure, not only the result, is the JAX package's, so that float and
 half-precision sums round as JAX's do: the sliced ``Sum``/``Mean`` of a window
-of bfloat16 values equals JAX's exactly on the CPU.
+of bfloat16 values equals JAX's exactly on the CPU. The one departure is the
+exact members' ragged windows: integer counts added into integer states are
+the same for any split of the rows, bit for bit, so one call over the
+concatenated rows replaces the JAX package's call a batch.
 
 **Windows.** A :class:`~torcheval_tpu_torch.metrics.collection.
 MetricCollection` appends each batch once to an :class:`EvalWindow` that its
@@ -333,7 +339,9 @@ def _member_deltas(
                 shapes[key] = "scan"
         else:
             other.append((key, m))
-            shapes[key] = "ragged" if cls._fold_per_chunk and n > 1 else "concat"
+            # an exact member's counts do not depend on how the rows split
+            per_batch = cls._fold_per_chunk and n > 1 and not cls._fold_exact
+            shapes[key] = "ragged" if per_batch else "concat"
     wants = (
         bool(stacked_members),
         any(shapes[k] == "concat" for k, _ in other),
@@ -678,6 +686,12 @@ class DeferredFoldMixin:
       extra column, and the fold tells them apart by arity;
     * ``_fold_per_chunk``: True for per-sample folds reduced by
       ``_fold_reduce`` (the stacked shape), False for count folds (concat);
+    * ``_fold_exact``: True when every delta is an integer count added into
+      an integer state, so that any split of the rows gives the same state
+      bit for bit (within the int32 counters' 2^31 rows, which the JAX
+      package states too). A per-chunk member with it folds a ragged window's
+      concatenated rows in one call, where one without it (any float sum,
+      an extremum) folds batch by batch as the JAX package does;
     * ``_fold_reduce``: ``None`` adds deltas into state; ``torch.maximum``
       or ``torch.minimum`` threads extrema states instead;
     * ``_fold_vmap``: False when the fold cannot run under
@@ -699,6 +713,7 @@ class DeferredFoldMixin:
 
     _fold_fn: Optional[Any] = None
     _fold_per_chunk: bool = False
+    _fold_exact: bool = False
     _fold_reduce: Optional[Any] = None
     _fold_vmap: bool = True
     _compute_fn: Optional[Any] = None
