@@ -88,6 +88,7 @@ from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_B
 from torcheval_tpu_torch.sketch.cache import (
     SKETCH_FOLD_ROWS,
     fold_staged_scores,
+    folded_sketch_parts,
     merge_score_sketch_states,
     raise_sketch_nan,
     raise_sketch_overflow,
@@ -95,8 +96,6 @@ from torcheval_tpu_torch.sketch.cache import (
     resolve_approx,
     sketch_auprc_from_parts,
     sketch_auroc_from_parts,
-    sketch_mc_auprc_from_parts,
-    sketch_mc_auroc_from_parts,
 )
 from torcheval_tpu_torch.utils import dist as _dist
 from torcheval_tpu_torch.utils.devices import DeviceLike
@@ -307,18 +306,12 @@ class _CompactingCacheLifecycle:
         fold_staged_scores(self)
         self._cached_samples = 0
 
-    def _sketch_value(self, from_parts, *extra):
+    def _sketch_value(self, from_parts):
         """An approx-mode compute over the staged leftovers and the resident
         sketch (state untouched, so ``compute()`` stays idempotent), then
         the overflow and NaN checks, one host read each."""
         *value, nan_total, overflow = from_parts(
-            list(self.inputs),
-            list(self.targets),
-            self.sketch_tp,
-            self.sketch_fp,
-            self.sketch_nan_dropped,
-            self._sketch_bits,
-            *extra,
+            *folded_sketch_parts(self), self._sketch_bits
         )
         raise_sketch_overflow(overflow)
         raise_sketch_nan(nan_total, self._NAN_FLAG_NOUN)
@@ -749,7 +742,7 @@ class MulticlassAUROC(_MulticlassCurveMetric):
 
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:
-            per_class = self._sketch_value(sketch_mc_auroc_from_parts, self.num_classes)
+            per_class = self._sketch_value(sketch_auroc_from_parts)
             return _mc_average(per_class, self.average)
         return self._value(0.5, _mc_auroc_presorted, _mc_auroc_from_parts)
 
@@ -762,6 +755,6 @@ class MulticlassAUPRC(_MulticlassCurveMetric):
 
     def compute(self) -> torch.Tensor:
         if self._sketch_bits is not None:
-            per_class = self._sketch_value(sketch_mc_auprc_from_parts, self.num_classes)
+            per_class = self._sketch_value(sketch_auprc_from_parts)
             return _mc_average(per_class, self.average)
         return self._value(0.0, _mc_auprc_presorted, _mc_auprc_from_parts)

@@ -33,9 +33,9 @@ from torcheval_tpu_torch.metrics.sample_cache import SampleCacheMetric
 from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_BUCKET_BITS
 from torcheval_tpu_torch.sketch.cache import (
     ScoreSketchCacheMixin,
+    folded_sketch_parts,
     raise_sketch_overflow,
     resolve_approx,
-    sketch_mc_prc_from_parts,
     sketch_prc_from_parts,
 )
 from torcheval_tpu_torch.sketch.histogram import trim_hist_curve
@@ -73,7 +73,7 @@ class BinaryPrecisionRecallCurve(ScoreSketchCacheMixin, SampleCacheMetric[_Curve
     def compute(self) -> _CurveResult:
         if self._sketch_enabled():
             precision, recall, nonempty, nan, overflow = sketch_prc_from_parts(
-                *self._score_sketch_parts(), self._sketch_bits
+                *folded_sketch_parts(self), self._sketch_bits
             )
             raise_sketch_overflow(overflow)
             self._sketch_check_nan(nan)
@@ -134,8 +134,8 @@ class MulticlassPrecisionRecallCurve(
 
     def compute(self):
         if self._sketch_enabled():
-            precision, recall, nonempty, nan, overflow = sketch_mc_prc_from_parts(
-                *self._score_sketch_parts(), self._sketch_bits, self.num_classes
+            precision, recall, nonempty, nan, overflow = sketch_prc_from_parts(
+                *folded_sketch_parts(self), self._sketch_bits
             )
             raise_sketch_overflow(overflow)
             self._sketch_check_nan(nan, "per-class score entry(ies)")

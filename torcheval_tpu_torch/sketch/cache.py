@@ -32,7 +32,11 @@ merge), the port's two-round sync as raw bytes, and ``state_dict``.
 Each fold of staged rows counts ``sketch.folds{kind=score|mc_score|value}``
 and ``sketch.folded_rows{kind=}`` in the obs registry while it is enabled,
 as in the JAX package (which counts a fold program's dispatch; here each
-fold is one segment-sum launch).
+fold is one segment-sum launch). A score fold, the update's and a
+compute's fold of leftovers alike, runs inside a ``metric.fold/<Class>``
+span (``kind=score|mc_score``) and a profiler range of that name, so its
+bucket keys, lanes and segment sum are timed apart from the rest of the
+update or compute; with obs off that costs one module-global read.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Optional
 import torch
 
 from torcheval_tpu_torch.obs import registry as _obs
+from torcheval_tpu_torch.obs.annotate import spanned
 from torcheval_tpu_torch.ops.curves import (
     binary_auprc_counts_presorted_kernel,
     binary_auroc_counts_presorted_kernel,
@@ -131,49 +136,39 @@ def value_fold_parts(cache, counts, nan_acc, bits):
     return counts + dc, nan_acc + nan
 
 
-def _folded_score_parts(raw_s, raw_t, tp, fp, nan_acc, bits):
-    """The resident sketch plus any staged leftovers, state untouched."""
-    if raw_s:
-        return score_fold_parts(raw_s, raw_t, tp, fp, nan_acc, bits)
-    return tp, fp, nan_acc
-
-
-def sketch_auroc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits):
-    tp, fp, nan = _folded_score_parts(raw_s, raw_t, tp, fp, nan_acc, bits)
+def sketch_auroc_from_parts(tp, fp, nan, bits):
     return auroc_from_hist(tp, fp, bits), nan, counts_exactness_flag(tp, fp)
 
 
-def sketch_auprc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits):
-    tp, fp, nan = _folded_score_parts(raw_s, raw_t, tp, fp, nan_acc, bits)
+def sketch_auprc_from_parts(tp, fp, nan, bits):
     return auprc_from_hist(tp, fp, bits), nan, counts_exactness_flag(tp, fp)
 
 
-def sketch_prc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits):
-    tp, fp, nan = _folded_score_parts(raw_s, raw_t, tp, fp, nan_acc, bits)
+def sketch_prc_from_parts(tp, fp, nan, bits):
     precision, recall, nonempty = prc_points_from_hist(tp, fp)
     return precision, recall, nonempty, nan, counts_exactness_flag(tp, fp)
 
 
-def _folded_mc_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes):
-    if raw_s:
-        return mc_score_fold_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes)
-    return tp, fp, nan_acc
+def _score_kind(metric) -> str:
+    return "score" if metric._sketch_classes is None else "mc_score"
 
 
-def sketch_mc_auroc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes):
-    tp, fp, nan = _folded_mc_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes)
-    return auroc_from_hist(tp, fp, bits), nan, counts_exactness_flag(tp, fp)
+def _fold_parts(metric, raw_s, raw_t):
+    """The staged rows ``raw_s``/``raw_t`` folded into the metric's resident
+    sketch: ``(tp, fp, nan)``, state untouched (one segment-sum launch)."""
+    state = (metric.sketch_tp, metric.sketch_fp, metric.sketch_nan_dropped, metric._sketch_bits)
+    if metric._sketch_classes is None:
+        return score_fold_parts(raw_s, raw_t, *state)
+    return mc_score_fold_parts(raw_s, raw_t, *state, metric._sketch_classes)
 
 
-def sketch_mc_auprc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes):
-    tp, fp, nan = _folded_mc_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes)
-    return auprc_from_hist(tp, fp, bits), nan, counts_exactness_flag(tp, fp)
-
-
-def sketch_mc_prc_from_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes):
-    tp, fp, nan = _folded_mc_parts(raw_s, raw_t, tp, fp, nan_acc, bits, num_classes)
-    precision, recall, nonempty = prc_points_from_hist(tp, fp)
-    return precision, recall, nonempty, nan, counts_exactness_flag(tp, fp)
+def _spanned_fold(metric, raw_s, raw_t):
+    """:func:`_fold_parts`, inside a ``metric.fold/<Class>`` span labelled
+    ``kind=`` while obs is enabled."""
+    if not _obs._enabled:
+        return _fold_parts(metric, raw_s, raw_t)
+    name = f"metric.fold/{type(metric).__name__}"
+    return spanned(name, {"kind": _score_kind(metric)}, _fold_parts, metric, raw_s, raw_t)
 
 
 def fold_staged_scores(metric) -> None:
@@ -184,20 +179,22 @@ def fold_staged_scores(metric) -> None:
     if not metric.inputs:
         return
     rows = sum(int(a.shape[0]) for a in metric.inputs)
-    state = (metric.sketch_tp, metric.sketch_fp, metric.sketch_nan_dropped, metric._sketch_bits)
-    if metric._sketch_classes is None:
-        tp, fp, nan = score_fold_parts(metric.inputs, metric.targets, *state)
-        _count_fold("score", rows)
-    else:
-        tp, fp, nan = mc_score_fold_parts(
-            metric.inputs, metric.targets, *state, metric._sketch_classes
-        )
-        _count_fold("mc_score", rows)
+    tp, fp, nan = _spanned_fold(metric, metric.inputs, metric.targets)
+    _count_fold(_score_kind(metric), rows)
     metric.inputs = []
     metric.targets = []
     metric.sketch_tp = tp
     metric.sketch_fp = fp
     metric.sketch_nan_dropped = nan
+
+
+def folded_sketch_parts(metric):
+    """``(tp, fp, nan)``: the resident sketch plus the staged leftovers,
+    folded inside the ``metric.fold/<Class>`` span; state untouched, so a
+    ``compute()`` stays idempotent."""
+    if not metric.inputs:
+        return metric.sketch_tp, metric.sketch_fp, metric.sketch_nan_dropped
+    return _spanned_fold(metric, metric.inputs, metric.targets)
 
 
 def value_counts_from_parts(cache, counts, nan_acc, bits):
@@ -497,17 +494,6 @@ class ScoreSketchCacheMixin:
     def _score_sketch_fold(self) -> None:
         fold_staged_scores(self)
         self._sketch_staged = 0
-
-    def _score_sketch_parts(self):
-        """Arguments of the ``sketch_*_from_parts`` computes (state untouched:
-        staged leftovers fold inside them)."""
-        return (
-            list(self.inputs),
-            list(self.targets),
-            self.sketch_tp,
-            self.sketch_fp,
-            self.sketch_nan_dropped,
-        )
 
     def _sketch_check_nan(self, nan, noun: str = "sample(s)") -> None:
         raise_sketch_nan(nan, noun)
