@@ -289,7 +289,8 @@ failed check. Phases:
    (``hist_splitter``: 2^26 int32 bins into 2^16, beside ``torch.bincount``;
    ``segment_sum_splitter``: 3 x 10^7 int32 ones by ``c * 2^16 + bin`` into
    1000 x 2^16 rows, beside ``index_add_``), each first held bit-equal to
-   its plain version.
+   its plain version. Each segment sum row names the kernel's route at its
+   shape (``kernel_route``: ``local``, ``cluster xC`` or ``head``).
 
 Every leg prints its fold cadence: the window steps and the solo folds of
 ``metrics/deferred.py`` that it ran, and the batches each folded.
@@ -569,6 +570,16 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return float(np.median(times))
+
+
+def sum_route(vals, segments) -> str:
+    """The segment sum's route at a shape (``ops/scatter.py::
+    segment_sum_route``): ``local``, ``head`` or ``cluster xC``."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum_route
+
+    d = 1 if vals.ndim == 1 else int(np.prod(vals.shape[1:]))
+    route, cluster = segment_sum_route(vals.dtype, d, segments)
+    return f"{route} x{cluster}" if route == "cluster" else route
 
 
 # ------------------------------------------------------------------ phase 2
@@ -1021,18 +1032,24 @@ def sketch_fold_inputs(dev, gen):
 
 def check_sketch_folds(dev, inputs):
     """The segment sum at the sketch folds' shapes against its plain version,
-    bit for bit; ``bucket_index`` on the card against the CPU over the
+    bit for bit, each launch counted on the route its size chooses
+    (``segment_sum.route{route=}``); ``bucket_index`` on the card against the CPU over the
     special values and random ones, as float32, bfloat16 and float16.
     Returns the largest |kernel - plain| (0)."""
     from torcheval_tpu_torch.ops.scatter import segment_sum, segment_sum_plain
     from torcheval_tpu_torch.sketch import bucket_index
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
 
     for name, (vals, rows, segments, what) in inputs.items():
+        route = sum_route(vals, segments)
+        before = count("segment_sum.route", route=route.split()[0])
         got = segment_sum(vals, rows, segments)
         want = segment_sum_plain(vals, rows, segments)
         torch.cuda.synchronize()
         _require(torch.equal(got, want), f"segment_sum at the {name} sketch shape")
-        print(f"  segment_sum {what}: exact")
+        _require(count("segment_sum.route", route=route.split()[0]) == before + 1,
+                 f"segment_sum at the {name} sketch shape: one launch on the {route} route")
+        print(f"  segment_sum {what}: exact, {route} route")
     tiny = float(np.finfo(np.float32).tiny)
     special = [0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45, float(np.nextafter(np.float32(tiny), 0)),
                -float(np.nextafter(np.float32(tiny), 0)), tiny, -tiny, float("inf"), float("-inf"),
@@ -4844,6 +4861,7 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
             "bound_ms": (n * d * size + n * rows.element_size() + s * d * size)
             / HBM_BYTES_PER_S * 1e3,
             "library_ms": timer.ms(library),
+            "kernel_route": sum_route(vals, s),
         }
 
     correct = ((leg_scores >= 0.5).to(torch.float32) == leg_targets).to(torch.int32)
@@ -4889,6 +4907,7 @@ def segment_sum_row(dev, timer, launches, err, leg_rows, leg_scores, leg_targets
         "plain_ms": timer.ms(lambda: segment_sum_plain(ones, keys, segments)),
         "bound_ms": (keys.numel() * (4 + 8) + segments * 4) / HBM_BYTES_PER_S * 1e3,
         "library_ms": timer.ms(library),
+        "kernel_route": sum_route(ones, segments),
     }
     return row
 
@@ -4922,6 +4941,7 @@ def sketch_rows(timer, inputs, launches_at, err):
             "bound_ms": (n * d * 4 + n * keys.element_size() + segments * d * 4) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": timer.ms(library),
+            "kernel_route": sum_route(vals, segments),
             "shape": what,
         })
     return rows
@@ -5016,6 +5036,7 @@ def shard_rows(dev, gen, timer, launches, errs, window):
             "bound_ms": (n * d * 4 + n * keys.element_size() + segments * d * 4) / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "library_ms": timer.ms(library),
+            "kernel_route": sum_route(vals, segments),
             "shape": what,
         })
         del dead
@@ -5043,6 +5064,7 @@ def shard_rows(dev, gen, timer, launches, errs, window):
         "bound_ms": (half * 2 * 4 + half * 4 + s * 2 * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": timer.ms(library),
+        "kernel_route": sum_route(deltas, s),
         "shape": (f"one rank's local sum: ({half}, 2) int32 deltas, half of the sliced window, "
                   f"into {s} cohorts (then one all_reduce of the (10^6, 2) sums)"),
     })
@@ -5134,6 +5156,7 @@ def dist_rows(dev, timer, launches):
         "bound_ms": (keys.numel() * 4 * 2 + segments * 4) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": timer.ms(library),
+        "kernel_route": sum_route(ones, segments),
         "shape": (f"multiclass splitter: ({keys.numel()},) int32 ones by c * 2^16 + bin into "
                   f"{segments} rows, one rank's 3 curve batches; launches: parts (b) and (e)"),
     })
@@ -5834,8 +5857,9 @@ def main() -> int:
     del cm_keys, curve_fold
     torch.cuda.synchronize()
     for r in rows:
+        route = f", {r['kernel_route']} route" if "kernel_route" in r else ""
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}) at {r['shape']}")
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}{route}) at {r['shape']}")
     for k in (100, 10):
         big = rows[2][f"at_64x1000000_k{k}"]
         print(f"  topk: {big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, library "

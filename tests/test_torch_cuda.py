@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from torcheval_tpu_torch.ops.hist import hist, hist_plain
-from torcheval_tpu_torch.ops.scatter import segment_scatter, segment_sum, segment_sum_plain
+from torcheval_tpu_torch.ops.scatter import (
+    segment_scatter,
+    segment_sum,
+    segment_sum_plain,
+    segment_sum_route,
+)
 from torcheval_tpu_torch.ops.stream_compact import (
     compact_summary_rows,
     compact_summary_rows_plain,
@@ -32,6 +37,7 @@ from torcheval_tpu_torch.metrics import (
     TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel, topk_kernel_plain
+from torcheval_tpu_torch.sketch import bucket_index
 from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, recording
 
 pytestmark = pytest.mark.cuda
@@ -264,9 +270,26 @@ def _rows(kind, n, s, seed):
         r = rng.integers(0, s, n)
     elif kind == "zipf":
         r = (rng.zipf(1.3, n) - 1) % s
+    elif kind == "sketch":
+        # 16-bit bucket ids of CTR-like logits, N(-3.89, 1): a band of some
+        # thousands of buckets around id 16,300, far past any head
+        logits = torch.from_numpy(rng.standard_normal(n).astype(np.float32) - 3.89)
+        return bucket_index(logits, 16).to(torch.int64) % s
+    elif kind == "hottest":
+        # a third of the rows on one row in the middle, the rest uniform
+        r = np.where(rng.random(n) < 1 / 3, s // 2 + 7, rng.integers(0, s, n))
+    elif kind == "edges":
+        # the rows at and just outside both ends
+        r = rng.choice(np.array([-1, 0, s - 1, s]), n)
     else:  # out of range on both sides
         r = rng.integers(-3, s + 3, n)
     return torch.from_numpy(r)
+
+
+def _cluster_capacity(dtype, d):
+    """The most segments of D lanes of ``dtype`` the cluster route takes:
+    8 blocks of 128 KiB, whole rows a block."""
+    return 8 * (128 * 1024 // (d * torch.tensor([], dtype=dtype).element_size()))
 
 
 def _assert_sum_matches(got, vals, rows, s):
@@ -294,9 +317,30 @@ def _assert_sum_matches(got, vals, rows, s):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32, torch.float64])
-@pytest.mark.parametrize("d", [1, 2, 7, 130])
-@pytest.mark.parametrize("s,kind", [(1, "uniform"), (12_288, "zipf"), (2**20 + 3, "out_of_range")])
+@pytest.mark.parametrize("d", [1, 2, 4, 7, 130])
+@pytest.mark.parametrize(
+    "s,kind",
+    [
+        (1, "uniform"),
+        (12_288, "zipf"),
+        (2**20 + 3, "out_of_range"),
+        (1 << 16, "sketch"),
+        (1 << 16, "hottest"),
+        (1 << 16, "edges"),
+        ("capacity", "uniform"),
+        ("capacity + 1", "uniform"),
+    ],
+)
 def test_segment_sum_kernel_matches_plain(dev, dtype, d, s, kind):
+    # every route (segment_sum_route); at the cluster route's capacity and
+    # one row past it, where the head route takes over
+    if s == "capacity":
+        s = _cluster_capacity(dtype, d)
+        assert segment_sum_route(dtype, d, s) == ("cluster", 8)
+    elif s == "capacity + 1":
+        s = _cluster_capacity(dtype, d) + 1
+        assert segment_sum_route(dtype, d, s)[0] == "head"
+    route = segment_sum_route(dtype, d, s)[0]
     n = 20_000 if d < 100 else 3_000
     rng = np.random.default_rng(d + s)
     rows = _rows(kind, n, s, d).to(dev)
@@ -309,10 +353,11 @@ def test_segment_sum_kernel_matches_plain(dev, dtype, d, s, kind):
         big = 2**31 - 1 if dtype == torch.int32 else 2**62
         vals = torch.from_numpy(rng.integers(-big, big, (n, d))).to(dev, dtype)  # wraps
     for r in (rows, rows.to(torch.int32)):
-        before = launches("segment_sum")
+        before = launches("segment_sum"), count("segment_sum.route", route=route)
         got = segment_sum(vals, r, s)
         torch.cuda.synchronize()
-        assert launches("segment_sum") == before + 1
+        assert (launches("segment_sum"), count("segment_sum.route", route=route)) == (
+            before[0] + 1, before[1] + 1)
         _assert_sum_matches(got, vals, r, s)
 
 
@@ -427,14 +472,21 @@ def test_segment_sum_kernel_every_row_zero(dev, dtype, d, row_dtype):
 @pytest.mark.parametrize("edge", [-1, 0, 1])
 def test_segment_sum_kernel_around_the_head(dev, dtype, d, part, edge):
     # S one row short of the copied (part 0) or the whole (part 1)
-    # privatised head, the head exactly, one row past it
-    s = _head_edges(d, torch.tensor([], dtype=dtype).element_size())[part] + edge
+    # privatised head, the head exactly, one row past it (the local or the
+    # cluster route); then, at an S past the cluster route's capacity (the
+    # head route), rows around that edge of the head
+    e = _head_edges(d, torch.tensor([], dtype=dtype).element_size())[part] + edge
     n = 50_000 if d < 100 else 3_000
-    rng = np.random.default_rng(s)
+    rng = np.random.default_rng(e)
     vals = _sum_vals(dtype, n, d, rng).to(dev)
-    rows = torch.from_numpy(rng.integers(-2, s + 2, n)).to(dev)
-    for r in (rows, rows.to(torch.int32)):
-        _sum_case(vals, r, s)
+    big = _cluster_capacity(dtype, d) + 1
+    assert segment_sum_route(dtype, d, big)[0] == "head"
+    for s, rows in ((e, rng.integers(-2, e + 2, n)),
+                    (big, np.where(rng.random(n) < 0.5, rng.integers(e - 3, e + 3, n),
+                                   rng.integers(-2, big + 2, n)))):
+        rows = torch.from_numpy(rows).to(dev)
+        for r in (rows, rows.to(torch.int32)):
+            _sum_case(vals, r, s)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.float64])

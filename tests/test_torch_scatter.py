@@ -11,6 +11,8 @@ of the exact sum per segment and lane (the module's stated bound), so the
 two are held within twice that.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,12 +21,14 @@ import torch
 
 from torcheval_tpu.ops.scatter import pallas_segment_sum
 from torcheval_tpu.ops.scatter import segment_scatter as jax_segment_scatter
+from torcheval_tpu_torch import _build
 from torcheval_tpu_torch.ops.scatter import (
     segment_scatter,
     segment_sum,
     segment_sum_plain,
+    segment_sum_route,
 )
-from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, recording
 
 
 @pytest.fixture
@@ -168,3 +172,103 @@ def test_validation_errors():
             segment_sum(v.to(bad), r, 3)
     # half precision adds in its own type on the CPU (the JAX package's XLA route)
     assert segment_sum(v.to(torch.float16) + 1, r, 3).dtype == torch.float16
+
+
+# (dtype, D, num_segments, route): each range's edges, and the main path's
+# callers (the score sketch's binary fold, Quantile's value fold and its
+# stacked fold of four, the multiclass fold, the splitter, the sliced
+# window, the sharded tile)
+_ROUTES = [
+    (torch.int32, 2, 1, ("local", 1)),
+    (torch.int32, 2, 2048, ("local", 1)),  # 16 KiB
+    (torch.int32, 2, 2049, ("cluster", 2)),
+    (torch.int32, 1, 4096, ("local", 1)),
+    (torch.int32, 1, 4097, ("cluster", 2)),
+    (torch.float32, 1, 8192, ("cluster", 2)),
+    (torch.int32, 2, 32_768, ("cluster", 2)),  # 128 KiB a block
+    (torch.int32, 2, 32_769, ("cluster", 4)),
+    (torch.int32, 1, 1 << 16, ("cluster", 2)),  # the value fold
+    (torch.int32, 2, 1 << 16, ("cluster", 4)),  # the binary score sketch
+    (torch.float32, 2, (1 << 16) + 1, ("cluster", 8)),
+    (torch.int32, 1, 4 << 16, ("cluster", 8)),  # Quantile's stacked fold, 1 MiB
+    (torch.int32, 1, (4 << 16) + 1, ("head", 1)),
+    (torch.int64, 2, 1 << 16, ("cluster", 8)),
+    (torch.int64, 2, (1 << 16) + 1, ("head", 1)),
+    (torch.float64, 130, 1008, ("cluster", 8)),
+    (torch.float64, 130, 1009, ("head", 1)),
+    (torch.int32, 40_000, 3, ("head", 1)),  # a row larger than a block's slice
+    (torch.int32, 2, 1000 << 12, ("head", 1)),  # the multiclass fold
+    (torch.int32, 1, 1000 << 16, ("head", 1)),  # the splitter
+    (torch.int32, 2, 1_000_000, ("head", 1)),  # the sliced window
+    (torch.int32, 2, 500_000, ("head", 1)),  # a sharded tile
+]
+
+
+@pytest.mark.parametrize("dtype,d,s,want", _ROUTES)
+def test_segment_sum_route_by_output_size(dtype, d, s, want):
+    assert segment_sum_route(dtype, d, s) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 7, 130])
+def test_segment_sum_route_ranges(dtype, d):
+    """Over S from 1 past the cluster range: local up to 16 KiB, then the
+    fewest blocks of 2, 4 or 8 whose 128 KiB slices hold whole rows, then
+    head; each route's range is one interval, in that order."""
+    row = d * dtype.itemsize
+    per_block = 128 * 1024 // row
+    seen = []
+    for s in sorted({1, 2, 3, *range(1, 9 * per_block + 2, max(1, per_block // 7)),
+                     *(k * per_block + e for k in (1, 2, 4, 8) for e in (-1, 0, 1))}):
+        if s < 1:
+            continue
+        route, c = segment_sum_route(dtype, d, s)
+        if s * row <= 16 * 1024:
+            assert (route, c) == ("local", 1)
+        elif s <= 8 * per_block:
+            assert route == "cluster" and c in (2, 4, 8)
+            assert -(-s // c) * row <= 128 * 1024
+            assert c == 2 or -(-s // (c // 2)) * row > 128 * 1024
+        else:
+            assert (route, c) == ("head", 1)
+        if not seen or seen[-1] != route:
+            seen.append(route)
+    assert seen == ["local", "cluster", "head"]
+
+
+class _FakeKernels:
+    """The kernels' library as ``segment_sum`` calls it: records each
+    ``tc_segment_sum`` call and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def tc_segment_sum(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("dtype,d,s,want", [
+    (torch.int32, 2, 2048, ("local", 1)),
+    (torch.int32, 2, 1 << 16, ("cluster", 4)),
+    (torch.float32, 1, 4 << 16, ("cluster", 8)),
+    (torch.bfloat16, 2, 1 << 16, ("cluster", 4)),  # launched as float32
+    (torch.int64, 2, 1_000_000, ("head", 1)),
+])
+def test_segment_sum_passes_its_route_and_counts_it(monkeypatch, obs_on, dtype, d, s, want):
+    """The wrapper's launch path with the library faked: the cluster size
+    it passes to ``tc_segment_sum`` is the route rule's, and the launch
+    counts one ``segment_sum.route{route=}`` of that route's name."""
+    fake = _FakeKernels()
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    vals = torch.ones((64, d), dtype=dtype)
+    rows = torch.arange(64)
+    out = segment_sum(vals, rows, s)
+    assert out.shape == (s, d) and out.dtype == dtype
+    assert len(fake.calls) == 1 and fake.calls[0][7] == want[1]
+    assert launches("segment_sum") == 1
+    assert count("segment_sum.route") == 1 and count("segment_sum.route", route=want[0]) == 1

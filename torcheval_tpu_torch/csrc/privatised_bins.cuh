@@ -15,7 +15,9 @@
 // block zeroes and flushes its bins once for thousands of inputs. Thread
 // block clusters that summed their blocks' bins through distributed shared
 // memory before the flush measured slower on an H100 at the legs' sizes: a
-// cluster launch cost more than the atomics it saved.
+// cluster launch cost more than the atomics it saved. (scatter.cu's cluster
+// route is another use of a cluster: one copy of an output too large for a
+// block, spread over the blocks' shared memory, not a sum of copies.)
 
 #pragma once
 

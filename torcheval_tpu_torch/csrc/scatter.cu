@@ -39,10 +39,46 @@
 //   samples a batch or fewer, so there is no warp match.
 // What remains is the read of the rows and values and the caller's zeroing
 // of `out` (PERF.md has the measured split).
+//
+// Three routes, chosen by the wrapper (ops/scatter.py::segment_sum_route)
+// from the output's size S x D x sizeof(U) alone and passed in as the
+// cluster size. They differ only in where the adds past the head land:
+// - local (cluster 1; at most kHeadBytes - kHotBytes): the head holds
+//   every row;
+// - head (cluster 1; more than a cluster holds): device memory (RED);
+// - cluster (2, 4 or 8 blocks; at most 128 KiB a block, 1 MiB in all):
+//   the output does not fit a head but fits the shared memory of a thread
+//   block cluster. A score sketch is such an output (2^16 buckets x 2
+//   int32 lanes, 512 KiB), and its hot buckets lie where the scores are,
+//   far past any head: a float-prefix sketch of CTR logits fills some
+//   2,800 buckets around id 16,300, whose device-memory atomics serialised
+//   on those words (33 ms for 89M rows on an H100). Here each block of a
+//   cluster also owns a slice of the output in its dynamic shared memory,
+//   beside its head: row r lives in block r % cluster's slice at local row
+//   r / cluster (interleaved, so that a band of neighbouring hot buckets
+//   loads every block alike, not the one block whose contiguous slice
+//   would hold the band). Every add past the head goes to the owner's
+//   slice through distributed shared memory (cluster.map_shared_rank),
+//   none to device memory during the stream; after a cluster barrier
+//   each block adds its head's and its slice's non-zero words into `out`
+//   once. The head stays: interned cohorts' hot rows are its first rows,
+//   and without its lane copies a power-law window into 4,096 or 65,536
+//   cohorts ran 2-4x slower than on the head route. An integer lane of
+//   value 0 skips its add to a slice (an integer add of 0 changes
+//   nothing, and it halves a sketch's [t, 1 - t] adds); a float lane adds
+//   every value, signed zeros included. The grid is at most as many
+//   clusters as the card holds at once (cudaOccupancyMaxActiveClusters).
+// The reads are the same code in every route.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 #include "privatised_bins.cuh"
 
@@ -55,6 +91,8 @@ constexpr int64_t kHeadBytes = 32 * 1024;
 // its first rows, kept in up to 32 lane copies within kHotBytes
 constexpr int64_t kHotRows = 64;
 constexpr int64_t kHotBytes = 16 * 1024;
+// the most blocks of a cluster in the cluster route (the portable size)
+constexpr int kMaxCluster = 8;
 
 // Values are added in an unsigned type for integers (wrap-around is defined
 // there and equals two's complement wrap) and in their own type for floats;
@@ -90,34 +128,26 @@ __device__ __forceinline__ void load16(const T* p, T (&out)[kCount]) {
   }
 }
 
-// kD > 0: D is kD, samples in groups of four; kD == 0: D is d_rt, one
-// element a thread.
-template <typename U, typename R, int kD>
-__global__ void __launch_bounds__(kThreads, 1)
-segment_sum_kernel(const U* __restrict__ vals, const R* __restrict__ rows,
-                   int64_t n, int d_rt, int64_t s, int hot_rows, int copies,
-                   int head_rows, int64_t vec_lo, int64_t vec_hi,
-                   U* __restrict__ out) {
-  const int d = kD > 0 ? kD : d_rt;
-  extern __shared__ __align__(16) unsigned char smem[];
-  U* head = reinterpret_cast<U*>(smem);
-  const int hot_words = hot_rows * d;
-  const int head_words = head_rows * d;
-  tc_bins::zero(head, static_cast<int64_t>(hot_words) * copies + head_words - hot_words);
-  __syncthreads();
+// Where a block keeps its sums: the first hot_rows rows in `copies` lane
+// copies, then single rows up to head_rows (the head). In the cluster form
+// also a slice of the output at word slice_at: row r in the slice of the
+// cluster's block r & (2^shift - 1), at local row r >> shift.
+struct Layout {
+  int hot_rows;
+  int copies;
+  int head_rows;
+  int shift;
+  int slice_at;
+};
 
-  U* mine = head + (threadIdx.x & (copies - 1));
-  U* warm = head + hot_words * (copies - 1);  // warm[w] is head word w >= hot_words
-  // r in [0, s)
-  auto add = [&](int64_t r, int j, U v) {
-    if (r < hot_rows) {
-      atomicAdd(mine + (static_cast<int>(r) * d + j) * copies, v);
-    } else if (r < head_rows) {
-      atomicAdd(warm + static_cast<int>(r) * d + j, v);
-    } else {
-      atomicAdd(out + r * d + j, v);
-    }
-  };
+// Every in-range (row, lane, value) of the stream, handed to add(r, j, v)
+// by the calling thread. kD > 0: D is kD, samples in groups of four;
+// kD == 0: D is d_rt, one element a thread.
+template <typename U, typename R, int kD, typename Add>
+__device__ __forceinline__ void for_each_add(const U* __restrict__ vals,
+                                             const R* __restrict__ rows, int64_t n,
+                                             int d_rt, int64_t s, int64_t vec_lo,
+                                             int64_t vec_hi, Add add) {
   auto in_range = [&](R r) {
     return static_cast<uint64_t>(static_cast<int64_t>(r)) < static_cast<uint64_t>(s);
   };
@@ -164,6 +194,7 @@ segment_sum_kernel(const U* __restrict__ vals, const R* __restrict__ rows,
       }
     }
   } else {
+    const int d = d_rt;
     const int64_t total = n * d;
     int64_t i = tid / d;
     int j = static_cast<int>(tid - i * d);
@@ -180,52 +211,216 @@ segment_sum_kernel(const U* __restrict__ vals, const R* __restrict__ rows,
       }
     }
   }
-  __syncthreads();
+}
+
+// kD as for_each_add; kCluster: the cluster form, launched in clusters of
+// 2^lay.shift blocks, where rows past the head go to the cluster's slices;
+// else the head form, where they go to device memory.
+template <typename U, typename R, int kD, bool kCluster>
+__global__ void __launch_bounds__(kThreads, 1)
+segment_sum_kernel(const U* __restrict__ vals, const R* __restrict__ rows,
+                   int64_t n, int d_rt, int64_t s, Layout lay, int64_t vec_lo,
+                   int64_t vec_hi, U* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  const int d = kD > 0 ? kD : d_rt;
+  extern __shared__ __align__(16) unsigned char smem[];
+  U* head = reinterpret_cast<U*>(smem);
+  const int hot_rows = lay.hot_rows;
+  const int head_rows = lay.head_rows;
+  const int copies = lay.copies;
+  const int hot_words = hot_rows * d;
+  const int head_words = head_rows * d;
+  const int shift = lay.shift;
+  const unsigned owner_mask = (1u << shift) - 1;
+  U* slice = head + lay.slice_at;
+  // the cluster form's slice: rows r with r & owner_mask == this block's
+  // rank (words of rows in the head or past S stay 0 and are never flushed)
+  const int slice_words = kCluster ? static_cast<int>(((s + owner_mask) >> shift) * d) : 0;
+  tc_bins::zero(head, kCluster ? static_cast<int64_t>(lay.slice_at) + slice_words
+                               : static_cast<int64_t>(hot_words) * copies + head_words - hot_words);
+  // every slice of the cluster zeroed (and every block of it running)
+  // before any add lands in it
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+
+  U* mine = head + (threadIdx.x & (copies - 1));
+  U* warm = head + hot_words * (copies - 1);  // warm[w] is head word w >= hot_words
+  // r in [0, s)
+  auto add = [&](int64_t r, int j, U v) {
+    if (r < hot_rows) {
+      atomicAdd(mine + (static_cast<int>(r) * d + j) * copies, v);
+    } else if (r < head_rows) {
+      atomicAdd(warm + static_cast<int>(r) * d + j, v);
+    } else if constexpr (kCluster) {
+      if constexpr (!std::is_floating_point<U>::value) {
+        if (v == U(0)) return;
+      }
+      U* owner = cg::this_cluster().map_shared_rank(slice, static_cast<unsigned>(r) & owner_mask);
+      atomicAdd(owner + static_cast<int>(r >> shift) * d + j, v);
+    } else {
+      atomicAdd(out + r * d + j, v);
+    }
+  };
+  for_each_add<U, R, kD>(vals, rows, n, d_rt, s, vec_lo, vec_hi, add);
+  // the cluster form: every add of the cluster landed before a block reads
+  // its slice, and no block leaves while another may still add into it
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
   tc_bins::fold_copies(head, hot_words, copies);
   __syncthreads();
   tc_bins::flush(head, head_words, hot_words, copies, out);
+  if constexpr (kCluster) {
+    const int64_t rank = static_cast<int64_t>(cg::this_cluster().block_rank());
+    for (int w = threadIdx.x; w < slice_words; w += blockDim.x) {
+      const U sum = slice[w];
+      if (sum != U(0)) {  // NaN != 0: NaN is carried
+        const int q = w / d;
+        atomicAdd(out + ((static_cast<int64_t>(q) << shift) + rank) * d + (w - q * d), sum);
+      }
+    }
+  }
 }
 
-template <typename U, typename R, int kD>
-int launch_d(const U* vals, const R* rows, int64_t n, int64_t d, int64_t s,
-             U* out, void* stream) {
-  const tc_bins::Plan plan = tc_bins::plan_for(segment_sum_kernel<U, R, kD>);
-  if (plan.err != cudaSuccess) return static_cast<int>(plan.err);
-  // the head: kHotRows rows in as many copies as fit kHotBytes (fewer rows
-  // where one copy does not fit), then single rows up to kHeadBytes
-  const int64_t row_bytes = d * static_cast<int64_t>(sizeof(U));
+// The head for S rows of row_bytes: kHotRows rows in as many copies as fit
+// kHotBytes (fewer rows where one copy does not fit), then single rows up
+// to kHeadBytes; slice_at is its word count rounded up to 16 bytes.
+Layout head_layout(int64_t s, int64_t row_bytes, int64_t word_bytes) {
   int64_t hot_rows = s < kHotRows ? s : kHotRows;
   int copies = tc_bins::kMaxCopies;
   while (copies > 1 && hot_rows * row_bytes * copies > kHotBytes) copies /= 2;
   if (hot_rows * row_bytes > kHotBytes) hot_rows = kHotBytes / row_bytes;
   int64_t head_rows = hot_rows + (kHeadBytes - hot_rows * row_bytes * copies) / row_bytes;
   if (head_rows > s) head_rows = s;
-  // the first sample whose row id and values both sit on 16-byte
-  // boundaries; none (n, all scalar) where the two views disagree
-  int64_t vec_lo = n;
-  if (kD > 0) {
-    const uintptr_t r0 = reinterpret_cast<uintptr_t>(rows);
-    const uintptr_t v0 = reinterpret_cast<uintptr_t>(vals);
-    for (int64_t h = 0; h < 16 && h < n; ++h) {
-      if ((r0 + h * sizeof(R)) % 16 == 0 && (v0 + h * kD * sizeof(U)) % 16 == 0) {
-        vec_lo = h;
-        break;
-      }
-    }
+  const int64_t bytes = (hot_rows * copies + head_rows - hot_rows) * row_bytes;
+  return Layout{static_cast<int>(hot_rows), copies, static_cast<int>(head_rows), 0,
+                static_cast<int>((bytes + 15) / 16 * 16 / word_bytes)};
+}
+
+// the first sample whose row id and values both sit on 16-byte boundaries;
+// none (n, all scalar) where the two views disagree
+template <typename U, typename R, int kD>
+int64_t first_vector_sample(const U* vals, const R* rows, int64_t n) {
+  if (kD == 0) return n;
+  const uintptr_t r0 = reinterpret_cast<uintptr_t>(rows);
+  const uintptr_t v0 = reinterpret_cast<uintptr_t>(vals);
+  for (int64_t h = 0; h < 16 && h < n; ++h) {
+    if ((r0 + h * sizeof(R)) % 16 == 0 && (v0 + h * kD * sizeof(U)) % 16 == 0) return h;
   }
+  return n;
+}
+
+// Clusters of `cluster` blocks with `smem` bytes each that the current
+// device holds at once (0 where none fits), cached by kernel and shape.
+template <typename K>
+cudaError_t max_clusters(K kernel, int cluster, size_t smem, int* clusters) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, size_t>, int> cache;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(device, reinterpret_cast<const void*>(kernel), cluster, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) {
+    *clusters = hit->second;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err == cudaSuccess) cache[key] = *clusters;
+  return err;
+}
+
+template <typename U, typename R, int kD>
+int launch_cluster(const U* vals, const R* rows, int64_t n, int64_t d, int64_t s,
+                   int cluster, U* out, cudaStream_t stream) {
+  if (cluster < 2 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = segment_sum_kernel<U, R, kD, true>;
+  const tc_bins::Plan plan = tc_bins::plan_for(kernel);
+  if (plan.err != cudaSuccess) return static_cast<int>(plan.err);
+  const int64_t word = static_cast<int64_t>(sizeof(U));
+  Layout lay = head_layout(s, d * word, word);
+  while ((1 << lay.shift) < cluster) ++lay.shift;
+  const int64_t slice_rows = (s + cluster - 1) >> lay.shift;
+  const int64_t smem = (lay.slice_at + slice_rows * d) * word;
+  if (smem > plan.smem_max) return static_cast<int>(cudaErrorInvalidValue);
+  int clusters = 0;
+  const cudaError_t err = max_clusters(kernel, cluster, static_cast<size_t>(smem), &clusters);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t vec_lo = first_vector_sample<U, R, kD>(vals, rows, n);
   const int64_t vec_hi = vec_lo + (n - vec_lo) / 4 * 4;
-  const int64_t per_block = kD > 0 ? kThreads * 4 : kThreads;
-  const int blocks = tc_bins::grid_blocks(plan, kD > 0 ? n : n * d, per_block);
-  const size_t smem = static_cast<size_t>((hot_rows * copies + head_rows - hot_rows) * d) *
-                     sizeof(U);
-  segment_sum_kernel<U, R, kD><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vals, rows, n, static_cast<int>(d), s, static_cast<int>(hot_rows), copies,
-      static_cast<int>(head_rows), vec_lo, vec_hi, out);
+  // persistent: at most the clusters the card holds at once
+  const int64_t per_cluster = (kD > 0 ? kThreads * 4 : kThreads) * static_cast<int64_t>(cluster);
+  const int64_t work = kD > 0 ? n : n * d;
+  int64_t grid = (work + per_cluster - 1) / per_cluster;
+  if (grid < 1) grid = 1;
+  if (grid > clusters) grid = clusters;
+
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>(grid * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, vals, rows, n, static_cast<int>(d),
+                                                  s, lay, vec_lo, vec_hi, out);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename U, typename R, int kD>
+int launch_head(const U* vals, const R* rows, int64_t n, int64_t d, int64_t s, U* out,
+                cudaStream_t stream) {
+  const tc_bins::Plan plan = tc_bins::plan_for(segment_sum_kernel<U, R, kD, false>);
+  if (plan.err != cudaSuccess) return static_cast<int>(plan.err);
+  const int64_t word = static_cast<int64_t>(sizeof(U));
+  const Layout lay = head_layout(s, d * word, word);
+  const int64_t vec_lo = first_vector_sample<U, R, kD>(vals, rows, n);
+  const int64_t vec_hi = vec_lo + (n - vec_lo) / 4 * 4;
+  const int64_t per_block = kD > 0 ? kThreads * 4 : kThreads;
+  const int blocks = tc_bins::grid_blocks(plan, kD > 0 ? n : n * d, per_block);
+  const size_t smem =
+      static_cast<size_t>((lay.hot_rows * lay.copies + lay.head_rows - lay.hot_rows) * d) * word;
+  segment_sum_kernel<U, R, kD, false><<<blocks, kThreads, smem, stream>>>(
+      vals, rows, n, static_cast<int>(d), s, lay, vec_lo, vec_hi, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename U, typename R, int kD>
+int launch_d(const U* vals, const R* rows, int64_t n, int64_t d, int64_t s, int cluster,
+             U* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster == 1) return launch_head<U, R, kD>(vals, rows, n, d, s, out, st);
+  return launch_cluster<U, R, kD>(vals, rows, n, d, s, cluster, out, st);
+}
+
 template <typename T, typename R>
-int launch(const void* vals, const void* rows, int64_t n, int64_t d, int64_t s,
+int launch(const void* vals, const void* rows, int64_t n, int64_t d, int64_t s, int cluster,
            void* out, void* stream) {
   using U = typename Acc<T>::U;
   if (n <= 0 || d <= 0 || s <= 0) return static_cast<int>(cudaGetLastError());
@@ -235,24 +430,24 @@ int launch(const void* vals, const void* rows, int64_t n, int64_t d, int64_t s,
   U* o = static_cast<U*>(out);
   switch (d) {
     case 1:
-      return launch_d<U, R, 1>(v, r, n, d, s, o, stream);
+      return launch_d<U, R, 1>(v, r, n, d, s, cluster, o, stream);
     case 2:
-      return launch_d<U, R, 2>(v, r, n, d, s, o, stream);
+      return launch_d<U, R, 2>(v, r, n, d, s, cluster, o, stream);
     case 4:
-      return launch_d<U, R, 4>(v, r, n, d, s, o, stream);
+      return launch_d<U, R, 4>(v, r, n, d, s, cluster, o, stream);
     default:
-      return launch_d<U, R, 0>(v, r, n, d, s, o, stream);
+      return launch_d<U, R, 0>(v, r, n, d, s, cluster, o, stream);
   }
 }
 
 template <typename T>
 int launch_rows(int row_dtype, const void* vals, const void* rows, int64_t n,
-                int64_t d, int64_t s, void* out, void* stream) {
+                int64_t d, int64_t s, int cluster, void* out, void* stream) {
   switch (row_dtype) {
     case 0:
-      return launch<T, int32_t>(vals, rows, n, d, s, out, stream);
+      return launch<T, int32_t>(vals, rows, n, d, s, cluster, out, stream);
     case 1:
-      return launch<T, int64_t>(vals, rows, n, d, s, out, stream);
+      return launch<T, int64_t>(vals, rows, n, d, s, cluster, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -264,19 +459,21 @@ extern "C" {
 
 // val_dtype: 0 int32, 1 int64, 2 float32, 3 float64; row_dtype: 0 int32,
 // 1 int64. `vals` is (n, d) row-major, `rows` (n,), and `out` (s, d) holds
-// zeros of the values' type; the kernel adds into it.
+// zeros of the values' type; the kernel adds into it. `cluster` is the
+// route the caller chose: 1 for the head form (local or head), 2, 4 or 8
+// for the cluster form with that many blocks a cluster.
 int tc_segment_sum(int val_dtype, int row_dtype, const void* vals,
                    const void* rows, int64_t n, int64_t d, int64_t s,
-                   void* out, void* stream) {
+                   int cluster, void* out, void* stream) {
   switch (val_dtype) {
     case 0:
-      return launch_rows<int32_t>(row_dtype, vals, rows, n, d, s, out, stream);
+      return launch_rows<int32_t>(row_dtype, vals, rows, n, d, s, cluster, out, stream);
     case 1:
-      return launch_rows<int64_t>(row_dtype, vals, rows, n, d, s, out, stream);
+      return launch_rows<int64_t>(row_dtype, vals, rows, n, d, s, cluster, out, stream);
     case 2:
-      return launch_rows<float>(row_dtype, vals, rows, n, d, s, out, stream);
+      return launch_rows<float>(row_dtype, vals, rows, n, d, s, cluster, out, stream);
     case 3:
-      return launch_rows<double>(row_dtype, vals, rows, n, d, s, out, stream);
+      return launch_rows<double>(row_dtype, vals, rows, n, d, s, cluster, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

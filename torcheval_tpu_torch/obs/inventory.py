@@ -78,6 +78,7 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "resilience.checkpoint.corrupt_skipped": (COUNTER, ("reason",)),
     "resilience.checkpoint.corrupt_quarantined": (COUNTER, ()),
     "resilience.checkpoint.fallback_restores": (COUNTER, ()),
+    "segment_sum.route": (COUNTER, ("route",)),
     "serve.admissions": (COUNTER, ("result", "reason")),
     "serve.client.breaker": (COUNTER, ("event", "endpoint")),
     "serve.client.inflight": (HISTOGRAM, ("tenant",)),
@@ -127,9 +128,10 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 
 # the port's own instruments, which the JAX package has no cause to count:
 # the ``_fold_fn`` calls of each fold shape (the JAX package's fold is one
-# XLA program whatever its shape), and every hand-kernel launch's modelled
-# bytes (XLA's cost analysis describes a program, not a launch)
-PORT_ONLY = frozenset({"deferred.fold_calls", "obs.cost.launch_bytes"})
+# XLA program whatever its shape), every hand-kernel launch's modelled
+# bytes (XLA's cost analysis describes a program, not a launch), and the
+# segment sum kernel's route a launch (the TPU kernel has one)
+PORT_ONLY = frozenset({"deferred.fold_calls", "obs.cost.launch_bytes", "segment_sum.route"})
 
 # port entry -> JAX entry (``watched`` labels and ``count_launch`` entries)
 ENTRIES: Dict[str, str] = {

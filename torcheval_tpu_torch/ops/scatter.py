@@ -26,6 +26,15 @@ sliced collection (``metrics/sliced.py``) folds every batch through
   integer sums are exact (and wrap like XLA's scatter-add, the JAX
   package's reference route) for any segment count, and ``auto`` sends every
   sum on a CUDA tensor to it.
+* Where the kernel keeps its sums is chosen by the output's size alone,
+  in :func:`segment_sum_route`. Each block keeps the output's first rows
+  (its head) in shared memory. An output of up to 16 KiB fits the head
+  whole (``local``). In one of up to 1 MiB the rows past the head are
+  spread over the shared memory of a cluster of 2, 4 or 8 blocks, 128 KiB
+  or less a block, and their adds go there through distributed shared
+  memory (``cluster``: a 2^16-bucket score sketch, ``Quantile``'s value
+  fold). In a larger one they go to device memory (``head``). Each launch
+  counts its route (``segment_sum.route{route=}``).
 * Float sums, in the kernel and in the plain version alike, add in an order
   that is not the reference's (atomics on the card run in no fixed order),
   so they are not bitwise reproducible. The bound every route meets, for
@@ -66,6 +75,7 @@ Sharded forms, one process per card:
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -81,6 +91,12 @@ _REDUCES = ("sum", "max", "min")
 _VAL_CODES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 _ROW_CODES = {torch.int32: 0, torch.int64: 1}
 _SCATTER_REDUCE = {"max": "amax", "min": "amin"}
+# csrc/scatter.cu's shared memory: the head's single rows beside its hot
+# rows' lane copies (kHeadBytes - kHotBytes), and a cluster block's slice
+# in the cluster route, at most _MAX_CLUSTER blocks a cluster
+_LOCAL_BYTES = 16 * 1024
+_SLICE_BYTES = 128 * 1024
+_MAX_CLUSTER = 8
 
 
 def _check(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> None:
@@ -130,6 +146,26 @@ def segment_sum_plain(
     return out[:num_segments]
 
 
+def segment_sum_route(dtype: torch.dtype, d: int, num_segments: int) -> Tuple[str, int]:
+    """The kernel's route for a ``(num_segments, d)`` output of ``dtype``
+    (one of the kernel's four value types), and its cluster size:
+    ``("local", 1)`` where the whole output fits the 16 KiB beside a
+    block's hot rows, ``("cluster", c)`` with ``c`` the fewest blocks of 2,
+    4 or 8 whose 128 KiB slices hold the output's rows, ``("head", 1)``
+    past that. The one place the route is chosen: ``csrc/scatter.cu``
+    takes the cluster size as given."""
+    row = d * dtype.itemsize
+    if num_segments * row <= _LOCAL_BYTES:
+        return "local", 1
+    per_block = _SLICE_BYTES // row
+    if num_segments <= _MAX_CLUSTER * per_block:
+        c = 2
+        while c * per_block < num_segments:
+            c *= 2
+        return "cluster", c
+    return "head", 1
+
+
 def _segment_sum_cost(args, kwargs, out):
     """The values and rows read once, the sums written once; a float
     value adds once."""
@@ -163,6 +199,7 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
     out = torch.zeros((num_segments, d), dtype=vals.dtype, device=vals.device)
     if n == 0 or d == 0 or num_segments == 0:
         return out.reshape((num_segments,) + tail)
+    route, cluster = segment_sum_route(flat.dtype, d, num_segments)
     with torch.cuda.device(flat.device):
         err = lib.tc_segment_sum(
             _VAL_CODES[flat.dtype],
@@ -172,11 +209,14 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
             n,
             d,
             num_segments,
+            cluster,
             out.data_ptr(),
             _build.stream_of(flat),
         )
     _build.check(err, "segment_sum")
     count_launch("segment_sum", _segment_sum_cost, (flat, rows), out)
+    if _obs._enabled:
+        _obs.counter("segment_sum.route", route=route)
     return out.reshape((num_segments,) + tail)
 
 
