@@ -1435,8 +1435,8 @@ def check_approx_headline(chunks, metrics, values, exact_auroc):
     from torcheval_tpu_torch.sketch import auprc_error_bound, auroc_error_bound, relative_error
 
     auroc, auprc, quantile = metrics
-    auroc._compact()
-    auprc._compact()
+    auroc._score_sketch_fold()
+    auprc._score_sketch_fold()
     total = HEADLINE_CHUNKS * HEADLINE_CHUNK
     for name, m in (("AUROC", auroc), ("AUPRC", auprc)):
         got = int(m.sketch_tp.sum(dtype=torch.int64)) + int(m.sketch_fp.sum(dtype=torch.int64))
@@ -3108,7 +3108,7 @@ def quantized_sync(dev, rank, outdir, toolkit):
             for pred, label in batches:
                 cm.update(pred, label)
             sketch = BinaryAUROC(approx=True, device=dev).update(logits, binary)
-            sketch._compact()  # the resident sketch alone crosses the wire
+            sketch._score_sketch_fold()  # the resident sketch alone crosses the wire
             cal = WeightedCalibration(num_tasks=SYNC_CAL_TASKS, device=dev).update(p, clicks, w)
             members = {"cm": cm, "sketch": sketch, "cal": cal}
             local = {k: v.cpu().numpy() for k, v in cal.state_dict().items()}
@@ -3158,7 +3158,7 @@ def dist_references(dev):
         auprc.update(logits, binary)
         approx.update(logits, binary)
     ref = {"auprc": float(auprc.compute()), "approx_auroc": float(approx.compute())}
-    approx._compact()  # fold any staged rows into the resident sketch
+    approx._score_sketch_fold()  # fold any staged rows into the resident sketch
     ref["sketch"] = {k: v.cpu().numpy() for k, v in (
         ("tp", approx.sketch_tp), ("fp", approx.sketch_fp), ("nan", approx.sketch_nan_dropped))}
     del auprc, approx

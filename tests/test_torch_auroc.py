@@ -3,8 +3,11 @@
 The same numpy inputs, made from a seed, go through ``torcheval_tpu`` and
 ``torcheval_tpu_torch`` (``device="cpu"``, where the compaction kernel's
 plain version runs). The JAX side's compaction runs either on its two-sort
-path or on its Pallas kernel in interpret mode
-(``auroc_mod.STREAM_COMPACTION = "interpret"``, restored afterwards).
+path or on its Pallas kernel in interpret mode (the JAX package's own
+switch, ``jax_auroc_mod.STREAM_COMPACTION = "interpret"``, restored
+afterwards). The port's one compaction pipeline is also held fold by fold
+against its own two-sort oracle (``ops/summary.py::compact_counts``), bit
+for bit.
 AUROC/AUPRC/accuracy values agree within rtol 1e-5, atol 1e-8 (the
 trapezoid and step sums run in another order); counts agree exactly.
 """
@@ -27,6 +30,7 @@ from torcheval_tpu_torch.metrics import (
     MulticlassAccuracy,
 )
 from torcheval_tpu_torch.metrics.functional import binary_auprc, binary_auroc
+from torcheval_tpu_torch.ops.summary import PAD_SCORE, compact_counts, compact_counts_fast
 from torcheval_tpu_torch.utils.jax_state import load_jax_state_dict, numpy_state_dict
 from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
 
@@ -65,16 +69,6 @@ def jax_mode(request):
         jax_auroc_mod.STREAM_COMPACTION = saved
 
 
-@pytest.fixture
-def port_mode(request):
-    saved = auroc_mod.STREAM_COMPACTION
-    auroc_mod.STREAM_COMPACTION = request.param
-    try:
-        yield request.param
-    finally:
-        auroc_mod.STREAM_COMPACTION = saved
-
-
 def test_functional_matches_jax():
     x, t = _scores()
     _close(binary_auroc(x, t), jax_binary_auroc(x, t))
@@ -84,10 +78,9 @@ def test_functional_matches_jax():
 
 
 @pytest.mark.parametrize("jax_mode", ["auto", "interpret"], indirect=True)
-@pytest.mark.parametrize("port_mode", ["auto", "off"], indirect=True)
 @pytest.mark.parametrize("threshold", [None, THRESHOLD])
 @pytest.mark.parametrize("cls", ["BinaryAUROC", "BinaryAUPRC"])
-def test_streaming_matches_jax(cls, threshold, port_mode, jax_mode):
+def test_streaming_matches_jax(cls, threshold, jax_mode):
     x, t = _scores(seed=1)
     ours = getattr(auroc_mod, cls)(compaction_threshold=threshold, device="cpu")
     theirs = getattr(J, cls)(compaction_threshold=threshold)
@@ -103,6 +96,43 @@ def test_streaming_matches_jax(cls, threshold, port_mode, jax_mode):
         assert len(a) == len(b)
         for u, v in zip(a, b):
             np.testing.assert_array_equal(u.numpy(), np.asarray(v))
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("threshold", [None, THRESHOLD], ids=str)
+@pytest.mark.parametrize("seed", [1, 2])
+def test_stream_compaction_is_bit_equal_to_the_two_sort_fold_by_fold(seed, threshold, nan):
+    """Every fold a compacting binary metric makes over ``_scores`` (ties,
+    -inf; with ``nan``, a NaN score in each fold): the raw batches and the
+    carried summary, padded and trimmed as the metric pads and trims them,
+    compacted by the metrics' pipeline (``compact_counts_fast``) and by the
+    two-sort oracle, bit for bit. With no threshold the stream folds once,
+    as a merge's compaction of the whole cache would."""
+    x, t = _scores(seed=seed)
+    if nan:
+        x[[3, 1700, N - 1]] = np.nan
+    raw_s, raw_t, summary = [], [], ([], [], [])
+    folds = nan_dropped = 0
+    for i in range(0, N, BATCH):
+        raw_s.append(torch.from_numpy(x[i:i + BATCH]))
+        raw_t.append(torch.from_numpy(t[i:i + BATCH]))
+        if i + BATCH < N and (threshold is None or sum(len(a) for a in raw_s) < threshold):
+            continue
+        s, tp, fp = auroc_mod._combined_counts(raw_s, raw_t, *summary)
+        pad = auroc_mod._pad_cap(len(s)) - len(s)
+        cols = (torch.cat([s, s.new_full((pad,), PAD_SCORE)]),
+                torch.cat([tp, tp.new_zeros(pad)]), torch.cat([fp, fp.new_zeros(pad)]))
+        want, got = compact_counts(*cols), compact_counts_fast(*cols)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))  # NaN padding bits too
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        keep = min(len(cols[0]), auroc_mod._pad_cap(max(int(want[3]), 1)))
+        summary = tuple([c[:keep]] for c in want[:3])
+        raw_s, raw_t = [], []
+        folds += 1
+        nan_dropped += int(want[4])
+    assert folds == (1 if threshold is None else 3)
+    assert nan_dropped == (3 if nan else 0)
 
 
 def test_presorted_compute_and_refold():

@@ -952,8 +952,8 @@ def test_binary_sketch_on_the_card_equals_the_cpu(dev, cls):
         on.update(a, b)
         off.update(a, b)
     got, want = on.compute(), off.compute()
-    on._compact()
-    off._compact()
+    on._score_sketch_fold()
+    off._score_sketch_fold()
     assert launches("segment_sum") > before
     assert torch.equal(on.sketch_tp.cpu(), off.sketch_tp) and torch.equal(on.sketch_fp.cpu(), off.sketch_fp)
     assert float(got) == pytest.approx(float(want), rel=1e-5, abs=1e-8)

@@ -6,9 +6,10 @@ The same numpy inputs, made from a seed, go through both packages
 (``device="cpu"``, where the compaction kernel's plain version runs).
 Values agree within rtol 1e-5, atol 1e-8 (the trapezoid and step sums run
 in another order); summary counts and per-class unique counts are equal
-exactly. The port's fold runs both ways: one stream compaction over the
-flattened rows (``STREAM_COMPACTION = "auto"``, the kernel's route on the
-card) and the batched two-sort (``"off"``); the two are bit-equal.
+exactly. The port's fold is one stream compaction over the flattened rows
+(the kernel's route on the card); fold by fold over the class metrics'
+streams it is bit-equal to the batched two-sort
+(``ops/summary.py::compact_count_rows``), the oracle it is tested against.
 """
 
 import copy
@@ -53,16 +54,6 @@ def _data(seed, n=300, classes=C, levels=50):
     x[rng.integers(0, n, 6), rng.integers(0, classes, 6)] = -np.inf
     t = rng.integers(0, classes, n)
     return x, t
-
-
-@pytest.fixture(params=["auto", "off"])
-def port_mode(request):
-    saved = auroc_mod.STREAM_COMPACTION
-    auroc_mod.STREAM_COMPACTION = request.param
-    try:
-        yield request.param
-    finally:
-        auroc_mod.STREAM_COMPACTION = saved
 
 
 # --------------------------------------------------------------- functional
@@ -131,11 +122,55 @@ def test_fast_row_compaction_is_bit_equal_to_the_two_sort(seed):
     assert int(a[4]) == int(tp[0, 3] + fp[0, 3])
 
 
+# (seed, rows, batch, threshold, nan): the class metrics' streams, each with
+# and without NaN scores, and the NaN test's stream
+MC_FOLD_STREAMS = [
+    *[(seed, NUM_TOTAL_UPDATES * 40, 40, threshold, nan)
+      for seed in (5, 9) for threshold in (None, 100, 250) for nan in (False, True)],
+    (8, 60, 20, 30, True),
+]
+
+
+@pytest.mark.parametrize("seed, n, batch, threshold, nan", MC_FOLD_STREAMS)
+def test_row_compaction_is_bit_equal_to_the_two_sort_fold_by_fold(seed, n, batch, threshold, nan):
+    """Every fold a compacting multiclass metric makes over ``_data`` (ties,
+    -inf; with ``nan``, two NaN entries): the raw batches and the carried
+    ``(K, C)`` summary as ``(C, M)`` columns, padded and trimmed as the
+    metric pads and trims them, compacted by the metrics' pipeline
+    (``compact_count_rows_fast``) and by the batched two-sort, bit for bit.
+    With no threshold the stream folds once."""
+    x, t = _data(seed=seed, n=n)
+    if nan:
+        x[3, 1] = x[10, 2] = np.nan
+    raw_s, raw_t, summary = [], [], ([], [], [])
+    folds = nan_dropped = 0
+    for i in range(0, n, batch):
+        raw_s.append(torch.from_numpy(x[i:i + batch]))
+        raw_t.append(torch.from_numpy(t[i:i + batch]))
+        if i + batch < n and (threshold is None or sum(len(a) for a in raw_s) < threshold):
+            continue
+        s, tp, fp = auroc_mod._mc_combined_counts(raw_s, raw_t, *summary, C)
+        pad = (C, auroc_mod._pad_cap(s.shape[1]) - s.shape[1])
+        cols = (torch.cat([s, s.new_full(pad, PAD_SCORE)], 1),
+                torch.cat([tp, tp.new_zeros(pad)], 1), torch.cat([fp, fp.new_zeros(pad)], 1))
+        want, got = compact_count_rows(*cols), compact_count_rows_fast(*cols)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))  # NaN padding bits too
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        keep = min(cols[0].shape[1], auroc_mod._pad_cap(max(int(want[3].max()), 1)))
+        summary = tuple([c.T[:keep]] for c in want[:3])
+        raw_s, raw_t = [], []
+        folds += 1
+        nan_dropped += int(want[4])
+    assert (folds == 1) == (threshold is None)
+    assert nan_dropped == (2 if nan else 0)
+
+
 # ------------------------------------------------------------ class metrics
 @pytest.mark.parametrize("name", list(METRICS))
 @pytest.mark.parametrize("average", ["macro", None], ids=str)
 @pytest.mark.parametrize("threshold", [None, 100, 250], ids=str)
-def test_class_matches_jax(port_mode, name, average, threshold):
+def test_class_matches_jax(name, average, threshold):
     port_cls, ref_cls = METRICS[name][:2]
     x, t = _data(seed=5, n=NUM_TOTAL_UPDATES * 40)
     port = port_cls(num_classes=C, average=average, compaction_threshold=threshold, device=CPU)
@@ -188,7 +223,7 @@ def test_empty_and_degenerate_states_match_jax(name):
     _close(port.compute(), ref.compute())
 
 
-def test_nan_scores_that_reach_a_compaction_raise(port_mode):
+def test_nan_scores_that_reach_a_compaction_raise():
     x, t = _data(seed=8, n=60)
     x[3, 1] = x[10, 2] = np.nan
     m = MulticlassAUROC(num_classes=C, compaction_threshold=30, device=CPU)

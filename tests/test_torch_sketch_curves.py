@@ -226,7 +226,7 @@ def test_binary_approx_metric_matches_and_stays_within_bound(name, cls):
     tm = _fill(getattr(TM, cls)(approx=True, compaction_threshold=1024, device=CPU), stream)
     got = tm.compute()
     _close(got, jm.compute())
-    tm._compact()
+    tm._score_sketch_fold()
     jm._compact()
     np.testing.assert_array_equal(tm.sketch_tp.numpy(), np.asarray(jm.sketch_tp))
     np.testing.assert_array_equal(tm.sketch_fp.numpy(), np.asarray(jm.sketch_fp))
@@ -250,7 +250,7 @@ def test_multiclass_approx_metric_matches(cls, average):
                                 compaction_threshold=1500, device=CPU), stream)
     _close(tm.compute(), jm.compute())
     assert tuple(tm.sketch_tp.shape) == (c, 1 << 12)
-    tm._compact()
+    tm._score_sketch_fold()
     jm._compact()
     np.testing.assert_array_equal(tm.sketch_tp.numpy(), np.asarray(jm.sketch_tp))
     if average is None:
@@ -279,7 +279,7 @@ def test_nan_scores_raise_and_keep_raising():
         m.update(np.float32([0.2, np.nan, 0.7]), np.float32([1, 0, 1]))
         with pytest.raises(ValueError, match=f"1 {noun}.*NaN"):
             m.compute()
-        m._compact()
+        m._score_sketch_fold()
         with pytest.raises(ValueError, match="NaN"):
             m.compute()
     mc = TM.MulticlassAUROC(num_classes=3, approx=True, device=CPU)
@@ -313,7 +313,7 @@ def test_bounded_state_and_sync_ships_the_sketch_only():
             rng = np.random.default_rng(i)
             m.update(rng.random(512).astype(np.float32), (rng.random(512) < 0.5).astype(np.float32))
             assert sum(int(a.shape[0]) for a in m.inputs) < 2048 + 512
-        m._compact()
+        m._score_sketch_fold()
         return sum(v.numel() * v.element_size() for v in (m.sketch_tp, m.sketch_fp, m.sketch_nan_dropped))
 
     assert run(5) == run(50) == 2 * 4096 * 4 + 4
@@ -329,10 +329,10 @@ def test_merge_bit_identical_to_single_stream_and_reset():
     a = _fill(TM.BinaryAUROC(approx=True, device=CPU), stream[:2])
     b = _fill(TM.BinaryAUROC(approx=True, device=CPU), stream[2:3])
     c = _fill(TM.BinaryAUROC(approx=True, device=CPU), stream[3:])
-    b._compact()  # folded and staged replicas merge alike
+    b._score_sketch_fold()  # folded and staged replicas merge alike
     a.merge_state([b, c])
-    a._compact()
-    solo._compact()
+    a._score_sketch_fold()
+    solo._score_sketch_fold()
     assert torch.equal(a.sketch_tp, solo.sketch_tp) and torch.equal(a.sketch_fp, solo.sketch_fp)
     assert float(a.compute()) == float(solo.compute())
     a.reset()
@@ -457,7 +457,7 @@ def test_enable_metric_approx_matches_the_constructor():
     m = TM.BinaryAUROC(device=CPU)
     assert TC.enable_metric_approx(m, 1024, dry_run=True) and not m._sketch_enabled()
     assert TC.enable_metric_approx(m, 1024) and m._sketch_bits == 10
-    assert m._compaction_threshold == T.SKETCH_FOLD_ROWS
+    assert m._sketch_fold_rows == T.SKETCH_FOLD_ROWS
     assert "summary_scores" not in m.state_names
     ref = TM.BinaryAUROC(approx=1024, device=CPU)
     assert m.state_names == ref.state_names
@@ -477,6 +477,73 @@ def test_enable_metric_approx_matches_the_constructor():
     prc = TM.MulticlassPrecisionRecallCurve(num_classes=3, device=CPU)
     assert TC.enable_metric_approx(prc, True) and prc._sketch_bits == 12
     assert TC.enable_metric_approx(TM.BinaryAUROC(device=CPU), None)
+
+
+# the six score-sketch classes, and the four with a compaction_threshold,
+# which then sets their fold cadence
+SCORE_SKETCH_CASES = [
+    *[(cls, None) for cls in ("BinaryAUROC", "BinaryAUPRC", "MulticlassAUROC", "MulticlassAUPRC",
+                              "BinaryPrecisionRecallCurve", "MulticlassPrecisionRecallCurve")],
+    *[(cls, 30_000) for cls in ("BinaryAUROC", "BinaryAUPRC", "MulticlassAUROC", "MulticlassAUPRC")],
+]
+
+
+def _same(got, want):
+    if isinstance(got, (tuple, list)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _same(g, w)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cls, threshold", SCORE_SKETCH_CASES)
+def test_one_score_sketch_lifecycle_whether_built_or_switched(cls, threshold):
+    classes = 3 if cls.startswith("Multiclass") else 1
+    kw = {"num_classes": classes} if classes > 1 else {}
+    if threshold is not None:
+        kw["compaction_threshold"] = threshold
+    built = getattr(TM, cls)(approx=True, device=CPU, **kw)
+    switched = getattr(TM, cls)(device=CPU, **kw)
+    assert TC.enable_metric_approx(switched, True)
+    want_sd, got_sd = built.state_dict(), switched.state_dict()
+    assert list(got_sd) == list(want_sd) == [
+        "inputs", "targets", "sketch_tp", "sketch_fp", "sketch_nan_dropped"]
+    for k in ("sketch_tp", "sketch_fp", "sketch_nan_dropped"):
+        assert (got_sd[k].dtype, got_sd[k].shape) == (want_sd[k].dtype, want_sd[k].shape)
+
+    gen = torch.Generator().manual_seed(7)
+
+    def batch(n):
+        if classes > 1:
+            return torch.rand(n, classes, generator=gen), torch.randint(0, classes, (n,), generator=gen)
+        return torch.rand(n, generator=gen), (torch.rand(n, generator=gen) < 0.4).float()
+
+    # the staged rows fold when they reach the cadence, not a row before
+    cadence = threshold or T.SKETCH_FOLD_ROWS
+    head, last = batch(cadence - 1), batch(1)
+    for m in (built, switched):
+        m.update(*head)
+        assert len(m.inputs) == 1 and int(m.sketch_tp.sum() + m.sketch_fp.sum()) == 0
+        m.update(*last)
+        assert m.inputs == [] and int(m.sketch_tp.sum() + m.sketch_fp.sum()) == cadence * classes
+    # merge (a replica's staged rows and resident sketch), load, reset
+    extra, other = batch(500), getattr(TM, cls)(approx=True, device=CPU, **kw)
+    other.update(*batch(cadence)).update(*batch(700))
+    for m in (built, switched):
+        m.update(*extra).merge_state([other])
+    _same(switched.compute(), built.compute())
+    loaded = getattr(TM, cls)(device=CPU, **kw)
+    TC.enable_metric_approx(loaded, True)
+    loaded.load_state_dict(built.state_dict())
+    _same(loaded.compute(), built.compute())
+    loaded.update(*batch(cadence - 1200))  # the loaded staged rows count toward the cadence
+    assert loaded.inputs == []
+    for m in (built, switched):
+        m.reset()
+        assert m.inputs == [] and int(m.sketch_tp.sum() + m.sketch_fp.sum()) == 0
+        m.update(*extra)
+    _same(switched.compute(), built.compute())
 
 
 # ------------------------------------------------- no fallback off the CPU

@@ -64,10 +64,10 @@ CASES = {
 def _settle(metric):
     """Fold staged rows into the resident sketch (``state_dict`` folds the
     deferred ``Quantile`` itself)."""
-    if hasattr(metric, "_compact"):
-        metric._compact()
-    elif hasattr(metric, "_sketch_fold"):
-        metric._sketch_fold()
+    # the port's score sketch, the JAX package's, then a value sketch
+    for fold in ("_score_sketch_fold", "_compact", "_sketch_fold"):
+        if hasattr(metric, fold):
+            return getattr(metric, fold)()
 
 
 def _results_equal(got, want):
@@ -135,7 +135,7 @@ def test_staged_rows_travel_with_the_state():
     assert len(state["inputs"]) == 2 and int(state["sketch_tp"].sum()) == 0
     port = TM.BinaryAUROC(approx=4096, compaction_threshold=10_000, device=CPU)
     load_jax_state_dict(port, state)
-    assert port._cached_samples == 1400
+    assert port._sketch_staged == 1400
     assert float(port.compute()) == pytest.approx(float(head.compute()), rel=RTOL, abs=ATOL)
 
 

@@ -1,4 +1,4 @@
-"""AUROC / AUPRC metrics, binary and one-vs-all multiclass, exact mode.
+"""AUROC / AUPRC metrics, binary and one-vs-all multiclass.
 
 JAX counterpart: ``torcheval_tpu/metrics/classification/auroc.py``
 (``_CompactingCacheLifecycle``, ``_BinaryCurveMetric``, ``BinaryAUROC``,
@@ -21,22 +21,23 @@ into its column (``ops/summary.py::compact_count_rows_fast``).
 
 With ``approx=`` (``True`` for the family's default bucket count, an int
 for a bucket count, or the ``TORCHEVAL_TPU_APPROX`` environment variable),
-the summary gives way to a resident, fixed-size score sketch:
-``sketch_tp``/``sketch_fp`` int32 bucket histograms (``sketch/``), O(buckets)
-memory for any stream length, merged by addition, with an error bound
-computable from the sketch itself (``sketch.auroc_error_bound``,
-``sketch.auprc_error_bound``). ``compaction_threshold`` then sets how many
-staged rows fold at once (default ``sketch.SKETCH_FOLD_ROWS``); each fold is
-one launch of the segment-sum kernel (``csrc/scatter.cu``). A
-``compute()`` folds leftover staged rows into a temporary histogram and
-leaves the state as it was.
+the summary gives way to a resident, fixed-size score sketch, with the
+lifecycle every score-sketch metric shares
+(``sketch/cache.py::ScoreSketchCacheMixin``): ``sketch_tp``/``sketch_fp``
+int32 bucket histograms, O(buckets) memory for any stream length, merged by
+addition, with an error bound computable from the sketch itself
+(``sketch.auroc_error_bound``, ``sketch.auprc_error_bound``).
+``compaction_threshold``, when given, sets how many staged rows fold at once
+(default ``sketch.SKETCH_FOLD_ROWS``); each fold is one launch of the
+segment-sum kernel (``csrc/scatter.cu``). A ``compute()`` folds leftover
+staged rows into a temporary histogram and leaves the state as it was.
 
 **Data-parallel compute** (``parallel/evaluator.py::ShardedEvaluator``):
-each rank holds its own cache, and :meth:`_CompactingCacheLifecycle.
-_distributed_compute` computes the result over a process group without
-gathering the samples. An exact metric runs the distributed curve
-(``ops/dist_curves.py``: a bucket exchange, a sort a rank, a few small
-collectives) when every rank's cache is raw entries only; a rank whose
+each rank holds its own cache, and :meth:`_CurveMetric._distributed_compute`
+computes the result over a process group without gathering the samples. An
+exact metric runs the distributed curve (``ops/dist_curves.py``: a bucket
+exchange, a sort a rank, a few small collectives) when every rank's cache
+is raw entries only; a rank whose
 cache holds summary rows or a NaN flag abstains through the route's first
 collective, and a NaN score or a bucket overflow shows in its error
 channel, so every rank stands down together and the caller syncs by
@@ -77,22 +78,10 @@ from torcheval_tpu_torch.ops.curves import (
     multiclass_auroc_kernel,
 )
 from torcheval_tpu_torch.ops.dist_curves import curve_value, record_call, sharded_sketch_counts
-from torcheval_tpu_torch.ops.summary import (
-    PAD_SCORE,
-    compact_count_rows,
-    compact_count_rows_fast,
-    compact_counts,
-    compact_counts_fast,
-)
+from torcheval_tpu_torch.ops.summary import PAD_SCORE, compact_count_rows_fast, compact_counts_fast
 from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_BUCKET_BITS
 from torcheval_tpu_torch.sketch.cache import (
-    SKETCH_FOLD_ROWS,
-    fold_staged_scores,
-    folded_sketch_parts,
-    merge_score_sketch_states,
-    raise_sketch_nan,
-    raise_sketch_overflow,
-    register_score_sketch_states,
+    ScoreSketchCacheMixin,
     resolve_approx,
     sketch_auprc_from_parts,
     sketch_auroc_from_parts,
@@ -153,25 +142,19 @@ def _auprc_from_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp):
     )
 
 
-# Fold pipeline:
-#   "auto" - one sort + stream compaction (compact_counts_fast): the CUDA
-#            kernel for state on the card, its plain version on the CPU
-#   "off"  - the two-sort compact_counts
-STREAM_COMPACTION = "auto"
-
-
-def _compact_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int, fast: bool):
-    """Fold + pad-to-cap + compact. Returns ``(s, tp, fp, n_unique,
-    nan_acc')``; the NaN-sample count accumulates on the device and is
-    checked once, at ``compute()``."""
+def _compact_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int):
+    """Fold + pad-to-cap + compact: one sort plus the stream compaction
+    (``compact_counts_fast``; the CUDA kernel for state on the card, its
+    plain version on the CPU). Returns ``(s, tp, fp, n_unique, nan_acc')``;
+    the NaN-sample count accumulates on the device and is checked once, at
+    ``compute()``."""
     s, tp, fp = _combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp)
     n = s.shape[0]
     if cap > n:
         s = torch.cat([s, s.new_full((cap - n,), PAD_SCORE)])
         tp = torch.cat([tp, tp.new_zeros(cap - n)])
         fp = torch.cat([fp, fp.new_zeros(cap - n)])
-    compact = compact_counts_fast if fast else compact_counts
-    s, tp, fp, n_unique, nan_dropped = compact(s, tp, fp)
+    s, tp, fp, n_unique, nan_dropped = compact_counts_fast(s, tp, fp)
     return s, tp, fp, n_unique, nan_acc + nan_dropped
 
 
@@ -194,15 +177,12 @@ def _mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes):
     return torch.cat(parts_s, dim=1), torch.cat(parts_tp, dim=1), torch.cat(parts_fp, dim=1)
 
 
-def _mc_compact_parts(
-    raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int, num_classes: int, fast: bool
-):
+def _mc_compact_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp, nan_acc, cap: int, num_classes: int):
     """Per-class compaction: the binary :func:`_compact_parts` on every
-    class row, the JAX package's ``jax.vmap(compact_counts)``. Returns
+    class row, the JAX package's ``jax.vmap(compact_counts)``, as one
+    stream compaction over all rows (the kernel on the card). Returns
     ``(K, C)`` summary columns, the largest per-class unique count (for the
-    adaptive trim) and the accumulated NaN entry count. ``fast`` compacts
-    with one stream compaction over all rows (the kernel on the card), else
-    with a second batched sort."""
+    adaptive trim) and the accumulated NaN entry count."""
     s, tp, fp = _mc_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp, num_classes)
     n = s.shape[1]
     if cap > n:
@@ -210,8 +190,7 @@ def _mc_compact_parts(
         s = torch.cat([s, s.new_full(pad, PAD_SCORE)], dim=1)
         tp = torch.cat([tp, tp.new_zeros(pad)], dim=1)
         fp = torch.cat([fp, fp.new_zeros(pad)], dim=1)
-    compact = compact_count_rows_fast if fast else compact_count_rows
-    s2, tp2, fp2, n_unique, nan_dropped = compact(s, tp, fp)
+    s2, tp2, fp2, n_unique, nan_dropped = compact_count_rows_fast(s, tp, fp)
     return s2.T, tp2.T, fp2.T, n_unique.max(), nan_acc + nan_dropped
 
 
@@ -242,38 +221,29 @@ def _mc_auprc_presorted(s, tp, fp):
     return binary_auprc_counts_presorted_kernel(s.T, tp.T, fp.T)
 
 
+# the exact summary's states, which the score sketch replaces in approx mode
+_SUMMARY_CACHES = ("summary_scores", "summary_tp", "summary_fp")
+
+
 class _CompactingCacheLifecycle:
-    """Compaction lifecycle of the sample-cache curve metrics: the threshold,
-    the cache-row counter every state mutation keeps true, the device-side
-    NaN-sample flag, and the merge/reset/load hooks. Subclasses implement
-    :meth:`_compact` and register their states via :meth:`_init_compaction`.
+    """Exact lifecycle of the sample-cache curve metrics: the raw cache, the
+    compaction threshold, the cache-row counter every state mutation keeps
+    true, the compacted summary, the device-side NaN-sample flag, the
+    merge/reset/load hooks and the distributed exact route. Subclasses
+    implement :meth:`_compact` and register their states via
+    :meth:`_init_compaction`.
     """
 
     # what one unit of the NaN counter is, for the compute-time error: the
     # binary metrics count samples, the multiclass ones per-class entries
     _NAN_FLAG_NOUN = "sample(s)"
 
-    # bucket_bits of the resident score sketch in approx= mode, else None.
-    # In approx mode compaction_threshold is the staging-fold cadence and
-    # _compact folds into fixed-size histograms instead of summaries.
-    _sketch_bits: Optional[int] = None
-
-    def _init_compaction(
-        self,
-        compaction_threshold: Optional[int],
-        *,
-        approx_bits: Optional[int] = None,
-        sketch_classes: Optional[int] = None,
-    ) -> None:
+    def _init_compaction(self, compaction_threshold: Optional[int]) -> None:
         if compaction_threshold is not None and compaction_threshold <= 0:
             raise ValueError(
                 f"compaction_threshold must be positive or None, got "
                 f"{compaction_threshold}."
             )
-        self._sketch_bits = approx_bits
-        self._sketch_classes = sketch_classes
-        if approx_bits is not None and compaction_threshold is None:
-            compaction_threshold = SKETCH_FOLD_ROWS
         self._compaction_threshold = compaction_threshold
         self._cached_samples = 0
         self._nan_checked = True  # no compactions yet -> nothing to check
@@ -284,38 +254,13 @@ class _CompactingCacheLifecycle:
         self._summary_sorted = True
         self._add_cache_state("inputs")
         self._add_cache_state("targets")
-        if approx_bits is not None:
-            # the resident sketch: SUM is the exact merge (adding buckets)
-            register_score_sketch_states(self, approx_bits, sketch_classes)
-            return
-        self._add_cache_state("summary_scores")
-        self._add_cache_state("summary_tp")
-        self._add_cache_state("summary_fp")
+        for name in _SUMMARY_CACHES:
+            self._add_cache_state(name)
         self._add_state(
             "summary_nan_dropped",
             zeros_state((), dtype=torch.int32),
             reduction=Reduction.SUM,
         )
-
-    def _sketch_enabled(self) -> bool:
-        return self._sketch_bits is not None
-
-    def _sketch_compact(self) -> None:
-        """Approx-mode ``_compact``: fold the staged raw cache into the
-        resident histograms."""
-        fold_staged_scores(self)
-        self._cached_samples = 0
-
-    def _sketch_value(self, from_parts):
-        """An approx-mode compute over the staged leftovers and the resident
-        sketch (state untouched, so ``compute()`` stays idempotent), then
-        the overflow and NaN checks, one host read each."""
-        *value, nan_total, overflow = from_parts(
-            *folded_sketch_parts(self), self._sketch_bits
-        )
-        raise_sketch_overflow(overflow)
-        raise_sketch_nan(nan_total, self._NAN_FLAG_NOUN)
-        return value[0] if len(value) == 1 else tuple(value)
 
     def _compact(self) -> None:
         raise NotImplementedError
@@ -332,7 +277,7 @@ class _CompactingCacheLifecycle:
         # any installed state may carry a nonzero NaN flag or an unsorted
         # summary from another replica
         super()._set_states(values)
-        if "summary_nan_dropped" in values or "sketch_nan_dropped" in values:
+        if "summary_nan_dropped" in values:
             self._nan_checked = False
         if any(k.startswith("summary_") for k in values):
             self._summary_sorted = False
@@ -352,6 +297,18 @@ class _CompactingCacheLifecycle:
         self.summary_fp = [fp[:keep].clone()]
         self._cached_samples = 0
         self._summary_sorted = True
+
+    def _presorted_summary(self):
+        """``(s, tp, fp)`` when the state is a single summary buffer known to
+        be sorted and unique (per class, for ``(K, C)`` columns), else None.
+        Raw leftovers give None rather than a forced compaction: feeding
+        them to the sorting compute is less work than a compaction followed
+        by the presorted compute."""
+        if self._compaction_threshold is None:
+            return None
+        if not self._summary_sorted or self.inputs or len(self.summary_scores) != 1:
+            return None
+        return self.summary_scores[0], self.summary_tp[0], self.summary_fp[0]
 
     def _check_nan_flag(self) -> None:
         """Raise at compute time if NaN-scored samples ever reached a
@@ -385,12 +342,6 @@ class _CompactingCacheLifecycle:
         self._cached_samples = sum(int(a.shape[0]) for a in self.inputs)
         if self._compaction_threshold is None:
             return
-        if self._sketch_bits is not None:
-            # the raw cache is a staging buffer; the resident sketch's size
-            # is fixed and never re-triggers a fold
-            if self._cached_samples >= self._compaction_threshold:
-                self._compact()
-            return
         # compact when raw rows exceed the threshold, OR when merges have
         # fragmented the summary into several buffers past the threshold; a
         # single summary buffer never re-triggers, so this cannot loop
@@ -404,16 +355,11 @@ class _CompactingCacheLifecycle:
         metrics = list(metrics)
         self._summary_sorted = False  # concatenated segments may overlap
         super().merge_state(metrics)
-        if self._sketch_bits is not None:
-            # the cache base merges only the list states; adding the
-            # replicas' buckets is the exact sketch merge
-            merge_score_sketch_states(self, metrics)
-        else:
-            for metric in metrics:
-                # the NaN flag is additive across replicas
-                self.summary_nan_dropped = self.summary_nan_dropped + (
-                    metric.summary_nan_dropped.to(self._device)
-                )
+        for metric in metrics:
+            # the NaN flag is additive across replicas
+            self.summary_nan_dropped = self.summary_nan_dropped + (
+                metric.summary_nan_dropped.to(self._device)
+            )
         self._nan_checked = False
         self._recount_cache()
         return self
@@ -453,22 +399,16 @@ class _CompactingCacheLifecycle:
 
     def _sharded_raw_mesh(self, group) -> bool:
         """True when the distributed exact curve applies to this metric over
-        ``group``: not for approximate metrics (their sketch route), a
-        multiclass metric without ``num_classes`` (a rank with no rows could
-        not shape its blocks), or a group of one rank. Decided from the
-        configuration and the group alone, so every rank decides alike;
-        what this rank's cache holds rides the route's first collective
-        (:meth:`_sharded_value`)."""
-        if self._sketch_bits is not None or self._DIST_KERNEL is None:
+        ``group``: not for a multiclass metric without ``num_classes`` (a
+        rank with no rows could not shape its blocks), or a group of one
+        rank. Decided from the configuration and the group alone, so every
+        rank decides alike; what this rank's cache holds rides the route's
+        first collective (:meth:`_sharded_value`)."""
+        if self._DIST_KERNEL is None:
             return False
         if self._family() == "multiclass" and getattr(self, "num_classes", None) is None:
             return False
         return _group_size(group) > 1
-
-    def _sketch_sharded_mesh(self, group) -> bool:
-        """True when the sketch all-reduce applies: an approximate metric
-        over more than one rank."""
-        return self._sketch_bits is not None and _group_size(group) > 1
 
     def _sharded_value(self, group):
         """The exact value over ``group`` by the distributed curve, or None
@@ -490,19 +430,6 @@ class _CompactingCacheLifecycle:
         or None on every rank when no route applies (then the caller syncs
         the metric by gathering). Every rank of ``group`` calls it
         together. The state is read, never changed."""
-        if self._sketch_sharded_mesh(group):
-            s_list, t_list = self._cache_blocks()
-            tp, fp, nan = sharded_sketch_counts(
-                s_list, t_list, group=group, bucket_bits=self._sketch_bits,
-                num_classes=self._sketch_classes,
-                base=(self.sketch_tp, self.sketch_fp, self.sketch_nan_dropped),
-            )
-            record_call("sketch", self._family())
-            # the metric's own compute over the global sketch, nothing staged
-            view = copy.copy(self)
-            view.inputs, view.targets = [], []
-            view.sketch_tp, view.sketch_fp, view.sketch_nan_dropped = tp, fp, nan
-            return view.compute()
         value = self._sharded_value(group)
         if value is None:
             return None
@@ -516,7 +443,61 @@ def _group_size(group) -> int:
     return _dist.world_size(_dist.process_group(group))
 
 
-class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tensor]):
+class _CurveMetric(ScoreSketchCacheMixin, _CompactingCacheLifecycle, SampleCacheMetric[torch.Tensor]):
+    """State of the AUROC/AUPRC family: the exact lifecycle, or with
+    ``approx=`` the score sketch's (module doc). The sketch's mixin stands
+    first, so in approx mode the exact lifecycle never runs."""
+
+    def _init_curve(
+        self, compaction_threshold: Optional[int], bits: Optional[int], num_classes=None
+    ) -> None:
+        self._init_compaction(compaction_threshold)
+        if bits is not None:
+            self._init_score_sketch(bits, num_classes=num_classes)
+
+    def _init_score_sketch(self, bits: int, *, num_classes: Optional[int] = None) -> None:
+        """The sketch takes the exact summary's place in the state (here and
+        in ``enable_metric_approx``); a given ``compaction_threshold`` is
+        its fold cadence."""
+        for name in (*_SUMMARY_CACHES, "summary_nan_dropped"):
+            del self._state_name_to_default[name], self._state_name_to_reduction[name]
+            delattr(self, name)
+        if self._compaction_threshold is not None:
+            self._sketch_fold_rows = self._compaction_threshold
+        super()._init_score_sketch(bits, num_classes=num_classes)
+
+    def _cache_batch(self, input, target):
+        self.inputs.append(input)
+        self.targets.append(target)
+        if self._sketch_enabled():
+            self._score_sketch_stage(input.shape[0])
+        else:
+            self._count_cached_update(input.shape[0])
+        return self
+
+    def _distributed_compute(self, group):
+        """The exact routes, or for an approximate metric over more than one
+        rank, every rank's resident sketch and staged rows added in one
+        int32 all-reduce."""
+        if not self._sketch_enabled():
+            return super()._distributed_compute(group)
+        if _group_size(group) <= 1:
+            return None
+        s_list, t_list = self._cache_blocks()
+        tp, fp, nan = sharded_sketch_counts(
+            s_list, t_list, group=group, bucket_bits=self._sketch_bits,
+            num_classes=self._sketch_classes,
+            base=(self.sketch_tp, self.sketch_fp, self.sketch_nan_dropped),
+        )
+        record_call("sketch", self._family())
+        # the metric's own compute over the global sketch, nothing staged
+        view = copy.copy(self)
+        view.inputs, view.targets = [], []
+        view.sketch_tp, view.sketch_fp, view.sketch_nan_dropped = tp, fp, nan
+        return view.compute()
+
+
+class _BinaryCurveMetric(_CurveMetric):
     """Cache and compaction machinery of the binary curve metrics.
 
     State is five CAT caches: raw ``inputs``/``targets`` and a summary of
@@ -543,25 +524,18 @@ class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tens
         device: DeviceLike = None,
     ) -> None:
         super().__init__(device=device)
-        self._init_compaction(
-            compaction_threshold,
-            approx_bits=resolve_approx(approx, default_bits=DEFAULT_BUCKET_BITS),
+        self._init_curve(
+            compaction_threshold, resolve_approx(approx, default_bits=DEFAULT_BUCKET_BITS)
         )
 
     def update(self, input, target) -> "_BinaryCurveMetric":
         input, target = self._input(input), self._input(target)
         _auroc_update_input_check(input, target)
-        self.inputs.append(input)
-        self.targets.append(target)
-        self._count_cached_update(input.shape[0])
-        return self
+        return self._cache_batch(input, target)
 
     def _compact(self) -> None:
         """Fold raw cache + summary into one padded unique-threshold summary,
-        padded to a 4M-row granule (a power of two below that); in approx
-        mode, fold the staged rows into the sketch."""
-        if self._sketch_bits is not None:
-            return self._sketch_compact()
+        padded to a 4M-row granule (a power of two below that)."""
         n = sum(int(a.shape[0]) for a in self.inputs) + sum(
             int(a.shape[0]) for a in self.summary_scores
         )
@@ -576,22 +550,12 @@ class _BinaryCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tens
                 self.summary_fp,
                 self.summary_nan_dropped,
                 _pad_cap(n),
-                STREAM_COMPACTION != "off",
             )
         )
 
-    def _presorted_summary(self):
-        """``(s, tp, fp)`` when the state is a single summary buffer known to
-        be sorted and unique, else None. Raw leftovers give None rather than
-        a forced compaction: feeding them to the sorting compute is less
-        work than a compaction followed by the presorted compute."""
-        if self._compaction_threshold is None or STREAM_COMPACTION == "off":
-            return None
-        if not self._summary_sorted or self.inputs or len(self.summary_scores) != 1:
-            return None
-        return self.summary_scores[0], self.summary_tp[0], self.summary_fp[0]
-
-    def _value(self, empty: float, presorted_fn, from_parts):
+    def _value(self, empty: float, presorted_fn, from_parts, sketch_from_parts):
+        if self._sketch_enabled():
+            return self._score_sketch_value(sketch_from_parts)
         if not (self.inputs or self.summary_scores):
             return torch.tensor(empty, device=self._device)
         record_call("fused", "binary")
@@ -620,10 +584,8 @@ class BinaryAUROC(_BinaryCurveMetric):
     _DIST_KERNEL = "auroc"
 
     def compute(self) -> torch.Tensor:
-        if self._sketch_bits is not None:
-            return self._sketch_value(sketch_auroc_from_parts)
         return self._value(
-            0.5, binary_auroc_counts_presorted_kernel, _auroc_from_parts
+            0.5, binary_auroc_counts_presorted_kernel, _auroc_from_parts, sketch_auroc_from_parts
         )
 
 
@@ -633,14 +595,12 @@ class BinaryAUPRC(_BinaryCurveMetric):
     _DIST_KERNEL = "auprc"
 
     def compute(self) -> torch.Tensor:
-        if self._sketch_bits is not None:
-            return self._sketch_value(sketch_auprc_from_parts)
         return self._value(
-            0.0, binary_auprc_counts_presorted_kernel, _auprc_from_parts
+            0.0, binary_auprc_counts_presorted_kernel, _auprc_from_parts, sketch_auprc_from_parts
         )
 
 
-class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.Tensor]):
+class _MulticlassCurveMetric(_CurveMetric):
     """Cache and compaction machinery of the one-vs-all multiclass curve
     metrics: the raw ``(N, C)`` score and ``(N,)`` label caches, and with
     ``compaction_threshold`` set, per-class exact unique-threshold summaries
@@ -663,26 +623,20 @@ class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.
         _mc_curve_param_check(num_classes, average)
         self.num_classes = num_classes
         self.average = average
-        self._init_compaction(
+        self._init_curve(
             compaction_threshold,
-            approx_bits=resolve_approx(approx, default_bits=DEFAULT_MC_BUCKET_BITS),
-            sketch_classes=num_classes,
+            resolve_approx(approx, default_bits=DEFAULT_MC_BUCKET_BITS),
+            num_classes,
         )
 
     def update(self, input, target):
         input, target = self._input(input), self._input(target)
         _multiclass_precision_recall_curve_update_input_check(input, target, self.num_classes)
-        self.inputs.append(input)
-        self.targets.append(target)
-        self._count_cached_update(input.shape[0])
-        return self
+        return self._cache_batch(input, target)
 
     def _compact(self) -> None:
         """Fold the raw cache and the per-class summaries into one padded
-        ``(K, C)`` summary set (one host read, for the adaptive trim); in
-        approx mode, fold the staged rows into the ``(C, B)`` sketch."""
-        if self._sketch_bits is not None:
-            return self._sketch_compact()
+        ``(K, C)`` summary set (one host read, for the adaptive trim)."""
         n = sum(int(a.shape[0]) for a in self.inputs) + sum(
             int(a.shape[0]) for a in self.summary_scores
         )
@@ -698,27 +652,18 @@ class _MulticlassCurveMetric(_CompactingCacheLifecycle, SampleCacheMetric[torch.
                 self.summary_nan_dropped,
                 _pad_cap(n),
                 self.num_classes,
-                STREAM_COMPACTION != "off",
             )
         )
 
-    def _mc_presorted(self):
-        """``(K, C)`` summary columns when the state is one buffer known to
-        be sorted and unique per class, else None (raw leftovers included:
-        see :meth:`_BinaryCurveMetric._presorted_summary`)."""
-        if self._compaction_threshold is None:
-            return None
-        if not self._summary_sorted or self.inputs or len(self.summary_scores) != 1:
-            return None
-        return self.summary_scores[0], self.summary_tp[0], self.summary_fp[0]
-
-    def _value(self, empty: float, presorted_fn, from_parts):
+    def _value(self, empty: float, presorted_fn, from_parts, sketch_from_parts):
+        if self._sketch_enabled():
+            return _mc_average(self._score_sketch_value(sketch_from_parts), self.average)
         if not (self.inputs or self.summary_scores):
             if self.average == "macro":
                 return torch.tensor(empty, device=self._device)
             return torch.full((self.num_classes,), empty, device=self._device)
         record_call("fused", "multiclass")
-        presorted = self._mc_presorted()
+        presorted = self._presorted_summary()
         if presorted is not None:
             per_class = presorted_fn(*presorted)
         else:
@@ -741,10 +686,7 @@ class MulticlassAUROC(_MulticlassCurveMetric):
     _DIST_KERNEL = "mc_auroc"
 
     def compute(self) -> torch.Tensor:
-        if self._sketch_bits is not None:
-            per_class = self._sketch_value(sketch_auroc_from_parts)
-            return _mc_average(per_class, self.average)
-        return self._value(0.5, _mc_auroc_presorted, _mc_auroc_from_parts)
+        return self._value(0.5, _mc_auroc_presorted, _mc_auroc_from_parts, sketch_auroc_from_parts)
 
 
 class MulticlassAUPRC(_MulticlassCurveMetric):
@@ -754,7 +696,4 @@ class MulticlassAUPRC(_MulticlassCurveMetric):
     _DIST_KERNEL = "mc_auprc"
 
     def compute(self) -> torch.Tensor:
-        if self._sketch_bits is not None:
-            per_class = self._sketch_value(sketch_auprc_from_parts)
-            return _mc_average(per_class, self.average)
-        return self._value(0.0, _mc_auprc_presorted, _mc_auprc_from_parts)
+        return self._value(0.0, _mc_auprc_presorted, _mc_auprc_from_parts, sketch_auprc_from_parts)

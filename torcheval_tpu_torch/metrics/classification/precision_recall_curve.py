@@ -7,10 +7,12 @@ functional curve over it (one sort on the device, the trim on the host).
 
 With ``approx=`` (or the ``TORCHEVAL_TPU_APPROX`` environment variable) the
 cache becomes a staging buffer folded into resident ``(tp, fp)`` bucket
-histograms (``sketch/``), and ``compute()`` returns the curve over the
-nonempty buckets with the bucket representatives as thresholds: one point
-an occupied bucket, thresholds within the sketch's relative error of the
-scores, counts across buckets exact. Memory is O(buckets) for any stream
+histograms every ``sketch.SKETCH_FOLD_ROWS`` rows, with the lifecycle the
+AUROC/AUPRC share (``sketch/cache.py::ScoreSketchCacheMixin``), and
+``compute()`` returns the curve over the nonempty buckets with the bucket
+representatives as thresholds: one point an occupied bucket, thresholds
+within the sketch's relative error of the scores, counts across buckets
+exact. Memory is O(buckets) for any stream
 length; merges add buckets. The multiclass sketch needs ``num_classes`` at
 construction (it sizes the ``(C, B)`` state); when only the environment
 variable asks for it and ``num_classes`` is missing, the metric stays exact
@@ -33,8 +35,6 @@ from torcheval_tpu_torch.metrics.sample_cache import SampleCacheMetric
 from torcheval_tpu_torch.sketch.buckets import DEFAULT_BUCKET_BITS, DEFAULT_MC_BUCKET_BITS
 from torcheval_tpu_torch.sketch.cache import (
     ScoreSketchCacheMixin,
-    folded_sketch_parts,
-    raise_sketch_overflow,
     resolve_approx,
     sketch_prc_from_parts,
 )
@@ -72,11 +72,7 @@ class BinaryPrecisionRecallCurve(ScoreSketchCacheMixin, SampleCacheMetric[_Curve
 
     def compute(self) -> _CurveResult:
         if self._sketch_enabled():
-            precision, recall, nonempty, nan, overflow = sketch_prc_from_parts(
-                *folded_sketch_parts(self), self._sketch_bits
-            )
-            raise_sketch_overflow(overflow)
-            self._sketch_check_nan(nan)
+            precision, recall, nonempty = self._score_sketch_value(sketch_prc_from_parts)
             return trim_hist_curve(precision, recall, nonempty, self._sketch_bits)
         if not self.inputs:
             empty = torch.empty(0, device=self._device)
@@ -134,11 +130,7 @@ class MulticlassPrecisionRecallCurve(
 
     def compute(self):
         if self._sketch_enabled():
-            precision, recall, nonempty, nan, overflow = sketch_prc_from_parts(
-                *folded_sketch_parts(self), self._sketch_bits
-            )
-            raise_sketch_overflow(overflow)
-            self._sketch_check_nan(nan, "per-class score entry(ies)")
+            precision, recall, nonempty = self._score_sketch_value(sketch_prc_from_parts)
             precisions, recalls, thresholds = [], [], []
             for c in range(self.num_classes):
                 pc, rc, tc = trim_hist_curve(

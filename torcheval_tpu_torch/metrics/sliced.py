@@ -89,6 +89,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torcheval_tpu_torch.metrics.classification.auroc import _CurveMetric, _MulticlassCurveMetric
 from torcheval_tpu_torch.metrics.collection import MetricCollection
 from torcheval_tpu_torch.metrics.deferred import DeferredFoldMixin
 from torcheval_tpu_torch.metrics.metric import Metric
@@ -819,10 +820,6 @@ def _check_rows_column(rows: torch.Tensor, args) -> None:
 
 
 # ------------------------------------------------------------- sliceability
-def _is_sketch_curve(metric: Metric) -> bool:
-    return hasattr(metric, "_compaction_threshold") and hasattr(metric, "_compact")
-
-
 def check_sliceable(metric: Metric, *, approx: Any = None) -> None:
     """Raise ``ValueError`` when ``metric`` cannot expand over a slice axis.
 
@@ -833,8 +830,8 @@ def check_sliceable(metric: Metric, *, approx: Any = None) -> None:
     or an exact one that ``approx`` (when given) will switch. Exact curves
     and multiclass sketches reject with the JAX package's reasons."""
     cls = type(metric)
-    if _is_sketch_curve(metric):
-        if hasattr(metric, "num_classes"):
+    if isinstance(metric, _CurveMetric):
+        if isinstance(metric, _MulticlassCurveMetric):
             raise ValueError(
                 f"{cls.__qualname__} cannot be sliced: per-slice multiclass sketch "
                 "state would be (slices, classes, buckets); slice the binary "
@@ -847,7 +844,7 @@ def check_sliceable(metric: Metric, *, approx: Any = None) -> None:
                 "sample cache is O(samples) per slice and cannot survive the slice "
                 "explosion."
             )
-        if bool(getattr(metric, "inputs", None)) or bool(getattr(metric, "_cached_samples", 0)):
+        if metric.inputs:
             raise ValueError(
                 "cannot slice a curve metric that already holds streamed "
                 "samples; construct it fresh."
@@ -900,7 +897,7 @@ def _build_member(
     shard: Optional[MeshAxis] = None,
 ) -> _SlicedMemberBase:
     check_sliceable(template)
-    if _is_sketch_curve(template):
+    if isinstance(template, _CurveMetric):
         return _SlicedScoreSketchMember(
             template, table, curve_bucket_bits=curve_bucket_bits, shard=shard
         )

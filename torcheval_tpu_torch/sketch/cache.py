@@ -8,20 +8,20 @@ of ``sketch/histogram.py`` and the sample-cache metric classes:
 * the knob: the ``approx=`` argument and the ``TORCHEVAL_TPU_APPROX``
   environment variable, the same one the JAX package reads, so one setting
   drives both packages (:func:`resolve_approx`);
-* the staged-fold cadence: ``update()`` appends to the raw cache (no device
-  work) and the staged rows fold into the resident histograms once they
-  reach :data:`SKETCH_FOLD_ROWS` rows (for the compacting curve metrics,
-  their ``compaction_threshold``), so memory stays ``O(buckets) +
-  O(cadence)`` for any stream length;
-* the compute-from-parts functions: a ``compute()`` folds leftover staged
-  rows into a temporary histogram and never changes state, so
-  ``compute(); compute()`` and ``compute(); update(); compute()`` give what
-  a fold at each step would;
+* :class:`ScoreSketchCacheMixin`, the one lifecycle of every score-sketch
+  metric (``BinaryAUROC``, ``BinaryAUPRC``, ``MulticlassAUROC``,
+  ``MulticlassAUPRC`` and the precision-recall curves): ``update()``
+  appends to the raw cache (no device work) and the staged rows fold into
+  the resident histograms once they reach :data:`SKETCH_FOLD_ROWS` rows (or
+  an AUROC/AUPRC's ``compaction_threshold``, when the caller gave one), so
+  memory stays ``O(buckets) + O(cadence)`` for any stream length; a
+  ``compute()`` folds leftover staged rows into a temporary histogram and
+  never changes state, so ``compute(); compute()`` and ``compute();
+  update(); compute()`` give what a fold at each step would;
+* :class:`ValueSketchCacheMixin`, the same for ``HitRate``,
+  ``ReciprocalRank`` and ``Cat``;
 * :func:`enable_metric_approx`, which switches a fresh metric into sketch
   mode after construction (``dry_run=True`` validates only);
-* the mixins :class:`ScoreSketchCacheMixin` (the precision-recall curves)
-  and :class:`ValueSketchCacheMixin` (``HitRate``, ``ReciprocalRank``,
-  ``Cat``);
 * the sliced collection's sketch helpers (per-cohort ``(tp, fp)``
   histograms folded by one combined-index segment sum).
 
@@ -171,23 +171,6 @@ def _spanned_fold(metric, raw_s, raw_t):
     return spanned(name, {"kind": _score_kind(metric)}, _fold_parts, metric, raw_s, raw_t)
 
 
-def fold_staged_scores(metric) -> None:
-    """Fold a score-sketch metric's staged ``inputs``/``targets`` into its
-    resident ``sketch_tp``/``sketch_fp``/``sketch_nan_dropped`` (one
-    segment-sum launch, no host read: the sketch's shape is fixed) and
-    clear the staging caches. The caller resets its own row counter."""
-    if not metric.inputs:
-        return
-    rows = sum(int(a.shape[0]) for a in metric.inputs)
-    tp, fp, nan = _spanned_fold(metric, metric.inputs, metric.targets)
-    _count_fold(_score_kind(metric), rows)
-    metric.inputs = []
-    metric.targets = []
-    metric.sketch_tp = tp
-    metric.sketch_fp = fp
-    metric.sketch_nan_dropped = nan
-
-
 def folded_sketch_parts(metric):
     """``(tp, fp, nan)``: the resident sketch plus the staged leftovers,
     folded inside the ``metric.fold/<Class>`` span; state untouched, so a
@@ -230,47 +213,11 @@ def raise_sketch_overflow(flag) -> None:
         )
 
 
-# --------------------------------------------------- shared state registration
-def register_score_sketch_states(metric, bits: int, num_classes) -> None:
-    """The one definition of the resident score-sketch state: ``sketch_tp``
-    and ``sketch_fp`` int32 ``(B,)`` or ``(C, B)``, ``sketch_nan_dropped``
-    int32 scalar, all SUM."""
-    from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
-
-    shape = (1 << bits,) if num_classes is None else (num_classes, 1 << bits)
-    metric._add_state("sketch_tp", zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM)
-    metric._add_state("sketch_fp", zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM)
-    metric._add_state(
-        "sketch_nan_dropped", zeros_state((), dtype=torch.int32), reduction=Reduction.SUM
-    )
-
-
-def merge_score_sketch_states(metric, others) -> None:
-    """Add other replicas' resident score sketches into ``metric`` (their
-    staged rows arrive through the cache merge)."""
-    dev = metric.device
-    for other in others:
-        metric.sketch_tp = metric.sketch_tp + other.sketch_tp.to(dev)
-        metric.sketch_fp = metric.sketch_fp + other.sketch_fp.to(dev)
-        metric.sketch_nan_dropped = metric.sketch_nan_dropped + other.sketch_nan_dropped.to(dev)
-
-
 # ------------------------------------------------ switching after construction
-def _drop_state(metric, name: str) -> None:
-    metric._state_name_to_default.pop(name, None)
-    metric._state_name_to_reduction.pop(name, None)
-    if hasattr(metric, name):
-        delattr(metric, name)
-
-
-def _require_fresh(metric, *state_names: str) -> None:
-    """No streamed data anywhere: raw caches, the cached-sample count or the
-    named compacted states (a compacted curve metric has empty raw caches
-    while its summary holds every sample)."""
-    held = bool(getattr(metric, "inputs", None)) or bool(getattr(metric, "_cached_samples", 0))
-    for name in state_names:
-        held = held or bool(getattr(metric, name, None))
-    if held:
+def _require_fresh(metric) -> None:
+    """No streamed data: every cache state empty (a compacted curve metric
+    has empty raw caches while its summary caches hold every sample)."""
+    if any(getattr(metric, name) for name in metric._cache_names()):
         raise ValueError(
             "approx= cannot be applied to a metric that already holds "
             "streamed samples (the registered state schema is part of "
@@ -307,23 +254,6 @@ def enable_metric_approx(metric, approx, *, dry_run: bool = False) -> bool:
         return True
     if getattr(metric, "_always_approx", False):
         return True
-    # the compacting curve lifecycle: the exact summary states give way to
-    # the resident (tp, fp) histograms
-    if hasattr(metric, "_compaction_threshold") and hasattr(metric, "_compact"):
-        if metric._sketch_enabled():
-            return True
-        _require_fresh(metric, "summary_scores", "summary_tp", "summary_fp")
-        bits, num_classes = _score_sketch_bits(metric, approx)
-        if bits is None or dry_run:
-            return True
-        for name in ("summary_scores", "summary_tp", "summary_fp", "summary_nan_dropped"):
-            _drop_state(metric, name)
-        metric._sketch_bits = bits
-        metric._sketch_classes = num_classes
-        if metric._compaction_threshold is None:
-            metric._compaction_threshold = SKETCH_FOLD_ROWS
-        register_score_sketch_states(metric, bits, num_classes)
-        return True
     if isinstance(metric, ScoreSketchCacheMixin):
         if metric._sketch_enabled():
             return True
@@ -341,13 +271,7 @@ def enable_metric_approx(metric, approx, *, dry_run: bool = False) -> bool:
                 "approx= requires dim=0: the sketch pools elements and "
                 "cannot represent higher-dimension concat structure."
             )
-        if getattr(metric, cache_name):
-            raise ValueError(
-                "approx= cannot be applied to a metric that already holds "
-                "streamed samples (the registered state schema is part of "
-                "checkpoints and sync lanes); construct it with approx= "
-                "instead."
-            )
+        _require_fresh(metric)
         bits = resolve_approx(approx, default_bits=DEFAULT_BUCKET_BITS)
         if bits is not None and not dry_run:
             metric._init_value_sketch(bits, cache_name)
@@ -467,68 +391,115 @@ def sliced_curve_compute(tp, fp, nan, _hi, _lo, _count, bits, kind):
 
 
 # ------------------------------------------------------- score-sketch mixin
+def _cache_base():
+    # the metrics import this module, so their cache base is looked up late
+    from torcheval_tpu_torch.metrics.sample_cache import SampleCacheMetric
+
+    return SampleCacheMetric
+
+
 class ScoreSketchCacheMixin:
-    """Approx mode for (score, target) cache metrics without the compaction
-    lifecycle (the precision-recall curves): the raw ``inputs``/``targets``
-    caches become a staging buffer folded into resident ``(tp, fp)``
-    histograms every :data:`SKETCH_FOLD_ROWS` rows. The compacting curve
-    metrics (``classification/auroc.py``) fold on their
-    ``compaction_threshold`` instead, through the same fold functions."""
+    """Approx mode for the (score, target) sample-cache metrics: the
+    AUROC/AUPRC family and the precision-recall curves. The raw
+    ``inputs``/``targets`` caches become a staging buffer, counted in
+    ``_sketch_staged`` and folded into resident ``sketch_tp``/``sketch_fp``
+    int32 ``(B,)`` or ``(C, B)`` histograms and a ``sketch_nan_dropped``
+    count, all SUM, every ``_sketch_fold_rows`` rows
+    (:data:`SKETCH_FOLD_ROWS`; an AUROC/AUPRC given ``compaction_threshold``
+    sets its own). A merge adds the replicas' buckets, and a merge or a load
+    recounts the staged rows.
+
+    It stands first among a metric's bases. With the sketch on, each
+    lifecycle hook here is the whole lifecycle over the cache base, past
+    any exact-mode lifecycle the metric also has; with it off, each hook is
+    the next base's."""
 
     _sketch_bits: Optional[int] = None
+    _sketch_fold_rows: int = SKETCH_FOLD_ROWS
 
     def _init_score_sketch(self, bits: int, *, num_classes: Optional[int] = None) -> None:
+        from torcheval_tpu_torch.metrics.state import Reduction, zeros_state
+
         self._sketch_bits = bits
         self._sketch_classes = num_classes
         self._sketch_staged = 0
-        register_score_sketch_states(self, bits, num_classes)
+        shape = (1 << bits,) if num_classes is None else (num_classes, 1 << bits)
+        for name in ("sketch_tp", "sketch_fp"):
+            self._add_state(name, zeros_state(shape, dtype=torch.int32), reduction=Reduction.SUM)
+        self._add_state(
+            "sketch_nan_dropped", zeros_state((), dtype=torch.int32), reduction=Reduction.SUM
+        )
 
     def _sketch_enabled(self) -> bool:
         return self._sketch_bits is not None
 
     def _score_sketch_stage(self, n_rows: int) -> None:
         self._sketch_staged += n_rows
-        if self._sketch_staged >= SKETCH_FOLD_ROWS:
+        if self._sketch_staged >= self._sketch_fold_rows:
             self._score_sketch_fold()
 
     def _score_sketch_fold(self) -> None:
-        fold_staged_scores(self)
+        """Fold the staged rows into the resident sketch (one segment-sum
+        launch, no host read: the sketch's shape is fixed) and clear the
+        staging caches."""
+        if self.inputs:
+            rows = sum(int(a.shape[0]) for a in self.inputs)
+            tp, fp, nan = _spanned_fold(self, self.inputs, self.targets)
+            _count_fold(_score_kind(self), rows)
+            self.inputs = []
+            self.targets = []
+            self.sketch_tp, self.sketch_fp, self.sketch_nan_dropped = tp, fp, nan
         self._sketch_staged = 0
-
-    def _sketch_check_nan(self, nan, noun: str = "sample(s)") -> None:
-        raise_sketch_nan(nan, noun)
 
     def _score_sketch_recount(self) -> None:
         self._sketch_staged = sum(int(a.shape[0]) for a in self.inputs)
-        if self._sketch_staged >= SKETCH_FOLD_ROWS:
+        if self._sketch_staged >= self._sketch_fold_rows:
             self._score_sketch_fold()
 
-    def _sketch_merge_from(self, metrics) -> None:
-        merge_score_sketch_states(self, metrics)
+    def _score_sketch_value(self, from_parts):
+        """``from_parts`` over the resident sketch plus the staged leftovers
+        (state untouched, so ``compute()`` stays idempotent), then the
+        overflow and NaN checks, one host read each. Returns the value, or
+        the tuple of values, before the NaN count and the overflow flag."""
+        *value, nan, overflow = from_parts(*folded_sketch_parts(self), self._sketch_bits)
+        raise_sketch_overflow(overflow)
+        raise_sketch_nan(
+            nan, "sample(s)" if self._sketch_classes is None else "per-class score entry(ies)"
+        )
+        return value[0] if len(value) == 1 else tuple(value)
 
     def _prepare_for_merge_state(self) -> None:
-        if self._sketch_enabled():
-            self._score_sketch_fold()
-        super()._prepare_for_merge_state()
+        if not self._sketch_enabled():
+            return super()._prepare_for_merge_state()
+        # a sync ships the bounded sketch, never the staged rows
+        self._score_sketch_fold()
+        _cache_base()._prepare_for_merge_state(self)
 
     def merge_state(self, metrics):
+        if not self._sketch_enabled():
+            return super().merge_state(metrics)
         metrics = list(metrics)
-        super().merge_state(metrics)
-        if self._sketch_enabled():
-            self._sketch_merge_from(metrics)
-            self._score_sketch_recount()
+        _cache_base().merge_state(self, metrics)  # the staged rows
+        dev = self.device
+        for other in metrics:
+            self.sketch_tp = self.sketch_tp + other.sketch_tp.to(dev)
+            self.sketch_fp = self.sketch_fp + other.sketch_fp.to(dev)
+            self.sketch_nan_dropped = self.sketch_nan_dropped + other.sketch_nan_dropped.to(dev)
+        self._score_sketch_recount()
         return self
 
     def reset(self):
-        super().reset()
-        if self._sketch_enabled():
-            self._sketch_staged = 0
+        if not self._sketch_enabled():
+            return super().reset()
+        _cache_base().reset(self)
+        self._sketch_staged = 0
         return self
 
     def load_state_dict(self, state_dict, strict: bool = True) -> None:
-        super().load_state_dict(state_dict, strict)
-        if self._sketch_enabled():
-            self._score_sketch_recount()
+        if not self._sketch_enabled():
+            return super().load_state_dict(state_dict, strict)
+        _cache_base().load_state_dict(self, state_dict, strict)
+        self._score_sketch_recount()
 
 
 # ------------------------------------------------------- value-sketch mixin
