@@ -282,7 +282,14 @@ failed check. Phases:
    (with the segment sum's time on the same keys), and
    ``stream_compact_rows``, the compaction over the curve leg's flattened
    per-class fold; the segment sum at the four sketch-fold shapes
-   (``segment_sum_sketch_*``), with the sketch launches counted by leg; and
+   (``segment_sum_sketch_*``), with the sketch launches counted by leg; the
+   binary score fold fused into the segment-sum kernel
+   (``segment_sum_score_fold``) at the sketch cell's 89,137,319 float32
+   CTR logits and labels into 2^16 buckets, held bit-equal to the
+   composition it replaced (bucket keys, lanes and NaN mask in tensor ops,
+   then one segment sum: its plain time; with ``index_add_`` for the
+   segment sum: its library time), with the approximate headline leg's
+   ``sketch.fused_folds{kind=score}`` and cluster-route launches; and
    the sharded leg's shapes (``topk_label_tile``, ``topk_row_block``,
    ``segment_sum_slice_tile``, ``segment_sum_sketch_slice_tile``,
    ``sharded_segment_sum``); and the distributed-curves leg's splitters
@@ -341,6 +348,8 @@ SLICED_PLANES = 2 * (1 << SLICED_BITS) + 1
 SLICED_SAMPLE_COHORTS = 64
 # the sketches' bucket counts: the binary and multiclass defaults
 SKETCH_BITS, MC_SKETCH_BITS = 16, 12
+# Criteo 1TB day 23's held-out half: the sketch cell's rows a pass
+CRITEO_ROWS = 89_137_319
 QUANTILES = (0.5, 0.9, 0.99)
 # Quantile's deferred batches of headline logits fold stacked: the 256 MiB
 # byte valve holds four 64 MiB batches, so one launch folds (4, 2^24) values
@@ -503,33 +512,44 @@ def cadence_text(c: dict) -> str:
 class record_sketch_folds:
     """Context manager: every segment-sum launch of the sketch folds
     (``sketch/histogram.py`` and ``sketch/cache.py``) while it is open, as
-    ``(N, D, segments)``. A call is recorded only where the kernel's launch
-    count (``jit.calls{entry=segment_sum}``) rose across it: a call that ran
-    the plain version or returned early is no launch."""
+    ``(N, D, segments)``; the binary fold's fused launch
+    (``score_segment_sum``) as ``(N, 2, 2^bits)``, the segment sum it
+    replaces. A call is recorded only where the kernel's launch count
+    (``jit.calls{entry=segment_sum}``) rose across it: a call that ran the
+    plain version or returned early is no launch."""
 
     def __enter__(self):
         from torcheval_tpu_torch.sketch import cache, histogram
 
-        self.mods = (cache, histogram)
-        self.saved = [m.segment_sum for m in self.mods]
+        self.patched = [(cache, "segment_sum"), (histogram, "segment_sum"),
+                        (histogram, "score_segment_sum")]
+        self.saved = [getattr(m, name) for m, name in self.patched]
         self.shapes = []
-        real = self.saved[0]
 
-        def counted(vals, rows, num_segments):
-            before = K.segment_sum
-            out = real(vals, rows, num_segments)
-            if K.segment_sum > before:
-                d = 1 if vals.ndim == 1 else int(np.prod(vals.shape[1:]))
-                self.shapes.append((int(vals.shape[0]), d, int(num_segments)))
-            return out
+        def counting(real, shape):
+            def counted(*args):
+                before = K.segment_sum
+                out = real(*args)
+                if K.segment_sum > before:
+                    self.shapes.append(shape(*args))
+                return out
 
-        for m in self.mods:
-            m.segment_sum = counted
+            return counted
+
+        def sum_shape(vals, rows, num_segments):
+            d = 1 if vals.ndim == 1 else int(np.prod(vals.shape[1:]))
+            return int(vals.shape[0]), d, int(num_segments)
+
+        def fused_shape(scores, targets, bits):
+            return int(scores.shape[0]), 2, 1 << bits
+
+        for (m, name), real in zip(self.patched, self.saved):
+            setattr(m, name, counting(real, fused_shape if name == "score_segment_sum" else sum_shape))
         return self
 
     def __exit__(self, *exc):
-        for m, f in zip(self.mods, self.saved):
-            m.segment_sum = f
+        for (m, name), real in zip(self.patched, self.saved):
+            setattr(m, name, real)
         return False
 
     def count(self, n=None, d=None, segments=None) -> int:
@@ -4947,6 +4967,65 @@ def sketch_rows(timer, inputs, launches_at, err):
     return rows
 
 
+def score_fold_row(dev, timer, fold_leg):
+    """The binary score fold fused into the segment-sum kernel at the
+    sketch cell's pass: ``CRITEO_ROWS`` float32 CTR logits N(-3.89 + 1.19 y,
+    1) and float32 labels y ~ Bernoulli(0.033) into 2^16 buckets. The
+    plain time is the composition it replaced (``score_hist_fold_plain``:
+    the bucket keys, lanes and NaN mask in tensor ops, then one segment-sum
+    launch); the library time is that composition with ``index_add_`` for
+    the segment sum (``segment_sum_plain``), which runs no kernel of this
+    repo and which the fused fold must equal bit for bit (``max_abs_err``:
+    the largest difference of a count). ``ms`` is the whole fold as a
+    metric runs it (the zeroed output, the launch, the two count columns);
+    ``launch_ms`` the wrapper alone. Bound: 8 bytes a row read once, the
+    counts and the NaN count written once. ``fold_leg``: the approximate
+    headline leg's fused folds and cluster-route launches."""
+    from torcheval_tpu_torch.ops.scatter import score_segment_sum, segment_sum_plain, segment_sum_route
+    from torcheval_tpu_torch.sketch import histogram
+    from torcheval_tpu_torch.sketch.histogram import score_hist_fold, score_hist_fold_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    y = (torch.rand(CRITEO_ROWS, generator=g, device=dev) < 0.033).to(torch.float32)
+    x = torch.randn(CRITEO_ROWS, generator=g, device=dev) + (1.19 * y - 3.89)
+
+    def library():
+        saved = histogram.segment_sum
+        histogram.segment_sum = segment_sum_plain
+        try:
+            return score_hist_fold_plain(x, y, SKETCH_BITS)
+        finally:
+            histogram.segment_sum = saved
+
+    got, want = score_hist_fold(x, y, SKETCH_BITS), library()
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    _require(all(torch.equal(a, b) for a, b in zip(got, want)),
+             f"the fused score fold equals the plain composition (index_add_) at {CRITEO_ROWS} rows")
+    _require(int(got[0].sum()) + int(got[1].sum()) == CRITEO_ROWS and int(got[2]) == 0,
+             "the fused score fold counts every row once")
+    del got, want
+
+    route, cluster = segment_sum_route(torch.int32, 2, 1 << SKETCH_BITS)
+    return {
+        "name": "segment_sum_score_fold",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/scatter.cu",
+        "replaces": "torcheval_tpu/ops/scatter.py:95",
+        "launches": fold_leg["fused_folds"],
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: score_hist_fold(x, y, SKETCH_BITS)),
+        "launch_ms": timer.ms(lambda: score_segment_sum(x, y, SKETCH_BITS)),
+        "plain_ms": timer.ms(lambda: score_hist_fold_plain(x, y, SKETCH_BITS)),
+        "bound_ms": (CRITEO_ROWS * 8 + ((2 << SKETCH_BITS) + 1) * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(library),
+        "kernel_route": f"{route} x{cluster}",
+        "fold_leg": fold_leg,
+        "shape": f"({CRITEO_ROWS},) float32 CTR logits and labels into {1 << SKETCH_BITS} buckets: "
+                 f"the sketch cell's binary fold",
+    }
+
+
 def _topk_times(dev, gen, timer, n, l, k):
     from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
 
@@ -5237,6 +5316,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from torcheval_tpu_torch import _build, obs
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -5346,9 +5426,12 @@ def main() -> int:
     print("phase 4 approximate headline leg (phase 3's data)")
     approx_headline_leg(dev, chunks[:1])  # warm-up: the first use of each PyTorch kernel
     K.segment_sum = 0
+    fused0 = (count("sketch.fused_folds", kind="score"), count("segment_sum.route", route="cluster"))
     with record_sketch_folds() as rec:
         metrics, values, ah_s, ah_host, ah_peak = approx_headline_leg(dev, chunks)
     approx_headline_launches = K.segment_sum
+    fold_leg = {"fused_folds": int(count("sketch.fused_folds", kind="score") - fused0[0]),
+                "cluster_routes": int(count("segment_sum.route", route="cluster") - fused0[1])}
     sketch_launches = {"binary": rec.count(n=HEADLINE_CHUNK, d=2, segments=1 << SKETCH_BITS),
                        "quantile": rec.count(n=QUANTILE_STACK * HEADLINE_CHUNK, d=1,
                                              segments=QUANTILE_STACK << SKETCH_BITS)}
@@ -5357,6 +5440,15 @@ def main() -> int:
              "segment_sum launched on the approximate headline leg, binary and Quantile folds")
     _require(sketch_launches["binary"] + sketch_launches["quantile"] == len(rec.shapes),
              f"every sketch fold of the approximate headline leg at a checked shape: {rec.shapes}")
+    # every binary fold one fused launch; it and Quantile's stacked fold on the cluster route
+    _require(fold_leg == {"fused_folds": sketch_launches["binary"],
+                          "cluster_routes": sketch_launches["binary"] + sketch_launches["quantile"]},
+             f"sketch.fused_folds{{kind=score}} and segment_sum.route{{route=cluster}} on the "
+             f"approximate headline leg: {fold_leg}, binary folds {sketch_launches['binary']}, "
+             f"Quantile folds {sketch_launches['quantile']}")
+    print(f"  {fold_leg['fused_folds']} binary folds, each one fused launch "
+          f"(sketch.fused_folds{{kind=score}}); {fold_leg['cluster_routes']} launches on the "
+          f"cluster route (segment_sum.route), Quantile's included")
     ah = check_approx_headline(chunks, metrics, values, auroc_v)
     print(f"  {total} predictions in {ah_s:.4f} s (CUDA events): {total / ah_s:.1f} preds/s "
           f"({ah_host:.4f} s on the host clock); peak memory {ah_peak[0] / 2**30:.2f} GiB "
@@ -5852,6 +5944,7 @@ def main() -> int:
     rows.append(compact_rows_row(timer, curve_launches["stream_compact"], curve_fold))
     rows.extend(sketch_rows(timer, sketch_fold_inputs(dev, sketch_gen(dev)), sketch_launches,
                             errs["segment_sum_sketch"]))
+    rows.append(score_fold_row(dev, timer, fold_leg))
     rows.extend(shard)
     rows.extend(dist_rows(dev, timer, dist_launches))
     del cm_keys, curve_fold
@@ -5900,6 +5993,9 @@ def main() -> int:
     print(f"  per-class fold at {rows[5]['shape']}: compact_count_rows_fast {fold_t['fast_ms']:.4f} ms, "
           f"the batched two-sort {fold_t['two_sort_ms']:.4f} ms")
     print(f"  segment_sum launches by leg: {by_leg}")
+    t = next(r for r in rows if r["name"] == "segment_sum_score_fold")
+    print(f"  segment_sum_score_fold: the wrapper alone {t['launch_ms']:.4f} ms; on the "
+          f"approximate headline leg {t['fold_leg']}")
     t = shard[0]["at_k10"]
     print(f"  topk_label_tile: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
           f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({RETRIEVAL_ROWS}, {SHARD_LABELS}) "

@@ -939,6 +939,114 @@ def test_bucket_index_on_the_card_equals_the_cpu(dev):
             assert torch.equal(bucket_index(xs.to(dev), bits).cpu(), bucket_index(xs, bits)), (dtype, bits)
 
 
+# the binary score fold, fused into the segment-sum kernel (score_segment_sum),
+# against the tensor-op composition it replaces on the card
+_TINY = float(np.finfo(np.float32).tiny)
+_SPECIAL_SCORES = [
+    float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45,
+    _TINY, -_TINY, float(np.nextafter(np.float32(_TINY), 0)),
+    -float(np.nextafter(np.float32(_TINY), 0)), 3.4e38, -3.4e38, 0.5, -0.5, 1.0,
+    1e-300, -1e-300, 1e300, -1e300,  # float64 only: flush to 0, round to +-inf
+]
+
+
+def _fold_inputs(n, sdtype, target, seed):
+    """``n`` scores of ``sdtype`` (normal logits, with the special values
+    strided through them) and targets of the kind ``target``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g, dtype=torch.float64) * 4.0 - 3.0
+    special = torch.tensor(_SPECIAL_SCORES, dtype=torch.float64)
+    k = min(n, len(special))
+    if k:
+        x[torch.linspace(0, n - 1, k).long()] = special[:k]
+    x[5::97] = float("nan")
+    x[7::89] = 0.0
+    u = torch.rand(n, generator=g)
+    if target == "float32":
+        t = (u < 0.3).to(torch.float32)
+    elif target == "float32_cast":  # truncated toward zero, as .to(torch.int32) casts
+        t = (u * 7.0 - 3.0).to(torch.float32)
+    elif target == "int64":
+        t = torch.randint(-1, 3, (n,), generator=g)
+    else:
+        t = u < 0.5
+    return x.to(sdtype), t
+
+
+def _assert_fused_fold(dev, s, t, bits):
+    """The fold on the card: one fused launch, counted on its route, equal
+    bit for bit to the composition on CPU copies (its plain route, which
+    runs no kernel and which the CPU tests hold to the JAX package's
+    counts)."""
+    from torcheval_tpu_torch.ops.scatter import segment_sum_route
+    from torcheval_tpu_torch.sketch.histogram import score_hist_fold, score_hist_fold_plain
+
+    route = segment_sum_route(torch.int32, 2, 1 << bits)[0]
+    before = (launches("segment_sum"), count("sketch.fused_folds", kind="score"),
+              count("segment_sum.route", route=route))
+    got = score_hist_fold(s, t, bits)
+    torch.cuda.synchronize()
+    one = int(s.numel() > 0)
+    assert (launches("segment_sum"), count("sketch.fused_folds", kind="score"),
+            count("segment_sum.route", route=route)) == tuple(b + one for b in before)
+    want = score_hist_fold_plain(s.cpu(), t.cpu(), bits)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and g.shape == w.shape
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4097, (1 << 24) + 3])
+@pytest.mark.parametrize("target", ["float32", "float32_cast", "int64", "bool"])
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.float16, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("bits", [10, 16, 20])
+def test_fused_score_fold_equals_the_composition(dev, bits, sdtype, target, n):
+    # bits 10, 16, 20: the local, cluster and head routes
+    s, t = _fold_inputs(n, sdtype, target, seed=n + bits)
+    _assert_fused_fold(dev, s.to(dev), t.to(dev), bits)
+
+
+@pytest.mark.parametrize("offsets", [(1, 0), (0, 1), (1, 1), (3, 2), (2, 2)])
+@pytest.mark.parametrize("target", ["float32", "int64"])
+@pytest.mark.parametrize("n", [4097, (1 << 20) + 5])
+def test_fused_score_fold_unaligned_views(dev, offsets, target, n):
+    # the vector body's scalar head and tail; all scalar where the scores
+    # and the targets reach no common 16-byte boundary
+    s, t = _fold_inputs(n + 3, torch.float32, target, seed=n)
+    t = t.to(torch.int32) if target == "int64" else t
+    s, t = s.to(dev), t.to(dev)
+    a, b = offsets
+    _assert_fused_fold(dev, s[a:a + n], t[b:b + n], 16)
+    _assert_fused_fold(dev, s[::2], t[::2], 16)  # strided: made contiguous
+
+
+@pytest.mark.parametrize("cls", ["BinaryAUROC", "BinaryAUPRC"])
+def test_approx_curves_fold_fused_on_the_card(dev, cls):
+    import torcheval_tpu_torch.metrics as TM
+
+    # CTR-like logits, one batch of 2^20 and one short one (a leftover fold)
+    g = torch.Generator().manual_seed(5)
+    s = torch.randn((1 << 20) + 777, generator=g) - 3.9
+    t = (torch.rand(s.shape[0], generator=g) < 0.033).float()
+    batches = list(zip(s.split(1 << 20), t.split(1 << 20)))
+
+    def run(device):
+        m = getattr(TM, cls)(approx=True, device=device)
+        before = count("sketch.fused_folds", kind="score"), count("sketch.folds", kind="score")
+        for a, b in batches:
+            m.update(a.to(device), b.to(device))
+        m._score_sketch_fold()
+        value = m.compute()
+        return m, value, (count("sketch.fused_folds", kind="score") - before[0],
+                          count("sketch.folds", kind="score") - before[1])
+
+    on, got, (fused_on, folds_on) = run(dev)
+    off, want, (fused_off, folds_off) = run("cpu")
+    assert folds_on == folds_off >= 1
+    assert fused_on == folds_on and fused_off == 0  # one fused launch a fold on the card
+    assert torch.equal(on.sketch_tp.cpu(), off.sketch_tp) and torch.equal(on.sketch_fp.cpu(), off.sketch_fp)
+    assert float(got) == pytest.approx(float(want), rel=1e-5, abs=1e-8)
+
+
 @pytest.mark.parametrize("cls", ["BinaryAUROC", "BinaryAUPRC"])
 def test_binary_sketch_on_the_card_equals_the_cpu(dev, cls):
     import torcheval_tpu_torch.metrics as TM

@@ -23,6 +23,7 @@ from torcheval_tpu.ops.scatter import pallas_segment_sum
 from torcheval_tpu.ops.scatter import segment_scatter as jax_segment_scatter
 from torcheval_tpu_torch import _build
 from torcheval_tpu_torch.ops.scatter import (
+    score_segment_sum,
     segment_scatter,
     segment_sum,
     segment_sum_plain,
@@ -237,8 +238,9 @@ def test_segment_sum_route_ranges(dtype, d):
 
 
 class _FakeKernels:
-    """The kernels' library as ``segment_sum`` calls it: records each
-    ``tc_segment_sum`` call and reports success."""
+    """The kernels' library as ``segment_sum`` and ``score_segment_sum``
+    call it: records each ``tc_segment_sum`` and ``tc_score_segment_sum``
+    call and reports success."""
 
     def __init__(self):
         self.calls = []
@@ -246,6 +248,23 @@ class _FakeKernels:
     def tc_segment_sum(self, *args):
         self.calls.append(args)
         return 0
+
+    def tc_score_segment_sum(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+    """The launch path with the library faked: the wrappers take CPU
+    tensors for the card's and record what they would launch."""
+    fake = _FakeKernels()
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(_build, "library", lambda: fake)
+    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    return fake
 
 
 @pytest.mark.parametrize("dtype,d,s,want", [
@@ -255,20 +274,77 @@ class _FakeKernels:
     (torch.bfloat16, 2, 1 << 16, ("cluster", 4)),  # launched as float32
     (torch.int64, 2, 1_000_000, ("head", 1)),
 ])
-def test_segment_sum_passes_its_route_and_counts_it(monkeypatch, obs_on, dtype, d, s, want):
+def test_segment_sum_passes_its_route_and_counts_it(fake_kernels, obs_on, dtype, d, s, want):
     """The wrapper's launch path with the library faked: the cluster size
     it passes to ``tc_segment_sum`` is the route rule's, and the launch
     counts one ``segment_sum.route{route=}`` of that route's name."""
-    fake = _FakeKernels()
-    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
-    monkeypatch.setattr(_build, "library", lambda: fake)
-    monkeypatch.setattr(_build, "require_cuda", lambda *a: None)
-    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     vals = torch.ones((64, d), dtype=dtype)
     rows = torch.arange(64)
     out = segment_sum(vals, rows, s)
     assert out.shape == (s, d) and out.dtype == dtype
-    assert len(fake.calls) == 1 and fake.calls[0][7] == want[1]
+    assert len(fake_kernels.calls) == 1 and fake_kernels.calls[0][7] == want[1]
     assert launches("segment_sum") == 1
     assert count("segment_sum.route") == 1 and count("segment_sum.route", route=want[0]) == 1
+
+
+@pytest.mark.parametrize("bits,want", [
+    (10, ("local", 1)),
+    (11, ("local", 1)),
+    (12, ("cluster", 2)),
+    (16, ("cluster", 4)),
+    (17, ("cluster", 8)),
+    (18, ("head", 1)),
+    (20, ("head", 1)),
+])
+def test_score_segment_sum_takes_the_int32_outputs_route(fake_kernels, obs_on, bits, want):
+    """The fused score fold launches on the route the segment sum's rule
+    gives its (2^bits, 2) int32 output, and counts that launch as the
+    segment sum's, its route, its bytes (8 a row, the outputs once) and one
+    ``sketch.fused_folds{kind=score}``."""
+    assert segment_sum_route(torch.int32, 2, 1 << bits) == want
+    scores, targets = torch.rand(64), (torch.rand(64) < 0.5).float()
+    hist, nan = score_segment_sum(scores, targets, bits)
+    assert hist.shape == (1 << bits, 2) and hist.dtype == nan.dtype == torch.int32
+    assert nan.shape == () and not bool(hist.any()) and int(nan) == 0
+    (call,) = fake_kernels.calls
+    # target code, n, bits, cluster; the NaN word right after the counts
+    assert (call[0], call[3], call[4], call[5]) == (2, 64, bits, want[1])
+    assert call[7] == call[6] + (2 << bits) * 4
+    assert launches("segment_sum") == 1
+    assert count("segment_sum.route") == 1 and count("segment_sum.route", route=want[0]) == 1
+    assert count("sketch.fused_folds") == 1 and count("sketch.fused_folds", kind="score") == 1
+    assert count("obs.cost.launch_bytes", entry="segment_sum") == 64 * 8 + ((2 << bits) + 1) * 4
+
+
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.float16, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("tdtype,code", [
+    (torch.float32, 2), (torch.int32, 0), (torch.int64, 0), (torch.bool, 0), (torch.float64, 0),
+])
+def test_score_segment_sum_reads_float32_scores_and_4_byte_targets(
+    fake_kernels, monkeypatch, sdtype, tdtype, code
+):
+    """Scores reach the kernel as float32 and targets as float32 or int32
+    (any other type cast to int32 first), contiguous, from unaligned views."""
+    checked = []
+    monkeypatch.setattr(_build, "require_cuda", lambda name, *ts: checked.append(ts))
+    base_s = torch.rand(40).to(sdtype)
+    base_t = (torch.rand(40) < 0.5).to(tdtype)
+    score_segment_sum(base_s[3:], base_t[3:], 10)
+    (call,) = fake_kernels.calls
+    ((s, t),) = checked
+    assert call[0] == code and call[3] == 37
+    assert (call[1], call[2]) == (s.data_ptr(), t.data_ptr())
+    assert s.dtype == torch.float32 and s.is_contiguous() and torch.equal(s, base_s[3:].float())
+    assert t.dtype == (torch.float32 if code == 2 else torch.int32) and t.is_contiguous()
+    assert torch.equal(t, base_t[3:].to(t.dtype))
+
+
+def test_score_segment_sum_empty_and_misshapen(fake_kernels, obs_on):
+    hist, nan = score_segment_sum(torch.zeros(0), torch.zeros(0), 16)
+    assert hist.shape == (1 << 16, 2) and not bool(hist.any()) and int(nan) == 0
+    assert fake_kernels.calls == [] and launches("segment_sum") == 0
+    assert count("sketch.fused_folds") == 0
+    with pytest.raises(ValueError, match="targets"):
+        score_segment_sum(torch.zeros(4), torch.zeros(5), 16)
+    with pytest.raises(ValueError, match="targets"):
+        score_segment_sum(torch.zeros(2, 2), torch.zeros(2, 2), 16)

@@ -24,7 +24,7 @@ from torcheval_tpu_torch import metrics as TM
 from torcheval_tpu_torch import sketch as T
 from torcheval_tpu_torch.sketch import cache as TC
 from torcheval_tpu_torch.sketch import histogram as TH
-from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, recording
 
 
 @pytest.fixture
@@ -91,6 +91,54 @@ def test_binary_fold_counts_exact(name, bits):
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jtp))
     np.testing.assert_array_equal(fp.numpy(), np.asarray(jfp))
     assert int(nan) == int(jnan) == len(s[::501])
+
+
+@pytest.mark.parametrize("sdtype", ["float32", "float16", "float64"])
+@pytest.mark.parametrize("target", ["float32", "int64", "bool"])
+def test_cpu_binary_fold_is_the_plain_composition_and_counts_no_fused_fold(obs_on, sdtype, target):
+    """On the CPU the fold stays the tensor-op composition (the card's
+    fused fold is held to it bit for bit): the JAX package's counts, one
+    ``segment_sum`` of the plain version, no ``sketch.fused_folds``."""
+    rng = np.random.default_rng(31)
+    s = np.concatenate([c[0] for c in STREAMS["special_values"]]).astype(sdtype)
+    s[::211] = np.nan
+    t = rng.integers(-1, 3, s.shape) if target == "int64" else rng.random(s.shape) < 0.4
+    t = t.astype(target)
+    jtp, jfp, jnan = J.score_hist_fold(jnp.asarray(s), jnp.asarray(t), 16)
+    for fold in (T.score_hist_fold, TH.score_hist_fold_plain):
+        tp, fp, nan = fold(torch.from_numpy(s), torch.from_numpy(t), 16)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jtp))
+        np.testing.assert_array_equal(fp.numpy(), np.asarray(jfp))
+        assert int(nan) == int(jnan) == len(s[::211])
+    keep = torch.from_numpy(~np.isnan(s))
+    m = TM.BinaryAUROC(approx=True, device=CPU)
+    m.update(torch.from_numpy(s)[keep], torch.from_numpy(t)[keep].float().clamp(0, 1))
+    m._score_sketch_fold()
+    m.compute()
+    assert count("sketch.folds", kind="score") == 1
+    assert count("sketch.fused_folds") == 0 and launches("segment_sum") == 0
+
+
+def test_card_binary_fold_takes_the_fused_launch(monkeypatch, obs_on):
+    """Off the CPU the fold is one ``score_segment_sum`` launch, whose
+    ``(B, 2)`` counts come back as the ``(tp, fp)`` columns."""
+    calls = []
+
+    def fused(scores, targets, bits):
+        calls.append((scores, targets, bits))
+        hist = torch.arange(2 << bits, dtype=torch.int32).view(1 << bits, 2)
+        return hist, torch.tensor(7, dtype=torch.int32)
+
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(TH, "score_segment_sum", fused)
+    s, t = torch.rand(10), torch.ones(10)
+    tp, fp, nan = T.score_hist_fold(s, t, 10)
+    assert len(calls) == 1 and calls[0][0] is s and calls[0][1] is t and calls[0][2] == 10
+    assert tp.is_contiguous() and fp.is_contiguous()
+    assert tp.tolist() == list(range(0, 2048, 2)) and fp.tolist() == list(range(1, 2048, 2))
+    assert int(nan) == 7
+    with pytest.raises(ValueError, match="bucket_bits"):
+        T.score_hist_fold(s, t, 9)
 
 
 @pytest.mark.parametrize("bits", [10, 12])

@@ -57,6 +57,10 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P, _P],
         ctypes.c_int,
     ),
+    "tc_score_segment_sum": (
+        [ctypes.c_int, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+        ctypes.c_int,
+    ),
     "tc_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

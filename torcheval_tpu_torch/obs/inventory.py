@@ -113,6 +113,7 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "serve.wire.rx_bytes": (COUNTER, ("codec",)),
     "sketch.folds": (COUNTER, ("kind",)),
     "sketch.folded_rows": (COUNTER, ("kind",)),
+    "sketch.fused_folds": (COUNTER, ("kind",)),
     "slo.breach": (COUNTER, ("objective", "tenant")),
     "slo.burn_rate": (GAUGE, ("objective",)),
     "toolkit.sync.rounds": (COUNTER, ()),
@@ -129,9 +130,13 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 # the port's own instruments, which the JAX package has no cause to count:
 # the ``_fold_fn`` calls of each fold shape (the JAX package's fold is one
 # XLA program whatever its shape), every hand-kernel launch's modelled
-# bytes (XLA's cost analysis describes a program, not a launch), and the
-# segment sum kernel's route a launch (the TPU kernel has one)
-PORT_ONLY = frozenset({"deferred.fold_calls", "obs.cost.launch_bytes", "segment_sum.route"})
+# bytes (XLA's cost analysis describes a program, not a launch), the
+# segment sum kernel's route a launch (the TPU kernel has one), and the
+# binary score folds that ran as one launch of it with the bucket keys and
+# lanes made inside (the JAX package's fold is one XLA program either way)
+PORT_ONLY = frozenset({
+    "deferred.fold_calls", "obs.cost.launch_bytes", "segment_sum.route", "sketch.fused_folds",
+})
 
 # port entry -> JAX entry (``watched`` labels and ``count_launch`` entries)
 ENTRIES: Dict[str, str] = {

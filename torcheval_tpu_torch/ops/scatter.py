@@ -35,6 +35,9 @@ sliced collection (``metrics/sliced.py``) folds every batch through
   memory (``cluster``: a 2^16-bucket score sketch, ``Quantile``'s value
   fold). In a larger one they go to device memory (``head``). Each launch
   counts its route (``segment_sum.route{route=}``).
+* :func:`score_segment_sum` launches the same kernel with a second row
+  source: the binary score sketch's fold, its bucket ids, lanes and NaN
+  test made inside the kernel from the scores and targets it reads once.
 * Float sums, in the kernel and in the plain version alike, add in an order
   that is not the reference's (atomics on the card run in no fixed order),
   so they are not bitwise reproducible. The bound every route meets, for
@@ -175,6 +178,17 @@ def _segment_sum_cost(args, kwargs, out):
     return adds, moved, moved
 
 
+def _count_sum_launch(err: int, what: str, route: str, cost, args, out) -> None:
+    """Every segment-sum kernel launch ends here: the C entry's error
+    checked, the launch counted as the segment sum's
+    (``jit.calls{entry=segment_sum}`` and its bytes by ``cost``) and its
+    route (``segment_sum.route{route=}``)."""
+    _build.check(err, what)
+    count_launch("segment_sum", cost, args, out)
+    if _obs._enabled:
+        _obs.counter("segment_sum.route", route=route)
+
+
 @watched(name="segment_sum", cost=_segment_sum_cost, counts_launches=True)
 def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``(num_segments,) + vals.shape[1:]`` sums of ``vals`` (N, ...) by
@@ -213,11 +227,79 @@ def segment_sum(vals: torch.Tensor, rows: torch.Tensor, num_segments: int) -> to
             out.data_ptr(),
             _build.stream_of(flat),
         )
-    _build.check(err, "segment_sum")
-    count_launch("segment_sum", _segment_sum_cost, (flat, rows), out)
-    if _obs._enabled:
-        _obs.counter("segment_sum.route", route=route)
+    _count_sum_launch(err, "segment_sum", route, _segment_sum_cost, (flat, rows), out)
     return out.reshape((num_segments,) + tail)
+
+
+# the fused score fold's target codes (csrc/scatter.cu, tc_score_segment_sum)
+_TARGET_CODES = {torch.int32: 0, torch.float32: 2}
+
+
+def _score_segment_sum_cost(args, kwargs, out):
+    """Each row's float32 score and 4-byte target read once, whatever the
+    caller's types, the counts and the NaN count written once; no float
+    add."""
+    moved = args[0].numel() * 8 + nbytes(*out)
+    return 0, moved, moved
+
+
+@watched(name="segment_sum", cost=_score_segment_sum_cost, counts_launches=True)
+def score_segment_sum(
+    scores: torch.Tensor, targets: torch.Tensor, bucket_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The binary score sketch's fold (``sketch/histogram.py::
+    score_hist_fold``) on the card in one launch of the segment-sum kernel:
+    ``(2^bucket_bits, 2)`` int32 ``[t, 1 - t]`` sums by float-prefix bucket
+    of ``(N,)`` CUDA scores and targets, and the int32 count of NaN scores
+    (which add nothing).
+
+    The kernel reads each row's score and target once and makes the bucket
+    id, the lanes and the NaN test in registers (``csrc/scatter.cu``'s score
+    source), bit for bit what ``score_hist_fold_plain`` makes from them, on
+    the route :func:`segment_sum_route` gives the int32 output. Scores of
+    another type are cast to float32 first, targets of a type other than
+    float32 or int32 to int32, as the plain version casts them. It counts
+    the launch as the segment sum's (``jit.calls{entry=segment_sum}``, under
+    a ``jit/segment_sum`` range), its route (``segment_sum.route{route=}``)
+    and ``sketch.fused_folds{kind=score}``. An empty stream launches
+    nothing. There is no plain version here: the fold's caller runs it on
+    a CPU tensor."""
+    if scores.ndim != 1 or targets.shape != scores.shape:
+        raise ValueError(
+            "score_segment_sum wants scores (N,) with targets (N,), got "
+            f"{tuple(scores.shape)} / {tuple(targets.shape)}."
+        )
+    lib = _build.library()
+    scores = scores.to(torch.float32).contiguous()
+    if targets.dtype not in _TARGET_CODES:
+        targets = targets.to(torch.int32)
+    targets = targets.contiguous()
+    _build.require_cuda("score_segment_sum", scores, targets)
+    num = 1 << bucket_bits
+    # the counts and the NaN count in one zeroed buffer: one memset
+    buf = torch.zeros(2 * num + 1, dtype=torch.int32, device=scores.device)
+    hist, nan = buf[: 2 * num].view(num, 2), buf[2 * num]
+    n = scores.shape[0]
+    if n == 0:
+        return hist, nan
+    route, cluster = segment_sum_route(torch.int32, 2, num)
+    with torch.cuda.device(scores.device):
+        err = lib.tc_score_segment_sum(
+            _TARGET_CODES[targets.dtype],
+            scores.data_ptr(),
+            targets.data_ptr(),
+            n,
+            bucket_bits,
+            cluster,
+            hist.data_ptr(),
+            nan.data_ptr(),
+            _build.stream_of(scores),
+        )
+    _count_sum_launch(err, "score_segment_sum", route, _score_segment_sum_cost,
+                      (scores, targets), (hist, nan))
+    if _obs._enabled:
+        _obs.counter("sketch.fused_folds", kind="score")
+    return hist, nan
 
 
 def _reduce_identity(reduce: str, dtype: torch.dtype):

@@ -76,7 +76,12 @@ def relative_error(bucket_bits: int) -> float:
 def ascending_key(x: torch.Tensor) -> torch.Tensor:
     """Monotone order key as int64 in ``[0, 2^32)``: ``key(a) < key(b)``
     iff ``a < b``; ``-0.0``, ``+0.0`` and every subnormal share the zero
-    key; NaN maps to ``0xFFFFFFFF``."""
+    key; NaN maps to ``0xFFFFFFFF``.
+
+    The card's fused score fold builds the same key in registers
+    (``csrc/scatter.cu::score_bucket``): a change here is made there too,
+    and ``tests/test_torch_cuda.py::test_fused_score_fold_equals_the_composition``
+    holds the two to the same counts."""
     x = x.to(torch.float32)
     x = torch.where(x.abs() < _TINY, 0.0, x)  # subnormals and -0.0 to +0.0
     b = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF

@@ -18,7 +18,9 @@ merge) and ``state_dict`` with no new machinery:
 **Every fold is one launch of the segment-sum kernel** (``ops/scatter.py``,
 ``csrc/scatter.cu`` on the card, its plain version on the CPU): the binary
 fold sums ``(N, 2)`` int32 lanes ``[t, 1 - t]`` by bucket into ``2^bits``
-segments (the JAX package's two segment sums in one launch); the
+segments (the JAX package's two segment sums in one launch; on the card
+the kernel makes the buckets, lanes and NaN mask itself from the scores
+and targets, ``score_segment_sum``, and no key or lane tensor exists); the
 multiclass fold sums the same two lanes over the ``(C, N)`` columns by the
 combined key ``c * B + bucket`` into ``C * B`` segments; the value fold sums
 int32 ones. NaN samples go to row -1, which the kernel drops, and are
@@ -48,11 +50,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import _build
 from torcheval_tpu_torch.ops.curves import (
     binary_auprc_counts_presorted_kernel,
     binary_auroc_counts_presorted_kernel,
 )
-from torcheval_tpu_torch.ops.scatter import segment_sum
+from torcheval_tpu_torch.ops.scatter import score_segment_sum, segment_sum
 from torcheval_tpu_torch.sketch.buckets import (
     bucket_index,
     check_bucket_bits,
@@ -61,6 +64,7 @@ from torcheval_tpu_torch.sketch.buckets import (
 
 __all__ = [
     "score_hist_fold",
+    "score_hist_fold_plain",
     "mc_score_hist_fold",
     "value_hist_fold",
     "auroc_from_hist",
@@ -134,7 +138,26 @@ def score_hist_fold(
     """Fold ``(N,)`` binary scores and targets into ``(B,)`` int32 per-bucket
     ``(tp, fp)`` counts and the batch's NaN-sample count. Targets are cast
     to int32 as the JAX package casts them (``tp += t``, ``fp += 1 - t``).
-    Integer adds, so any chunking of a stream gives the same counts."""
+    Integer adds, so any chunking of a stream gives the same counts.
+
+    A CPU tensor runs :func:`score_hist_fold_plain`; on the card the whole
+    fold is one launch of the segment-sum kernel
+    (``ops/scatter.py::score_segment_sum``), which makes the bucket ids,
+    lanes and NaN mask in registers and gives the same counts bit for bit."""
+    bits = check_bucket_bits(bucket_bits)
+    if _build.runs_plain(scores):
+        return score_hist_fold_plain(scores, targets, bits)
+    hist, nan = score_segment_sum(scores, targets, bits)
+    return hist[:, 0].contiguous(), hist[:, 1].contiguous(), nan
+
+
+def score_hist_fold_plain(
+    scores: torch.Tensor, targets: torch.Tensor, bucket_bits: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`score_hist_fold` in tensor ops: the bucket ids
+    (:func:`bucket_index`), the NaN mask and the stacked ``[t, 1 - t]``
+    lanes, summed by one :func:`segment_sum` (its plain version on the CPU,
+    the kernel on the card, where this is the fused fold's reference)."""
     num = 1 << check_bucket_bits(bucket_bits)
     nan = torch.isnan(scores.to(torch.float32))
     t = targets.to(torch.int32)
