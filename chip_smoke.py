@@ -289,8 +289,17 @@ failed check. Phases:
    composition it replaced (bucket keys, lanes and NaN mask in tensor ops,
    then one segment sum: its plain time; with ``index_add_`` for the
    segment sum: its library time), with the approximate headline leg's
-   ``sketch.fused_folds{kind=score}`` and cluster-route launches; and
-   the sharded leg's shapes (``topk_label_tile``, ``topk_row_block``,
+   ``sketch.fused_folds{kind=score}`` and cluster-route launches; the
+   exact binary AUROC's stream route (``auroc_stream``: the key pass, the
+   (key, label) radix sort and the integration over tie-group ends) at the
+   exact cell's 89,137,319 float32 CTR logits and labels, first held
+   bit-equal to its plain version and within 1e-6 of the composition, with
+   the composition's time, each part's device time from the profiler and
+   the bound, the route's C entry calls (``roc_stream.launches``) on each
+   earlier leg, one ``curves.auroc_route{route=stream}`` and three C entry
+   calls for a raw ``BinaryAUROC``'s ``compute()``, and the host cost of
+   reading the key pass's flag over 16 tenants' computes in a row; and the
+   sharded leg's shapes (``topk_label_tile``, ``topk_row_block``,
    ``segment_sum_slice_tile``, ``segment_sum_sketch_slice_tile``,
    ``sharded_segment_sum``); and the distributed-curves leg's splitters
    (``hist_splitter``: 2^26 int32 bins into 2^16, beside ``torch.bincount``;
@@ -469,8 +478,10 @@ def fold_counts():
 class _KernelCounts:
     """Each hand kernel's launches since its count was last set to 0, read
     from the obs registry (the kernel's ``jit.calls{entry=}``, which its
-    wrapper counts where it launches). ``K.hist = 0`` zeroes one count;
-    ``K.hist`` reads it. A registry reset zeroes every count."""
+    wrapper counts where it launches; ``K.roc_stream``: the exact AUROC's
+    stream route, its C entry calls, ``roc_stream.launches``, which are no
+    ``jit.calls``). ``K.hist = 0`` zeroes one count; ``K.hist`` reads it. A
+    registry reset zeroes every count."""
 
     def __init__(self):
         object.__setattr__(self, "_base", {})
@@ -478,8 +489,10 @@ class _KernelCounts:
     @staticmethod
     def _now(entry):
         from torcheval_tpu_torch import obs
-        from torcheval_tpu_torch.utils.test_utils.obs_counts import launches
+        from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches
 
+        if entry == "roc_stream":
+            return obs.default_registry._generation, int(count("roc_stream.launches"))
         return obs.default_registry._generation, launches(entry)
 
     def __getattr__(self, entry):
@@ -493,6 +506,26 @@ class _KernelCounts:
 
 
 K = _KernelCounts()
+
+
+class _StreamLegs:
+    """The stream AUROC's C entry calls (``K.roc_stream``) in this process,
+    by leg: :meth:`mark` at a leg's start closes the leg before it and
+    counts the new one from 0; ``mark(None)`` closes the last. A leg with
+    obs off part of the time (the obs phase's off runs) counts only what
+    ran with it on."""
+
+    def __init__(self):
+        self.by_leg, self.leg = {}, None
+
+    def mark(self, leg):
+        if self.leg is not None:
+            self.by_leg[self.leg] = self.by_leg.get(self.leg, 0) + K.roc_stream
+        self.leg = leg
+        K.roc_stream = 0
+
+
+STREAM = _StreamLegs()
 
 
 def cadence(before) -> dict:
@@ -1124,14 +1157,16 @@ def headline_leg(dev, chunks):
 
 
 def headline_reference(dev, chunks):
-    from torcheval_tpu_torch.metrics import BinaryAUROC
+    """The direct count of correct rows, and the uncompacted AUROC by the
+    composition (``ops/curves.py::auroc_composition``: a library sort, no
+    compaction kernel and not the stream route)."""
+    from torcheval_tpu_torch.ops.curves import auroc_composition
 
-    raw = BinaryAUROC(device=dev)
     correct = 0
-    for scores, labels, logits, binary in chunks:
-        raw.update(logits, binary)
+    for scores, labels, _, _ in chunks:
         correct += int((scores.argmax(1) == labels).sum())
-    return correct, float(raw.compute())
+    auroc = auroc_composition(torch.cat([c[2] for c in chunks]), torch.cat([c[3] for c in chunks]))
+    return correct, float(auroc)
 
 
 def _mann_whitney_auc(x, t):
@@ -2493,6 +2528,7 @@ def dp_worker(rank: int, port: str) -> int:
         sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
         out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
     out["obs"] = dp_obs_snapshot(rank)
+    out["roc_stream_launches"] = K.roc_stream  # since obs.enable() at the rank's start
     shutdown()
     print("DP_RESULT " + json.dumps(out), flush=True)
     return 0
@@ -2624,14 +2660,16 @@ def dp_leg():
 def dp_reference(dev):
     """One process over all 8 chunks without the port's kernels: the class
     counts by ``torch.bincount``, the values from those counts, and the
-    AUROC uncompacted (a sort, no compaction kernel)."""
-    from torcheval_tpu_torch.metrics import BinaryAUROC
+    AUROC uncompacted by the composition (``ops/curves.py::
+    auroc_composition``: a library sort, no compaction kernel and not the
+    stream route)."""
     from torcheval_tpu_torch.metrics.functional.classification.f1_score import _f1_score_compute
+    from torcheval_tpu_torch.ops.curves import auroc_composition
 
     c = HEADLINE_CLASSES
     correct, total = 0, 0
     tp, label, pred = (torch.zeros(c, dtype=torch.int64, device=dev) for _ in range(3))
-    auroc = BinaryAUROC(device=dev)
+    logits_all, binary_all = [], []
     for i in range(DP_CHUNKS):
         scores, labels, logits, binary = dp_chunk(dev, i)
         p = scores.argmax(1)
@@ -2641,14 +2679,16 @@ def dp_reference(dev):
         tp += torch.bincount(labels[hit], minlength=c)
         label += torch.bincount(labels, minlength=c)
         pred += torch.bincount(p, minlength=c)
-        auroc.update(logits, binary)
+        logits_all.append(logits)
+        binary_all.append(binary)
         del scores, labels, logits, binary, p, hit
     counts = {
         "accuracy": {"num_correct": correct, "num_total": total},
         "f1_macro": {"num_tp": tp.tolist(), "num_label": label.tolist(), "num_prediction": pred.tolist()},
     }
     f1 = _f1_score_compute(tp.to(torch.int32), label.to(torch.int32), pred.to(torch.int32), "macro")
-    return counts, correct / total, float(f1), float(auroc.compute())
+    auroc = auroc_composition(torch.cat(logits_all), torch.cat(binary_all))
+    return counts, correct / total, float(f1), float(auroc)
 
 
 # ---------------------------------------------------- phase 4, sharded leg
@@ -3065,6 +3105,7 @@ def dist_worker(rank: int, port: str, outdir: str) -> int:
     os.environ.pop("TORCHEVAL_TPU_SYNC_QUANTIZE")
     out["quantized"]["bit_equal"] = dist_quantized_scores(dev, rank, dc)
     out["sync"] = quantized_sync(dev, rank, outdir, toolkit)
+    out["roc_stream_launches"] = K.roc_stream  # since obs.enable() at the rank's start
     shutdown()
     print("DIST_RESULT " + json.dumps(out), flush=True)
     return 0
@@ -3169,8 +3210,10 @@ def dist_references(dev):
     ``BinaryAUROC(approx=True)`` over the 8 data-parallel chunks (the
     uncompacted AUROC is ``dp_reference``'s), per-class ``MulticlassAUROC``
     and ``MulticlassAUPRC`` over the 5 curve batches, and both metrics on
-    part (d)'s two batches."""
+    part (d)'s two batches (the AUROC by the composition,
+    ``ops/curves.py::auroc_composition``, not the stream route)."""
     from torcheval_tpu_torch.metrics import BinaryAUPRC, BinaryAUROC, MulticlassAUPRC, MulticlassAUROC
+    from torcheval_tpu_torch.ops.curves import auroc_composition
 
     auprc, approx = BinaryAUPRC(device=dev), BinaryAUROC(approx=True, device=dev)
     for i in range(DP_CHUNKS):
@@ -3191,7 +3234,7 @@ def dist_references(dev):
     ref["fallback"] = {}
     for kind in ("ties", "nan"):
         s, t = dist_small_batch(dev, kind)
-        ref["fallback"][kind] = {"auroc": float(BinaryAUROC(device=dev).update(s, t).compute()),
+        ref["fallback"][kind] = {"auroc": float(auroc_composition(s, t)),
                                  "auprc": float(BinaryAUPRC(device=dev).update(s, t).compute())}
     return ref
 
@@ -3612,7 +3655,8 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
         torch.cuda.synchronize()
         print("DRILL_PRE " + json.dumps({"rank": rank, "rounds": rounds(),
                                          "hist_launches": K.hist,
-                                         "stream_compact_launches": K.stream_compact}), flush=True)
+                                         "stream_compact_launches": K.stream_compact,
+                                         "roc_stream_launches": K.roc_stream}), flush=True)
         failures0 = count("toolkit.sync.timeouts")
         t0 = time.monotonic()
         got = toolkit.sync_and_compute_collection(held, recipient_rank="all", processes=mesh.processes,
@@ -3622,7 +3666,8 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
         out = {"rank": rank, "elapsed_s": elapsed, "failures": int(count("toolkit.sync.timeouts") - failures0),
                "local": all(torch.equal(got[k], local[k]) for k in held),
                "values": {k: float(v) for k, v in got.items()},
-               "hist_launches": K.hist, "stream_compact_launches": K.stream_compact}
+               "hist_launches": K.hist, "stream_compact_launches": K.stream_compact,
+               "roc_stream_launches": K.roc_stream}
         print("DRILL_RESULT " + json.dumps(out), flush=True)
         sys.stderr.flush()
         # the round thread may still be blocked on the dead peer: destroying
@@ -3634,7 +3679,7 @@ def drill_worker(rank: int, port: str, outdir: str, phase: str) -> int:
     auroc_v = float(auroc.compute())
     out = {"rank": rank, "accuracy": float(results["accuracy"]), "f1_macro": float(results["f1_macro"]),
            "auroc": auroc_v, "hist_launches": K.hist,
-           "stream_compact_launches": K.stream_compact}
+           "stream_compact_launches": K.stream_compact, "roc_stream_launches": K.roc_stream}
     for name in ("accuracy", "f1_macro"):
         sd = toolkit.get_synced_state_dict(classification.metrics[name], recipient_rank="all")
         out[f"{name}_counts"] = {k: v.cpu().tolist() for k, v in sd.items()}
@@ -3698,6 +3743,8 @@ def resilience_drill(dev, root, counts, acc_ref, f1_ref, auroc_ref):
         "hist": r0["hist_launches"] + pre[1]["hist_launches"] + sum(x["hist_launches"] for x in restart),
         "stream_compact": r0["stream_compact_launches"] + pre[1]["stream_compact_launches"]
         + sum(x["stream_compact_launches"] for x in restart),
+        "roc_stream": r0["roc_stream_launches"] + pre[1]["roc_stream_launches"]
+        + sum(x["roc_stream_launches"] for x in restart),
     }
     _require(launches["hist"] > 0 and launches["stream_compact"] > 0,
              "(c) hist and stream_compact launched by the drill's ranks")
@@ -4543,6 +4590,7 @@ def serve_phase(dev):
     torch.cuda.synchronize()
     for k in ("hist", "stream_compact", "topk_kernel", "segment_sum"):
         setattr(K, k, 0)
+    stream0 = K.roc_stream  # read as a difference: main() counts the phase too
     a, ref_a = serve_config7(dev)
     b, ref_b = serve_config8(dev, batches8)
     c, ref_c, profile_c = serve_kernel_tenants(dev, kernel_data)
@@ -4561,6 +4609,7 @@ def serve_phase(dev):
     torch.cuda.synchronize()
     launches = {k: getattr(K, k) for k in ("hist", "stream_compact", "topk_kernel", "segment_sum")}
     _require(all(n > 0 for n in launches.values()), f"(c) every kernel launched in the phase: {launches}")
+    launches["roc_stream"] = K.roc_stream - stream0
     single_v, fleet_v = ref_a()
     want8, qblk_v = ref_b()
     ref_c()
@@ -4591,7 +4640,9 @@ def serve_phase(dev):
     ov = c["ingest_overlap_ms"]
     print(f"  (c) {c['tenants']} tenants ACTIVE in {c['seconds']:.2f} s, every value equal to the same "
           f"metrics fed directly; ingest overlap {ov['total_ms']:.3f} ms over {ov['windows']} windows; "
-          f"phase launches jit.calls{{entry=}} {launches}")
+          f"phase launches jit.calls{{entry=}} "
+          f"{ {k: n for k, n in launches.items() if k != 'roc_stream'} }, the stream AUROC's C entry "
+          f"calls (roc_stream.launches) {launches['roc_stream']}")
     pc = c["profiled"]
     print(f"  (c) again under the profiler: {pc['wall_ms']:.1f} ms wall, kernels {pc['kernel_ms']:.3f} ms, "
           f"host-to-device copies {pc['h2d_ms']:.3f} ms of which {pc['h2d_beside_kernels_ms']:.3f} ms beside "
@@ -5026,6 +5077,145 @@ def score_fold_row(dev, timer, fold_leg):
     }
 
 
+# the stream route's kernels by part, by name: the key pass, the library's
+# radix sort (histogram, scan and onesweep kernels), the integration
+_STREAM_PARTS = (("key", ("roc_key_kernel",)), ("sort", ("RadixSort",)),
+                 ("integrate", ("roc_tile_kernel", "roc_carry_kernel", "roc_integrate_kernel",
+                                "roc_value_kernel")))
+
+
+def _stream_part_ms(x, y, reps=5):
+    """Device ms a call of ``binary_auroc_kernel(x, y)`` spends in each
+    part of the stream route, from ``reps`` calls under ``torch.profiler``
+    (back to back, no L2 flush); ``other``: its memsets and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
+
+    binary_auroc_kernel(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            binary_auroc_kernel(x, y)
+        torch.cuda.synchronize()
+    ms = defaultdict(float)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith(_RANGES):
+            continue
+        part = next((p for p, names in _STREAM_PARTS if any(n in e.name for n in names)), "other")
+        ms[part] += e.time_range.elapsed_us() / 1e3 / reps
+    _require(all(ms[p] > 0 for p, _ in _STREAM_PARTS),
+             f"the profiler saw every part of the stream route: {dict(ms)}")
+    return dict(ms)
+
+
+def _tenant_round_ms(dev, flush, tenants, rows, target_dtype, reps=5):
+    """Host ms of one round of ``tenants`` raw ``BinaryAUROC`` computes of
+    ``rows`` rows each, one after the other, each behind one L2 flush (the
+    work of other tenants queued before it), then one synchronize: median
+    of ``reps`` rounds. Targets of a type other than bool make each
+    compute read the key pass's flag on the host."""
+    from torcheval_tpu_torch.metrics import BinaryAUROC
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    metrics = []
+    for _ in range(tenants):
+        y = torch.rand(rows, generator=g, device=dev) < 0.3
+        metrics.append(BinaryAUROC(device=dev).update(torch.randn(rows, generator=g, device=dev) + y,
+                                                      y.to(target_dtype)))
+    times = []
+    for _ in range(reps + 1):  # the first round warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in metrics:
+            flush.zero_()
+            m.compute()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def auroc_stream_row(dev, timer, stream_legs):
+    """The exact binary AUROC's stream route (``ops/roc_stream.py``) at the
+    exact cell's pass: ``CRITEO_ROWS`` float32 CTR logits N(-3.89 + 1.19 y,
+    1) and float32 labels y ~ Bernoulli(0.033). ``ms`` is the route as
+    ``binary_auroc_kernel`` runs it (one allocation, the key pass, the sort,
+    the integration, the flag's read); ``parts_ms`` its device ms by part
+    (``_stream_part_ms``); ``plain_ms`` its plain version, which the route
+    must equal bit for bit; ``composition_ms`` the composition it replaced
+    on the card (``max_abs_err``: their gap); ``library_ms`` one
+    ``torch.sort(-x, stable=True)``. Bound: 8 bytes a row read once, the
+    sort's four passes of 5 bytes a row read and written with the first
+    pass's key reads (44 bytes a row), the sorted stream's 5 bytes a row
+    read once. ``launches``: the route's C entry calls
+    (``roc_stream.launches``) on the legs before phase 5 (``stream_legs``:
+    this process's legs, each counted from 0 at its start, and the rank
+    processes'; ``serve_served_path``, the served path alone, is part of
+    ``serve``);
+    ``compute_launches`` and ``routes`` the same and ``curves.auroc_route``
+    over one raw ``BinaryAUROC``'s update and ``compute()``. ``stall``: the
+    host ms of 16 tenants' computes in a row with float32 targets (each
+    compute reads the key pass's flag) and with bool targets (no read)."""
+    from torcheval_tpu_torch import obs
+    from torcheval_tpu_torch.metrics import BinaryAUROC
+    from torcheval_tpu_torch.ops import roc_stream
+    from torcheval_tpu_torch.ops.curves import auroc_composition, binary_auroc_kernel
+    from torcheval_tpu_torch.utils.test_utils.obs_counts import count
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 28)
+    y = (torch.rand(CRITEO_ROWS, generator=g, device=dev) < 0.033).to(torch.float32)
+    x = torch.randn(CRITEO_ROWS, generator=g, device=dev) + (1.19 * y - 3.89)
+
+    got = binary_auroc_kernel(x, y)
+    plain = roc_stream.binary_auroc_stream_plain(x, y)
+    want = auroc_composition(x, y)
+    _require(torch.equal(got, plain[0]),
+             f"the stream AUROC equals its plain version at {CRITEO_ROWS} rows: {float(got)} vs {float(plain[0])}")
+    err = abs(float(got) - float(want))
+    _require(err <= 1e-6 * float(want),
+             f"the stream AUROC within 1e-6 of the composition: {float(got)} vs {float(want)}")
+    obs.reset()
+    obs.enable()
+    try:
+        m = BinaryAUROC(device=dev)
+        m.update(x, y)
+        value = float(m.compute())
+        routes = {r: int(count("curves.auroc_route", route=r)) for r in ("stream", "composition")}
+        steps = {s: int(count("roc_stream.launches", step=s)) for s in ("keys", "sort", "integrate")}
+    finally:
+        obs.disable()
+    _require(routes == {"stream": 1, "composition": 0} and value == float(got),
+             f"a raw BinaryAUROC's compute() takes the stream route once: {routes}, {value}")
+    _require(steps == {"keys": 1, "sort": 1, "integrate": 1},
+             f"a one-part raw BinaryAUROC's compute() makes three C entry calls: {steps}")
+    stall = {}
+    for rows in (1 << 16, 1 << 22):
+        f32 = _tenant_round_ms(dev, timer.flush, 16, rows, torch.float32)
+        b = _tenant_round_ms(dev, timer.flush, 16, rows, torch.bool)
+        stall[rows] = {"float32_ms": f32, "bool_ms": b, "per_compute_ms": (f32 - b) / 16}
+    row = {
+        "name": "auroc_stream",
+        "route": "cuda",
+        "source": "torcheval_tpu_torch/csrc/roc_stream.cu, torcheval_tpu_torch/csrc/roc_sort.cu",
+        "replaces": "none (port only; the composition ops/curves.py::auroc_composition)",
+        "launches": sum(n for leg, n in stream_legs.items() if leg != "serve_served_path"),
+        "launches_by_leg": stream_legs,
+        "compute_launches": steps,
+        "routes": routes,
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: binary_auroc_kernel(x, y)),
+        "parts_ms": _stream_part_ms(x, y),
+        "plain_ms": timer.ms(lambda: roc_stream.binary_auroc_stream_plain(x, y)),
+        "composition_ms": timer.ms(lambda: auroc_composition(x, y)),
+        "bound_ms": CRITEO_ROWS * (8 + 44 + 5) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: torch.sort(-x, stable=True)),
+        "stall": stall,
+        "shape": f"({CRITEO_ROWS},) float32 CTR logits and labels: the exact cell's AUROC",
+    }
+    return row
+
+
 def _topk_times(dev, gen, timer, n, l, k):
     from torcheval_tpu_torch.ops.topk import topk_kernel, topk_kernel_plain
 
@@ -5356,6 +5546,7 @@ def main() -> int:
     obs.reset()  # every count 0 just before the main path
     K.hist = 0
     K.stream_compact = 0
+    STREAM.mark("headline")
     folds0 = fold_counts()
     acc, acc_v, auroc_v, seconds, host_seconds, peak = headline_leg(dev, chunks)
     headline_launches = {"hist": K.hist, "stream_compact": K.stream_compact}
@@ -5376,6 +5567,7 @@ def main() -> int:
     small_reference_check(dev)
     del acc
 
+    STREAM.mark("obs")
     print("obs phase on phase 3's data (headline; small-batch leg from its own seed)")
     small = small_batch_data(dev, torch.Generator(device=dev).manual_seed(OBS_SMALL_SEED))
     rates = obs_on_off(dev, chunks, (acc_v, auroc_v), small)
@@ -5407,6 +5599,7 @@ def main() -> int:
     res_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     atexit.register(shutil.rmtree, res_root, True)
     usage = shutil.disk_usage(res_root)
+    STREAM.mark("resilience_ad")
     print(f"resilience phase (a), (d) on phase 3's chunks, checkpoints under {res_root} (disk total "
           f"{usage.total} B, used {usage.used} B, free {usage.free} B)")
     ra = resilience_headline(dev, chunks, acc_v, auroc_v, res_root)
@@ -5423,6 +5616,7 @@ def main() -> int:
           f"{ra['fallback_restore_s']:.4f} s (checksum of the corrupt one included), every leaf equal "
           f"as bytes to the chunk-{RES_FIRST_SAVE} state, one fallback counted")
 
+    STREAM.mark("approx_headline")
     print("phase 4 approximate headline leg (phase 3's data)")
     approx_headline_leg(dev, chunks[:1])  # warm-up: the first use of each PyTorch kernel
     K.segment_sum = 0
@@ -5467,6 +5661,7 @@ def main() -> int:
     del chunks, metrics
     torch.cuda.empty_cache()
 
+    STREAM.mark("macro")
     print("phase 4 macro leg")
     K.hist = 0
     K.stream_compact = 0
@@ -5486,6 +5681,7 @@ def main() -> int:
           f"{hist_gauge:.0f} B, phase 5's count")
     print(f"  fold cadence: {cadence_text(macro_cadence)}")
 
+    STREAM.mark("small_batch")
     print("phase 4 small-batch leg (BASELINE config 1, with distinct batches)")
     batches = small_batch_data(dev, gen)
     small_batch_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
@@ -5511,6 +5707,7 @@ def main() -> int:
           f"rows/s ({alone_s:.6f} s); fold cadence: {cadence_text(alone_cadence)}")
     del batches, col, out
 
+    STREAM.mark("config3")
     print("phase 4 config-3 leg (BASELINE config 3, with distinct batches)")
     batches = cm_leg_data(dev, gen)
     for collection in (True, False):  # warm-up: the first use of each PyTorch kernel
@@ -5538,6 +5735,7 @@ def main() -> int:
     cm_keys = torch.cat([label * CM_CLASSES + pred for pred, label in batches])
     del batches, mat
 
+    STREAM.mark("rec")
     print(f"phase 4 recommendation-eval leg ({REC_BATCHES} x ({REC_TASKS}, {REC_ROWS}) logits, "
           f"{REC_CLICK_RATE:.0%} clicks, weights: NE, CTR, calibration and their windows of "
           f"{REC_WINDOW}; R2Score over {R2_BATCHES} x ({R2_ROWS}, {R2_OUTPUTS}))")
@@ -5564,6 +5762,7 @@ def main() -> int:
           f"{ {k: float(f'{v:.3e}') for k, v in r2['errs'].items()} }; fold cadence: "
           f"{cadence_text(r2['cadence'])}")
 
+    STREAM.mark("curves")
     print(f"phase 4 ImageNet-val curve leg ({CURVE_BATCHES} x ({CURVE_ROWS}, {CURVE_CLASSES}) "
           f"softmax scores)")
     batches = curve_leg_data(dev, gen)
@@ -5591,6 +5790,7 @@ def main() -> int:
           f"({points} thresholds over {CURVE_CLASSES} classes)")
     curve_fold = curve_fold_inputs(batches)
 
+    STREAM.mark("approx_curves")
     print("phase 4 ImageNet-val curve leg, approximate twin (2^12 buckets)")
     approx_curve_leg(dev, batches[:1])  # warm-up
     K.segment_sum = 0
@@ -5613,6 +5813,7 @@ def main() -> int:
     del batches, binned, curve_out, ac_metrics, ac_out
     torch.cuda.empty_cache()
 
+    STREAM.mark("topk")
     print("phase 4 top-k leg (BASELINE config 4)")
     batches = topk_leg_data(dev, gen)
     topk_leg(dev, batches)  # warm-up: the first use of each PyTorch kernel
@@ -5632,6 +5833,7 @@ def main() -> int:
     del batches
     torch.cuda.empty_cache()
 
+    STREAM.mark("retrieval")
     print("phase 4 retrieval leg (BASELINE config 6)")
     batches = retrieval_leg_data(dev)
     retrieval_launches = 0
@@ -5657,6 +5859,7 @@ def main() -> int:
     del batches
     torch.cuda.empty_cache()
 
+    STREAM.mark("sliced")
     print("phase 4 sliced leg (bench.py config11_sliced whole, with Mean and Max beside it)")
     data = sliced_leg_data(dev)
     n_rows = SLICED_BATCHES * SLICED_ROWS
@@ -5703,6 +5906,7 @@ def main() -> int:
     del acc, agg, results
     torch.cuda.empty_cache()
 
+    STREAM.mark("resilience_b")
     print(f"resilience phase (b): the sliced leg's collections saved after batch {RES_SLICED_SAVE}, "
           f"restored into fresh ones, batches {RES_SLICED_SAVE + 1}-{RES_SLICED_BATCHES} fed")
     rb = resilience_sliced(dev, data, want, res_root)
@@ -5716,6 +5920,7 @@ def main() -> int:
           f"counts, sketch planes and maxima equal the uninterrupted leg's, means within "
           f"{rb['mean_rel']:.3e}; segment_sum launches {rb['launches']}")
 
+    STREAM.mark("shard")
     print(f"phase 4 sharded leg ({SHARD_RANKS} ranks on one card over gloo: the retrieval leg's "
           f"label axis and the sliced leg's cohorts split over them)")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_shard_") as shard_dir:
@@ -5762,9 +5967,11 @@ def main() -> int:
                                    for res in shard_ranks),
     }
 
+    STREAM.mark("dp")
     print(f"phase 4 data-parallel leg ({DP_RANKS} ranks on one card over gloo, "
           f"{DP_CHUNKS} chunks of {HEADLINE_CHUNK})")
     ranks = dp_leg()
+    dp_stream = sum(res["roc_stream_launches"] for res in ranks)
     counts, acc_ref, f1_ref, auroc_ref = dp_reference(dev)
     dp_total = DP_CHUNKS * HEADLINE_CHUNK
     for res in ranks:
@@ -5814,6 +6021,7 @@ def main() -> int:
         "stream_compact": sum(res["stream_compact_launches"] for res in ranks),
     }
 
+    STREAM.mark("drill")
     print(f"resilience phase (c): the kill drill ({DP_RANKS} ranks on one card over gloo, the "
           f"data-parallel leg's chunks; rank 1 killed entering round 3)")
     rc = resilience_drill(dev, res_root, counts, acc_ref, f1_ref, auroc_ref)
@@ -5828,8 +6036,10 @@ def main() -> int:
           f"data-parallel leg's gate; launches {rc['launches']}")
     shutil.rmtree(res_root)
 
+    STREAM.mark("serve")
     serve_launches = serve_phase(dev)
 
+    STREAM.mark("dist")
     print(f"phase 4 distributed-curves leg ({DIST_RANKS} ranks on one card over gloo, each "
           f"through a ShardedEvaluator: (a) {DP_CHUNKS // DIST_RANKS * HEADLINE_CHUNK} data-parallel "
           f"rows a rank, (b) the "
@@ -5911,9 +6121,15 @@ def main() -> int:
     }
     sketch_launches["binary"] += dist_launches["segment_sum_sketch"]
 
+    STREAM.mark("tools_examples")
     tools_launches = tools_examples_phase(dev)
 
     print("phase 5 kernel timings at the main path's shapes (obs off)")
+    STREAM.mark(None)
+    # the stream AUROC's C entry calls by leg, this process's and the ranks'
+    stream_legs = dict(STREAM.by_leg, dp_ranks=dp_stream, drill_ranks=rc["launches"]["roc_stream"],
+                       dist_ranks=sum(res["roc_stream_launches"] for res in dist_ranks),
+                       serve_served_path=serve_launches["roc_stream"])
     obs.disable()
     launches = {k: headline_launches[k] + macro_launches[k] + small_launches[k] + dp_launches[k]
                 + curve_launches[k] for k in headline_launches}
@@ -5945,6 +6161,7 @@ def main() -> int:
     rows.extend(sketch_rows(timer, sketch_fold_inputs(dev, sketch_gen(dev)), sketch_launches,
                             errs["segment_sum_sketch"]))
     rows.append(score_fold_row(dev, timer, fold_leg))
+    rows.append(auroc_stream_row(dev, timer, stream_legs))
     rows.extend(shard)
     rows.extend(dist_rows(dev, timer, dist_launches))
     del cm_keys, curve_fold
@@ -5996,6 +6213,16 @@ def main() -> int:
     t = next(r for r in rows if r["name"] == "segment_sum_score_fold")
     print(f"  segment_sum_score_fold: the wrapper alone {t['launch_ms']:.4f} ms; on the "
           f"approximate headline leg {t['fold_leg']}")
+    t = next(r for r in rows if r["name"] == "auroc_stream")
+    print(f"  auroc_stream: {t['ms']:.4f} ms against the composition's {t['composition_ms']:.4f} "
+          f"(bound {t['bound_ms']:.4f}); device ms by part (profiler) "
+          f"{ {k: round(v, 4) for k, v in t['parts_ms'].items()} }; C entry calls "
+          f"(roc_stream.launches) {t['launches']} by leg {t['launches_by_leg']}, a raw compute() "
+          f"{t['compute_launches']}; curves.auroc_route {t['routes']}")
+    for rows_, st in t["stall"].items():
+        print(f"  auroc_stream: 16 tenants' computes of {rows_} rows in a row: float32 targets (the "
+              f"flag read) {st['float32_ms']:.4f} ms, bool targets (no read) {st['bool_ms']:.4f} ms: "
+              f"{st['per_compute_ms']:.4f} ms a compute")
     t = shard[0]["at_k10"]
     print(f"  topk_label_tile: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
           f"{t['library_ms']:.4f}, bound {t['bound_ms']:.4f}) at ({RETRIEVAL_ROWS}, {SHARD_LABELS}) "

@@ -1756,3 +1756,249 @@ def test_a_ragged_window_folds_each_accuracy_once_on_the_card(dev, monkeypatch):
     for k, states in want.items():
         for name, v in states.items():
             assert got[k][name].device == dev and torch.equal(got[k][name].cpu(), v), (k, name)
+
+
+# ------------------------------------------- the exact AUROC's stream route
+# ops/roc_stream.py: the key pass, the (key, label) radix sort and the
+# integration over tie-group ends, held to the composition on the CPU (the
+# route the CPU tests hold to the JAX package), to its own plain version
+# (bit for bit: the same integers, the same rounding), and, where no NaN
+# score plays, to a float64 Mann-Whitney AUROC with ties at one half
+_TILE = 4096  # csrc/roc_stream.cu: kThreads x kItems rows a tile
+
+
+def _rank_auroc64(x, t):
+    """The float64 rank AUROC of NaN-free scores, ties at one half."""
+    xs, order = torch.sort(x.to(torch.float64))
+    ts = t.to(torch.float64)[order]
+    _, counts = torch.unique_consecutive(xs, return_counts=True)
+    ends = torch.cumsum(counts, 0).to(torch.float64)
+    rank = (ends - counts + 1 + ends) / 2
+    gid = torch.repeat_interleave(torch.arange(counts.numel(), device=x.device), counts)
+    pos = torch.zeros_like(rank).index_add_(0, gid, ts)
+    p = float(ts.sum())
+    q = ts.numel() - p
+    return (float((rank * pos).sum()) - p * (p + 1) / 2) / (p * q)
+
+
+def _stream_case(name, n, seed):
+    """CPU scores and float32 {0, 1} targets of a named case."""
+    g = torch.Generator().manual_seed(seed)
+    t = (torch.rand(n, generator=g) < 0.3).float()
+    if name == "heavy_ties":  # groups of about n / 8 rows, each over many tiles
+        x = torch.randint(0, 8, (n,), generator=g).float() / 8
+    elif name == "one_group":
+        x = torch.full((n,), 0.25)
+    elif name == "straddling":  # groups of 37 rows across every tile edge
+        x = (torch.arange(n) // 37).float()[torch.randperm(n, generator=g)]
+    elif name == "integer_valued":
+        x = torch.randint(-1000, 1000, (n,), generator=g).float()
+    elif name == "signed_zero":
+        x = torch.tensor([0.0, -0.0, 1.0, -1.0])[torch.randint(0, 4, (n,), generator=g)]
+    elif name == "infinities":
+        x = torch.randn(n, generator=g)
+        x[torch.rand(n, generator=g) < 0.2] = float("inf")
+        x[torch.rand(n, generator=g) < 0.2] = -float("inf")
+    elif name == "distinct":
+        x = torch.randn(n, generator=g)
+    elif name == "all_positive":
+        x, t = torch.randn(n, generator=g), torch.ones(n)
+    else:  # all_negative
+        x, t = torch.randn(n, generator=g), torch.zeros(n)
+    return x, t
+
+
+def _assert_stream_auroc(dev, x, t, nan_free=True):
+    """The stream route on the card: one ``stream`` route a call, bit-equal
+    to its plain version, within 1e-6 relative of the CPU composition and of
+    the float64 rank AUROC."""
+    from torcheval_tpu_torch.ops import roc_stream
+    from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
+
+    want = float(binary_auroc_kernel(x.cpu(), t.cpu()))
+    plain = roc_stream.binary_auroc_stream_plain(x.to(dev), t.to(dev))
+    before = count("curves.auroc_route", route="stream")
+    got = binary_auroc_kernel(x.to(dev), t.to(dev))
+    torch.cuda.synchronize()
+    assert count("curves.auroc_route", route="stream") == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == ()
+    assert torch.equal(got, plain[0])
+    assert abs(float(got) - want) <= 1e-6 * abs(want)
+    labels = t.to(torch.int32)  # the composition's cast
+    if nan_free and x.numel() and 0 < int(labels.sum()) < t.numel():
+        ref = _rank_auroc64(x.to(dev), labels.to(dev))
+        assert abs(float(got) - ref) <= 1e-6 * ref
+    return got
+
+
+_STREAM_CASES = ["heavy_ties", "one_group", "straddling", "integer_valued", "signed_zero",
+                 "infinities", "distinct", "all_positive", "all_negative"]
+
+
+@pytest.mark.parametrize("n", [1, 3, _TILE - 1, _TILE, _TILE + 1, 5 * _TILE + 5, (1 << 20) + 3])
+@pytest.mark.parametrize("case", _STREAM_CASES)
+def test_stream_auroc_equals_the_composition(dev, case, n):
+    x, t = _stream_case(case, n, n)
+    _assert_stream_auroc(dev, x, t)
+
+
+@pytest.mark.parametrize("at", ["first", "middle", "last", "scattered", "all"])
+@pytest.mark.parametrize("n", [7, 3 * _TILE + 11])
+def test_stream_auroc_keeps_nan_rows_in_input_order(dev, at, n):
+    """Every NaN row is a group of its own, after every real score, in
+    input order: the composition's stable sort."""
+    x, t = _stream_case("heavy_ties", n, 3)
+    t[::2] = 1.0  # labels among the NaN rows that move the area with their order
+    where = {"first": slice(0, 3), "middle": slice(n // 2, n // 2 + 3),
+             "last": slice(n - 3, n), "scattered": slice(0, n, 5), "all": slice(0, n)}[at]
+    x[where] = float("nan")
+    if at == "scattered":
+        x[1] = -float("nan")  # a NaN of the other sign: the same key
+    _assert_stream_auroc(dev, x, t, nan_free=False)
+
+
+@pytest.mark.parametrize("tdtype", [torch.bool, torch.int64, torch.int32, torch.uint8,
+                                    torch.float32, torch.float64, torch.float16])
+@pytest.mark.parametrize("sdtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_stream_auroc_takes_every_binary_target_type(dev, sdtype, tdtype):
+    x, t = _stream_case("integer_valued", 2 * _TILE + 3, 11)
+    _assert_stream_auroc(dev, (x / 64).to(sdtype), t.to(tdtype))
+
+
+@pytest.mark.parametrize("values", [[0.0, 1.0, 0.5, 1.5, -0.5], [0, 1, 1]])
+def test_stream_auroc_takes_targets_whose_cast_is_binary(dev, values):
+    x, _ = _stream_case("heavy_ties", 10_000, 12)
+    g = torch.Generator().manual_seed(12)
+    t = torch.tensor(values)[torch.randint(0, len(values), (10_000,), generator=g)]
+    _assert_stream_auroc(dev, x, t)
+
+
+@pytest.mark.parametrize("values,dtype", [
+    ([0.0, 1.0, 2.0], torch.float32), ([0.0, 1.0, -1.0], torch.float32),
+    ([0, 1, 2], torch.int64), ([0, 1, 3], torch.uint8), ([0.0, 1.0, float("nan")], torch.float32),
+])
+def test_stream_auroc_gives_other_targets_to_the_composition(dev, values, dtype):
+    """A target whose int32 cast is not 0 or 1 (one row is enough) takes the
+    composition on the card, which equals the CPU's."""
+    from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
+
+    n = 3 * _TILE + 7
+    x, _ = _stream_case("heavy_ties", n, 13)
+    g = torch.Generator().manual_seed(13)
+    t = torch.tensor(values[:2], dtype=dtype)[torch.randint(0, 2, (n,), generator=g)]
+    t[n // 3] = torch.tensor(values[2], dtype=dtype)
+    if dtype != torch.float32 or values[2] == values[2]:  # NaN casts differ by device
+        want = float(binary_auroc_kernel(x, t))
+    before = (count("curves.auroc_route", route="stream"),
+              count("curves.auroc_route", route="composition"))
+    got = binary_auroc_kernel(x.to(dev), t.to(dev))
+    torch.cuda.synchronize()
+    assert count("curves.auroc_route", route="stream") == before[0]
+    assert count("curves.auroc_route", route="composition") == before[1] + 1
+    if dtype != torch.float32 or values[2] == values[2]:
+        assert abs(float(got) - want) <= 1e-6 * abs(want)
+
+
+def test_stream_auroc_of_nothing_is_one_half(dev):
+    from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
+
+    got = binary_auroc_kernel(torch.empty(0, device=dev), torch.empty(0, device=dev))
+    assert float(got) == 0.5 == float(binary_auroc_kernel(torch.empty(0), torch.empty(0)))
+    assert count("curves.auroc_route", route="stream") == 1
+
+
+def test_stream_auroc_steps_equal_their_plain_versions(dev, monkeypatch):
+    """One route call over two parts, its buffers read where ``_carve``
+    put them: the sorted keys and labels that the integration reads, bit
+    for bit the plain keys sorted stably and the labels they carry, and
+    the doubled area and the positives as the plain version's integers."""
+    from torcheval_tpu_torch.ops import roc_stream
+
+    x, t = _stream_case("straddling", 7 * _TILE + 13, 14)
+    x[5] = float("nan")
+    x[17] = -0.0
+    x[: 3 * _TILE] = 2.5  # one group over three tiles
+    x, t = x.to(dev), t.to(dev)
+    carved, seen = [], {}
+    carve, integrate = roc_stream._carve, roc_stream._integrate
+
+    def carve_and_keep(n, lib, device):
+        carved.append(carve(n, lib, device))
+        return carved[-1]
+
+    def integrate_and_keep(lib, keys, labels, scratch, totals, out):
+        seen.update(keys=keys, labels=labels, totals=totals)
+        integrate(lib, keys, labels, scratch, totals, out)
+
+    monkeypatch.setattr(roc_stream, "_carve", carve_and_keep)
+    monkeypatch.setattr(roc_stream, "_integrate", integrate_and_keep)
+    auc = roc_stream.binary_auroc_stream([x[:1000], x[1000:]], [t[:1000], t[1000:]])
+    torch.cuda.synchronize()
+    ((keys, keys_alt, labels, labels_alt, _, _),) = carved
+    read = (seen["keys"].data_ptr(), seen["labels"].data_ptr())
+    assert read in ((keys.data_ptr(), labels.data_ptr()), (keys_alt.data_ptr(), labels_alt.data_ptr()))
+    ref_keys, order = torch.sort(roc_stream.order_keys_plain(x), stable=True)
+    assert torch.equal(seen["keys"].to(torch.int64) & 0xFFFFFFFF, ref_keys)
+    assert torch.equal(seen["labels"], t.to(torch.uint8)[order])
+    plain_auc, area, p = roc_stream.binary_auroc_stream_plain(x, t)
+    assert seen["totals"][:2].tolist() == [area, p] and torch.equal(auc, plain_auc)
+
+
+def test_stream_auroc_reads_a_many_part_cache_in_place(dev, monkeypatch):
+    """A raw ``BinaryAUROC`` cache of several updates reaches the stream
+    route as its parts (no concatenation), one route a ``compute()``; the
+    value equals the CPU metric's."""
+    from torcheval_tpu_torch.metrics import BinaryAUROC
+    from torcheval_tpu_torch.ops import roc_stream
+
+    seen = []
+    real = roc_stream.binary_auroc_stream
+    monkeypatch.setattr(roc_stream, "binary_auroc_stream",
+                        lambda s, t: seen.append(len(s)) or real(s, t))
+    g = torch.Generator().manual_seed(15)
+    batches = [(torch.randint(0, 50, (n,), generator=g) / 50.0, (torch.rand(n, generator=g) < 0.2))
+               for n in (3000, _TILE, 1, 2 * _TILE + 9)]
+    card, cpu = BinaryAUROC(device=dev), BinaryAUROC(device="cpu")
+    for x, t in batches:
+        card.update(x.to(dev), t.to(dev))
+        cpu.update(x, t)
+    want = float(cpu.compute())
+    before = count("curves.auroc_route", route="stream")
+    keys0, sort0 = count("roc_stream.launches", step="keys"), count("roc_stream.launches", step="sort")
+    got = float(card.compute())
+    assert seen == [4] and count("curves.auroc_route", route="stream") == before + 1
+    # one key-pass launch a part, one sort
+    assert count("roc_stream.launches", step="keys") == keys0 + 4
+    assert count("roc_stream.launches", step="sort") == sort0 + 1
+    assert abs(got - want) <= 1e-6 * want
+
+
+def test_multiclass_rows_keep_the_composition_on_the_card(dev):
+    from torcheval_tpu_torch.metrics.functional import multiclass_auroc
+
+    g = torch.Generator().manual_seed(16)
+    x, t = torch.rand(5000, 7, generator=g), torch.randint(0, 7, (5000,), generator=g)
+    got = multiclass_auroc(x.to(dev), t.to(dev), num_classes=7, average=None)
+    want = multiclass_auroc(x, t, num_classes=7, average=None)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-8)
+    assert count("curves.auroc_route", route="stream") == 0
+    assert count("curves.auroc_route", route="composition") == 2  # the card's and the CPU's
+
+
+def test_stream_auroc_at_the_criteo_pass(dev):
+    """89,137,319 float32 CTR logits and labels (the criteo cell's pass)
+    against the float64 rank AUROC and the plain version."""
+    from torcheval_tpu_torch.ops import roc_stream
+    from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
+
+    n = 89_137_319
+    g = torch.Generator(device=dev).manual_seed(17)
+    t = (torch.rand(n, generator=g, device=dev) < 0.033).to(torch.float32)
+    x = torch.randn(n, generator=g, device=dev) + (1.19 * t - 3.89)
+    got = binary_auroc_kernel(x, t)
+    assert count("curves.auroc_route", route="stream") == 1
+    assert {s: count("roc_stream.launches", step=s) for s in ("keys", "sort", "integrate")} == {
+        "keys": 1, "sort": 1, "integrate": 1}
+    ref = _rank_auroc64(x, t)
+    assert abs(float(got) - ref) <= 1e-6 * ref
+    assert torch.equal(got, roc_stream.binary_auroc_stream_plain(x, t)[0])

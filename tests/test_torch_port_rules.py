@@ -35,11 +35,12 @@ from torcheval_tpu_torch.metrics import (
     TopKMultilabelAccuracy,
 )
 from torcheval_tpu_torch.ops.confusion import match_triple_counts
+from torcheval_tpu_torch.ops.curves import binary_auroc_kernel
 from torcheval_tpu_torch.ops.hist import hist, sharded_class_counts
 from torcheval_tpu_torch.ops.scatter import segment_scatter, segment_sum
 from torcheval_tpu_torch.ops.stream_compact import compact_summary_rows, stream_compact
 from torcheval_tpu_torch.ops.topk import topk, topk_kernel
-from torcheval_tpu_torch.utils.test_utils.obs_counts import launches, recording
+from torcheval_tpu_torch.utils.test_utils.obs_counts import count, launches, recording
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "torcheval_tpu_torch"
@@ -218,6 +219,17 @@ def test_segment_sum_wrapper_raises_instead_of_falling_back(no_library, obs_on):
             {"acc": MulticlassAccuracy(average="macro", num_classes=3, device="cpu")}
         ).update(ids, torch.rand(4, 3), torch.tensor([0, 1, 2, 1])).compute()
     assert (launches("segment_sum"), launches("hist")) == before
+
+
+def test_the_auroc_stream_route_raises_instead_of_falling_back(no_library, obs_on):
+    """A 1-D score column that is not on the CPU goes to the stream route's
+    kernels or raises: the composition is no fallback."""
+    x, t = torch.rand(64), torch.rand(64) < 0.5
+    with pytest.raises(RuntimeError, match="nvcc"):
+        binary_auroc_kernel(x, t)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        BinaryAUROC(device="cpu").update(x, t).compute()
+    assert count("curves.auroc_route") == 0
 
 
 def test_batched_tensors_never_reach_a_kernel_wrapper():

@@ -10,7 +10,9 @@ when a module is imported, so the package imports on a machine with no
 CPU tensors.
 
 The wrappers (``ops/hist.py``, ``ops/stream_compact.py``, ``ops/topk.py``,
-``ops/scatter.py``) take the plain version only for a tensor on the CPU (:func:`runs_plain`).
+``ops/scatter.py``) take the plain version only for a tensor on the CPU (:func:`runs_plain`);
+``ops/curves.py`` sends the exact binary AUROC to ``ops/roc_stream.py``'s
+kernels only off the CPU.
 For any other tensor they call :func:`library`, which builds the kernels or
 raises: there is no fallback.
 """
@@ -61,6 +63,14 @@ _SIGNATURES = {
         [ctypes.c_int, _P, _P, _I64, ctypes.c_int, ctypes.c_int, _P, _P, _P],
         ctypes.c_int,
     ),
+    "tc_roc_keys": ([ctypes.c_int, _P, _P, _I64, _P, _P, _P, _P], ctypes.c_int),
+    "tc_roc_sort_scratch": ([_I64], _I64),
+    "tc_roc_sort": (
+        [_P, _P, _P, _P, _I64, _P, _I64, ctypes.POINTER(ctypes.c_int), _P],
+        ctypes.c_int,
+    ),
+    "tc_roc_integrate_scratch": ([_I64], _I64),
+    "tc_roc_integrate": ([_P, _P, _I64, _P, _P, _P, _P], ctypes.c_int),
     "tc_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -72,7 +72,7 @@ from torcheval_tpu_torch.ops.curves import (
     binary_auprc_kernel,
     binary_auroc_counts_kernel,
     binary_auroc_counts_presorted_kernel,
-    binary_auroc_kernel,
+    binary_auroc_parts,
     class_onehot_rows,
     multiclass_auprc_kernel,
     multiclass_auroc_kernel,
@@ -127,8 +127,9 @@ def _combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp):
 
 def _auroc_from_parts(raw_s, raw_t, sum_s, sum_tp, sum_fp):
     if not sum_s:
-        # raw-only cache: the unit-count sort moves the target alone
-        return binary_auroc_kernel(torch.cat(raw_s), torch.cat(raw_t))
+        # raw-only cache: the unit-count sort moves the target alone; on the
+        # card the stream route reads the parts where they lie
+        return binary_auroc_parts(list(raw_s), list(raw_t))
     return binary_auroc_counts_kernel(
         *_combined_counts(raw_s, raw_t, sum_s, sum_tp, sum_fp)
     )

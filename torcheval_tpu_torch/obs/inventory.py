@@ -43,6 +43,7 @@ COUNTER, GAUGE, HISTOGRAM = "counter", "gauge", "histogram"
 
 INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "bootstrap.retries": (COUNTER, ()),
+    "curves.auroc_route": (COUNTER, ("route",)),
     "deferred.folds": (COUNTER, ("entry", "path")),
     "deferred.fold_calls": (COUNTER, ("shape",)),
     "deferred.folded_chunks": (COUNTER, ("entry",)),
@@ -78,6 +79,7 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "resilience.checkpoint.corrupt_skipped": (COUNTER, ("reason",)),
     "resilience.checkpoint.corrupt_quarantined": (COUNTER, ()),
     "resilience.checkpoint.fallback_restores": (COUNTER, ()),
+    "roc_stream.launches": (COUNTER, ("step",)),
     "segment_sum.route": (COUNTER, ("route",)),
     "serve.admissions": (COUNTER, ("result", "reason")),
     "serve.client.breaker": (COUNTER, ("event", "endpoint")),
@@ -133,9 +135,12 @@ INSTRUMENTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
 # bytes (XLA's cost analysis describes a program, not a launch), the
 # segment sum kernel's route a launch (the TPU kernel has one), and the
 # binary score folds that ran as one launch of it with the bucket keys and
-# lanes made inside (the JAX package's fold is one XLA program either way)
+# lanes made inside (the JAX package's fold is one XLA program either way),
+# the route of each exact binary AUROC (the JAX package has one route), and
+# the stream route's C entry calls (its kernels have no JAX counterpart)
 PORT_ONLY = frozenset({
-    "deferred.fold_calls", "obs.cost.launch_bytes", "segment_sum.route", "sketch.fused_folds",
+    "curves.auroc_route", "deferred.fold_calls", "obs.cost.launch_bytes", "roc_stream.launches",
+    "segment_sum.route", "sketch.fused_folds",
 })
 
 # port entry -> JAX entry (``watched`` labels and ``count_launch`` entries)

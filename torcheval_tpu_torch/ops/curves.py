@@ -15,6 +15,16 @@ gets zero-width segments inside a group and the tie diagonal across it, and
 the step integral gets zero delta-TP inside a group. Rows with a NaN score
 are padding: they sort last, never join a tie group, and carry zero counts.
 
+On the card, :func:`binary_auroc_kernel` (and :func:`binary_auroc_parts`,
+a raw cache's parts as they lie) sends a 1-D score column to the
+stream route (``ops/roc_stream.py``): one stable radix sort of (order key,
+one-byte label) pairs and one hand kernel over the tie-group ends, with no
+index permutation and no group-end propagation. Everything else takes the
+composition above, which stays the stream route's reference: the CPU,
+``(C, N)`` rows, targets whose int32 cast is not 0 or 1, the counts and
+presorted kernels, the AUPRC and the PR points. Each call counts its route
+in ``curves.auroc_route{route=stream|composition}``.
+
 Every ``_kernel`` function is watched by the recompile watchdog
 (``obs/recompile.py``) under its own name, as its JAX twin is a
 ``watched_jit`` entry.
@@ -26,7 +36,10 @@ from typing import Tuple
 
 import torch
 
+from torcheval_tpu_torch import _build
+from torcheval_tpu_torch.obs import registry as _obs
 from torcheval_tpu_torch.obs.recompile import watched
+from torcheval_tpu_torch.ops import roc_stream
 from torcheval_tpu_torch.ops.summary import group_value, sort_descending, tie_groups
 
 
@@ -131,9 +144,64 @@ def binary_auprc_counts_presorted_kernel(scores, tp_w, fp_w) -> torch.Tensor:
     return _auprc_from_group_ends(ctp, cfp)
 
 
+def _takes_stream(inputs, targets) -> bool:
+    """True for the stream route's inputs: 1-D score columns off the CPU,
+    of one type that float32 holds exactly, each with 1-D targets of its
+    length and of one type, fewer than 2^31 rows in all."""
+    if not inputs or len(inputs) != len(targets):
+        return False
+    x, t = inputs[0], targets[0]
+    return (
+        not _build.runs_plain(x)
+        and x.dtype in roc_stream.STREAM_SCORES
+        and all(a.ndim == 1 and a.dtype == x.dtype for a in inputs)
+        and all(b.shape == a.shape and b.dtype == t.dtype for a, b in zip(inputs, targets))
+        and sum(a.shape[0] for a in inputs) < 1 << 31
+    )
+
+
+def _count_route(route: str) -> None:
+    if _obs._enabled:
+        _obs.counter("curves.auroc_route", route=route)
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _binary_auroc(inputs, targets) -> torch.Tensor:
+    """The exact AUROC of lists of parts by the stream route where they
+    take it and their targets are 0 or 1, else by the composition of their
+    concatenation; one ``curves.auroc_route`` a call."""
+    if _takes_stream(inputs, targets):
+        auc = roc_stream.binary_auroc_stream(inputs, targets)
+        if auc is not None:
+            _count_route("stream")
+            return auc
+    _count_route("composition")
+    return auroc_composition(_cat(inputs), _cat(targets))
+
+
 @watched
 def binary_auroc_kernel(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Exact trapezoidal AUROC on raw samples (along the last axis)."""
+    return _binary_auroc([input], [target])
+
+
+def binary_auroc_parts(inputs, targets) -> torch.Tensor:
+    """:func:`binary_auroc_kernel` over a raw cache's parts (lists of
+    tensors). Parts that take the stream route, more than one, go to it as
+    they lie, with no concatenated copy and no watched entry; anything
+    else goes to :func:`binary_auroc_kernel`, more parts concatenated
+    first, as the JAX package concatenates its cache."""
+    if len(inputs) > 1 and _takes_stream(inputs, targets):
+        return _binary_auroc(inputs, targets)
+    return binary_auroc_kernel(_cat(inputs), _cat(targets))
+
+
+def auroc_composition(input: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """:func:`binary_auroc_kernel`'s composition, whatever the device: the
+    stream route's reference, which ``chip_smoke.py`` times beside it."""
     _, tp, fp, _ = _group_end_cumsums(input, target)
     return _auroc_from_group_ends(tp, fp)
 
